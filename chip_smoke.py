@@ -7,20 +7,29 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. the card's name and power limit, torch/CUDA versions; build the kernels
-   from ``photon_tpu_torch/ops/csrc`` and time the build;
+1. the card's name and power limit, torch/CUDA versions; build the CUDA
+   kernels from ``photon_tpu_torch/ops/csrc`` and the host router from
+   ``photon_tpu_torch/native/src`` and time both builds;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes: the fused value+gradient (four losses, ragged row count,
-   uniform and zipf ids, zero-weight rows) and the slab position-reduce
-   (gradient and forward layouts, uniform and zipf ids, padded geometry);
+   uniform and zipf ids, zero-weight rows), the slab position-reduce
+   (gradient and forward layouts, uniform and zipf ids, padded geometry),
+   and the three permutation passes of the ``xchg`` route (K4 chunk, K5
+   lane, K6 chunk-expand) over the main path's own routes, each launch bit
+   for bit: the route of each id draw (balanced: K6 + K4, and K4 in the
+   value bake; colored: K4 + K5 + K4) and, when neither draw takes the
+   colored route, one forced on the uniform batch; then each route's slot
+   products bit for bit against the ``pallas`` route's and its gradient
+   under the gradient gate;
 3. the main path: ``GlmOptimizationProblem.run`` (L-BFGS, logistic + L2) at
-   the headline GLM shape n=2^20, k=32, d=2^18 on the ``fused`` route and on
-   the ``pallas`` route, uniform and zipf ids; each kernel's launch count
-   over the run, per-evaluation time, steps/s, layout build seconds, and
-   each kernel's time beside its plain version's, a library call's and its
-   bound;
-4. the ``train`` CLI on the a1a fixture, on the card and with
-   ``--backend cpu``; the two AUCs must agree.
+   the headline GLM shape n=2^20, k=32, d=2^18 on the ``fused``, ``pallas``
+   and ``xchg`` routes, uniform and zipf ids (and one ``value_and_grad`` on
+   a forced colored route, when there is one); each kernel's launch count
+   over each run, per-evaluation time, steps/s, layout and route build
+   seconds, and each kernel's time beside its plain version's, a library
+   call's and its bound;
+4. the ``train`` CLI on the a1a fixture, on the card (default route and
+   ``xchg``) and with ``--backend cpu``; the AUCs must agree.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -65,6 +74,14 @@ F32_ULP = 2.0 ** -23
 # two f32 fits of one problem ~1e-4 apart.
 ROUTE_RTOL = 1e-4
 CLI_AUC_ATOL = 1e-4
+# The permutation passes (K4, K5, K6) move data and compute nothing: they are
+# held to their plain versions bit for bit (torch.equal), and so are the
+# xchg route's slot products to the pallas route's ``dz[rows] * vals``.  The
+# two routes' gradients then share K2 and its epilogue, whose index_add_
+# sums a key split over several dictionary slots (the hot zipf features)
+# with float atomics, in another order each run: they are held to the
+# gradient gate (GRAD_RTOL plus SUM_ULPS of the key's summed magnitudes).
+DISTS = ("uniform", "zipf")
 
 
 def log(msg: str) -> None:
@@ -341,11 +358,216 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
     return out
 
 
-def run_main_path(dev) -> dict:
+def prepare_batches(dev) -> dict:
+    """The main path's batches: per id draw, the headline batch and the same
+    batch with every layout of the ``pallas`` and ``xchg`` routes attached
+    (``attach_feature_major`` under ``PHOTON_SPARSE_GRAD=xchg``: ``al``,
+    ``al_t`` and the exchange route with the values baked in).  The route
+    is balanced where the block census allows it and colored where it does
+    not (zipf ids put a hot key's consecutive entries in one destination
+    window).  When neither draw takes the colored route, the uniform batch
+    gets one too (``force_colored``), so that K5 runs on a path."""
+    from photon_tpu_torch.data.batch import attach_feature_major
+    from photon_tpu_torch.ops import vperm
+    from photon_tpu_torch.ops.slab_reduce import build_aligned_layout
+
+    out = {}
+    os.environ["PHOTON_SPARSE_GRAD"] = "xchg"
+    for dist in DISTS:
+        batch = make_batch(dist, seed=0, device=dev)
+        t0 = time.monotonic()
+        attached = attach_feature_major(batch, aligned_dim=D)
+        torch.cuda.synchronize()
+        attach_s = time.monotonic() - t0
+        route = attached.xchg.route
+        out[dist] = {
+            "batch": batch, "attached": attached,
+            "route_kind": route_kind(route), "route_build_s": vperm.route_build_seconds,
+            "layout_build_s": attach_s - vperm.route_build_seconds,
+        }
+        log(f"  {dist}: layouts {out[dist]['layout_build_s']:.2f} s, "
+            f"{describe_route(route)} in {vperm.route_build_seconds:.2f} s")
+    os.environ.pop("PHOTON_SPARSE_GRAD", None)
+    if any(out[dist]["route_kind"] == "colored" for dist in DISTS):
+        return out
+    uniform = out["uniform"]
+    ids = uniform["batch"].ids.cpu().numpy()
+    vals = uniform["batch"].vals.cpu().numpy()
+    layout = build_aligned_layout(ids, vals, D)
+    aux = vperm.build_xchg_aux(layout, ids, vals=vals, force_colored=True,
+                               device=dev)
+    if aux.route.n_out != uniform["attached"].al.lo.numel():
+        raise AssertionError("the colored route's slots differ from the batch layout's")
+    out["forced"] = {
+        "attached": uniform["attached"]._replace(xchg=aux),
+        "route_kind": "colored", "route_build_s": vperm.route_build_seconds,
+    }
+    log(f"  uniform, forced: {describe_route(aux.route)} in "
+        f"{vperm.route_build_seconds:.2f} s")
+    return out
+
+
+def route_names(prepared) -> list:
+    return [*DISTS, *(["forced"] if "forced" in prepared else [])]
+
+
+def route_kind(route) -> str:
+    from photon_tpu_torch.ops.vperm import BalancedRoute
+
+    return "balanced" if isinstance(route, BalancedRoute) else "colored"
+
+
+def describe_route(route) -> str:
+    extra = (f", blk={route.blk}, k_expand={route.k_expand}"
+             if route_kind(route) == "balanced" else "")
+    return (f"{route_kind(route)} route (nc={route.nc}, ch={route.ch}, "
+            f"{route.total} slots{extra})")
+
+
+def route_passes(route, dev) -> list:
+    """Every K4/K5/K6 launch of ``route``'s exchange as (kernel, kernel fn,
+    plain fn, label, inputs, bytes moved), on random inputs of the launch's
+    shape."""
+    from photon_tpu_torch.ops import vperm as vp
+
+    nc, ch = route.nc, route.ch
+    x = torch.randn(nc * ch, vp.LANES, device=dev)
+    rows = nc * ch * vp.LANES
+    chunk = ("vperm_chunk", vp.chunk_pass, vp.chunk_pass_plain)
+    if route_kind(route) == "balanced":
+        # Per evaluation: K6 (stage A), K4 (stage B, when nc > 1); once, at
+        # the attach: K4 (stage A of the value bake).
+        passes = []
+        if route.k_expand:
+            width = vp.LANES // route.k_expand
+            dz2d = torch.randn(nc * ch, width, device=dev)
+            passes.append(("vperm_chunk_expand", vp.chunk_expand_pass,
+                           vp.chunk_expand_pass_plain, "stage A (dz)",
+                           (dz2d, route.a1, route.a2, route.a3, nc, ch),
+                           8 * rows + 4 * nc * ch * width))
+        if nc > 1:
+            passes.append((*chunk, "stage B",
+                           (x, route.b1, route.b2, route.b3, nc, ch), 12 * rows))
+        passes.append((*chunk, "stage A (bake)",
+                       (x, route.a1, route.a2, route.a3, nc, ch), 12 * rows))
+        return passes
+    passes = [(*chunk, "R1", (x, route.i1, route.i2, route.i3, nc, ch), 12 * rows)]
+    if nc > 1:
+        passes += [
+            ("vperm_lane", vp.lane_pass, vp.lane_pass_plain, "middle",
+             (x, route.c), 9 * rows),
+            (*chunk, "R2", (x, route.i4, route.i5, route.i6, nc, ch), 12 * rows),
+        ]
+    return passes
+
+
+def pass_library_call(kernel, args):
+    """One PyTorch call that computes the same permutation: ``index_select``
+    with the source map composed once from the planes (K4, K6), or
+    ``torch.gather`` (K5).  The map is built here, outside any timing."""
+    if kernel == "vperm_lane":
+        x, c = args
+        c64 = c.long()
+        return lambda: torch.gather(x, 1, c64)
+    src, i1, i2, i3, nc, ch = args
+    dev = src.device
+    row = torch.arange(nc * ch, device=dev)[:, None]
+    chunk = row // ch
+    c = i3.long()
+    r2 = i2.view(-1).long()[(chunk * 128 + c) * ch + (row - chunk * ch)]
+    src_row = chunk * ch + r2
+    lane = i1.view(-1).long()[src_row * 128 + c]
+    width = src.shape[1]
+    idx = (src_row * width + lane // (128 // width)).view(-1)
+    flat = src.view(-1)
+    return lambda: flat.index_select(0, idx).view(nc * ch, 128)
+
+
+def check_vperm_kernels(prepared, dev) -> dict:
+    """K4, K5 and K6 on the main path's routes against their plain versions
+    and one library call, bit for bit; then each route's slot products
+    against the ``pallas`` route's, bit for bit, and its gradient against
+    the ``pallas`` route's under the gradient gate."""
+    from photon_tpu_torch.ops import vperm as vp
+    from photon_tpu_torch.ops.slab_reduce import aligned_reduce
+
+    counters = (vp.chunk_pass, vp.lane_pass, vp.chunk_expand_pass)
+    saved = [fn.launches for fn in counters]
+    seen = set()
+    worst = 0.0
+    for name in route_names(prepared):
+        batch = prepared[name]["attached"]
+        for kernel, fn, plain, label, args, _ in route_passes(batch.xchg.route, dev):
+            got, ref = fn(*args), plain(*args)
+            lib = pass_library_call(kernel, args)()
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            same = torch.equal(got, ref) and torch.equal(got, lib)
+            log(f"  {kernel}[{name} {label}, {tuple(args[0].shape)}]: "
+                f"max_abs_err={err:.3e}, bitwise {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"{kernel} differs from its plain version")
+            seen.add(kernel)
+        al = batch.al
+        dz = torch.randn(N, device=dev)
+        pv_x = vp.xchg_slot_products(dz, batch.vals, batch.xchg).view(al.lo.shape)
+        pv_p = dz.index_select(0, al.rows.view(-1)).view(al.rows.shape) * al.vals
+        torch.cuda.synchronize()
+        same = torch.equal(pv_x, pv_p)
+        log(f"  xchg_slot_products[{name}] vs pallas dz[rows] * vals: "
+            f"max_abs_err={float((pv_x - pv_p).abs().max()):.3e}, bitwise "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{name}: the xchg slot products differ from pallas")
+        worst = max(worst, gate_report(
+            f"xchg_segment_grad[{name}] vs pallas gradient",
+            aligned_reduce(pv_x, al, D), aligned_reduce(pv_p, al, D),
+            GRAD_RTOL, aligned_reduce(pv_p.abs(), al, D),
+        ))
+    for fn, n in zip(counters, saved):
+        fn.launches = n
+    missing = {"vperm_chunk", "vperm_lane", "vperm_chunk_expand"} - seen
+    if missing:
+        raise AssertionError(f"no route of the main path runs {sorted(missing)}")
+    return {"max_abs_err": 0.0, "gradient_max_abs_err": worst}
+
+
+def vperm_timings(prepared, dev) -> dict:
+    """K4, K5 and K6 times at the main path's shapes, for every launch of
+    each route's exchange: ``{route name: [row, ...]}`` in route_passes'
+    order (the per-evaluation launches first)."""
+    from photon_tpu_torch.ops import vperm as vp
+
+    counters = (vp.chunk_pass, vp.lane_pass, vp.chunk_expand_pass)
+    saved = [fn.launches for fn in counters]
+    out = {}
+    for name in route_names(prepared):
+        rows = out[name] = []
+        for kernel, fn, plain, label, args, nbytes in route_passes(
+                prepared[name]["attached"].xchg.route, dev):
+            t_bound, by = bound(nbytes, 0)
+            row = {
+                "kernel": kernel,
+                "ms": cuda_ms(lambda: fn(*args)),
+                "plain_ms": cuda_ms(lambda: plain(*args)),
+                "library_ms": cuda_ms(pass_library_call(kernel, args)),
+                "bound_ms": t_bound, "bound_by": by,
+                "at": f"{name} {label}, {tuple(args[0].shape)}",
+            }
+            rows.append(row)
+            log(f"  {kernel} [{row['at']}]: kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    for fn, n in zip(counters, saved):
+        fn.launches = n
+    return out
+
+
+def run_main_path(prepared, dev) -> dict:
     from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
     from photon_tpu_torch.core.optimizers import OptimizerConfig
     from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
-    from photon_tpu_torch.data.batch import attach_feature_major
+    from photon_tpu_torch.ops import vperm as vp
     from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad
     from photon_tpu_torch.ops.slab_reduce import position_partial_sums
 
@@ -361,40 +583,59 @@ def run_main_path(dev) -> dict:
         regularization=reg, optimizer_config=OptimizerConfig(max_iterations=2),
     ))
     counters = {"fused_sparse": fused_value_and_grad,
-                "position_reduce": position_partial_sums}
+                "position_reduce": position_partial_sums,
+                "vperm_chunk": vp.chunk_pass, "vperm_lane": vp.lane_pass,
+                "vperm_chunk_expand": vp.chunk_expand_pass}
     launches = {name: 0 for name in counters}
     result = {"runs": []}
-    for dist in ("uniform", "zipf"):
-        batch = make_batch(dist, seed=0, device=dev)
+
+    def counted(fn):
+        """Run ``fn`` with every launch count set to 0 just before it;
+        returns (its result, the counts just after)."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: c.launches for name, c in counters.items()}
+        for name in counts:
+            launches[name] += counts[name]
+        return out, counts
+
+    def expected(route: str, batch) -> set:
+        if route == "fused":
+            return {"fused_sparse"}
+        if route == "pallas":
+            return {"position_reduce"}
+        xr = batch.xchg.route
+        if route_kind(xr) == "colored":
+            return {"position_reduce", "vperm_chunk"} | (
+                {"vperm_lane"} if xr.nc > 1 else set())
+        return {"position_reduce"} | (
+            {"vperm_chunk_expand"} if xr.k_expand else {"vperm_chunk"}) | (
+            {"vperm_chunk"} if xr.nc > 1 else set())
+
+    for dist in DISTS:
+        prep = prepared[dist]
         finals = {}
-        for route in ("fused", "pallas"):
-            if route == "pallas":
-                os.environ["PHOTON_SPARSE_GRAD"] = "pallas"
-                t0 = time.monotonic()
-                run_batch = attach_feature_major(batch, aligned_dim=D)
-                torch.cuda.synchronize()
-                layout_s = time.monotonic() - t0
-            else:
+        for route in ("fused", "pallas", "xchg"):
+            if route == "fused":
                 os.environ.pop("PHOTON_SPARSE_GRAD", None)
-                run_batch, layout_s = batch, 0.0
+                run_batch = prep["batch"]
+            else:
+                os.environ["PHOTON_SPARSE_GRAD"] = route
+                run_batch = prep["attached"]
             w0 = torch.zeros(D, device=dev)
             # An untimed fit first: CUDA loads each kernel's module at its
             # first launch, so the first fit in a process pays for loading
             # every kernel the optimizer uses; steps/s reads the steady state.
             warm.run(run_batch, w0)
-            for fn in counters.values():
-                fn.launches = 0
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            coefficients, res = problem.run(run_batch, w0)
-            torch.cuda.synchronize()
+            (coefficients, res), counts = counted(lambda: problem.run(run_batch, w0))
             wall = time.monotonic() - t0
-            counts = {name: fn.launches for name, fn in counters.items()}
-            for name in counts:
-                launches[name] += counts[name]
-            kernel = "fused_sparse" if route == "fused" else "position_reduce"
-            if counts[kernel] == 0:
-                raise AssertionError(f"route {route} never launched {kernel}")
+            unlaunched = sorted(k for k in expected(route, run_batch) if not counts[k])
+            if unlaunched:
+                raise AssertionError(f"{dist}/{route}: never launched {unlaunched}")
             evals = cuda_ms(
                 lambda: objective.value_and_grad(coefficients.means, run_batch),
                 reps=10,
@@ -413,29 +654,59 @@ def run_main_path(dev) -> dict:
                 "fit_s": wall, "steps_per_s": res.iterations / wall,
                 "value_and_grad_ms": evals, "evaluations": n_evals,
                 "outside_objective_ms_per_iteration": rest_ms,
-                "layout_build_s": layout_s,
+                "layout_build_s": 0.0 if route == "fused" else prep["layout_build_s"],
                 "launches": counts,
             }
+            if route == "xchg":
+                row["route_kind"] = prep["route_kind"]
+                row["route_build_s"] = prep["route_build_s"]
             result["runs"].append(row)
             log(f"  {dist}/{route}: {res.iterations} iterations, f {f0:.6g} -> "
                 f"{res.value:.9g}, {row['steps_per_s']:.3f} steps/s, "
                 f"value_and_grad {evals:.3f} ms x {n_evals}, outside the "
-                f"objective {rest_ms:.3f} ms/iteration, layout build {layout_s:.2f} s, "
-                f"launches {counts}")
+                f"objective {rest_ms:.3f} ms/iteration, layout build "
+                f"{row['layout_build_s']:.2f} s"
+                + (f", {prep['route_kind']} route build {prep['route_build_s']:.2f} s"
+                   if route == "xchg" else "")
+                + f", launches { {k: v for k, v in counts.items() if v} }")
             if route == "pallas":
                 log(f"  kernel times, {dist} ids:")
                 result.setdefault("timings", {})[dist] = kernel_timings(
-                    batch, run_batch.al, run_batch.al_t, dev
+                    prep["batch"], run_batch.al, run_batch.al_t, dev
                 )
-            del run_batch
         os.environ.pop("PHOTON_SPARSE_GRAD", None)
-        rel = abs(finals["fused"] - finals["pallas"]) / abs(finals["fused"])
-        log(f"  {dist}: fused vs pallas final value rel diff {rel:.3e} "
-            f"(tolerance {ROUTE_RTOL:g})")
-        if rel > ROUTE_RTOL:
-            raise AssertionError(f"{dist}: routes disagree ({rel:.3e})")
-        del batch
-        torch.cuda.empty_cache()
+        for a, b in (("fused", "pallas"), ("pallas", "xchg")):
+            rel = abs(finals[a] - finals[b]) / abs(finals[a])
+            log(f"  {dist}: {a} vs {b} final value rel diff {rel:.3e} "
+                f"(tolerance {ROUTE_RTOL:g}{', exact' if rel == 0 else ''})")
+            if rel > ROUTE_RTOL:
+                raise AssertionError(f"{dist}: routes {a} and {b} disagree ({rel:.3e})")
+
+    if "forced" in prepared:
+        # A colored route forced on the uniform batch: one value_and_grad,
+        # against the balanced route's on the same batch.
+        os.environ["PHOTON_SPARSE_GRAD"] = "xchg"
+        colored = prepared["forced"]["attached"]
+        w = torch.randn(D, device=dev) * 0.01
+        objective.value_and_grad(w, colored)  # module loads, outside the count
+        (v_c, g_c), counts = counted(lambda: objective.value_and_grad(w, colored))
+        unlaunched = sorted(k for k in expected("xchg", colored) if not counts[k])
+        if unlaunched:
+            raise AssertionError(f"colored route: never launched {unlaunched}")
+        v_b, _ = objective.value_and_grad(w, prepared["uniform"]["attached"])
+        colored_ms = cuda_ms(lambda: objective.value_and_grad(w, colored), reps=5)
+        os.environ.pop("PHOTON_SPARSE_GRAD", None)
+        rel = abs(float(v_c) - float(v_b)) / abs(float(v_b))
+        log(f"  uniform/xchg forced colored route: value_and_grad {colored_ms:.3f} "
+            f"ms, launches { {k: v for k, v in counts.items() if v} }, value rel "
+            f"diff to the balanced route {rel:.3e} (tolerance {VALUE_RTOL:g})")
+        if rel > VALUE_RTOL:
+            raise AssertionError("the colored and balanced routes disagree")
+        result["forced_colored"] = {
+            "value_and_grad_ms": colored_ms, "launches": counts,
+            "route_build_s": prepared["forced"]["route_build_s"]}
+    log("  permutation kernel times:")
+    result["vperm_timings"] = vperm_timings(prepared, dev)
     result["launches"] = launches
     return result
 
@@ -444,8 +715,9 @@ def run_cli() -> dict:
     aucs = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        for backend in ("gpu", "cpu"):
-            out_dir = os.path.join(tmp, backend)
+        for backend, route in (("gpu", None), ("cpu", None), ("gpu", "xchg")):
+            name = backend if route is None else f"{backend}/{route}"
+            out_dir = os.path.join(tmp, name.replace("/", "_"))
             cmd = [
                 sys.executable, "-m", "photon_tpu_torch.drivers.train",
                 "--input", "tests/fixtures/a1a.libsvm",
@@ -455,23 +727,28 @@ def run_cli() -> dict:
                 "--evaluators", "AUC,LOGISTIC_LOSS",
                 "--output-dir", out_dir, "--backend", backend,
             ]
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+            env = {k: v for k, v in os.environ.items() if k != "PHOTON_SPARSE_GRAD"}
+            if route is not None:
+                env["PHOTON_SPARSE_GRAD"] = route
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                                  env=env)
             if proc.returncode != 0:
-                raise RuntimeError(f"train CLI ({backend}) failed:\n{proc.stderr[-4000:]}")
+                raise RuntimeError(f"train CLI ({name}) failed:\n{proc.stderr[-4000:]}")
             with open(os.path.join(out_dir, "training_summary.json")) as f:
                 summary = json.load(f)
             best = next(e for e in summary["sweep"]
                         if e["lambda"] == summary["best_lambda"])
-            aucs[backend] = best["metrics"]["AUC"]
-            log(f"  train CLI --backend {backend}: best lambda "
-                f"{summary['best_lambda']:g}, AUC {aucs[backend]:.6f}, "
+            aucs[name] = best["metrics"]["AUC"]
+            log(f"  train CLI --backend {backend}, route {route or 'default'}: "
+                f"best lambda {summary['best_lambda']:g}, AUC {aucs[name]:.6f}, "
                 f"device {summary['device']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    diff = abs(aucs["gpu"] - aucs["cpu"])
-    log(f"  AUC gpu vs cpu: |diff| {diff:.2e} (tolerance {CLI_AUC_ATOL:g})")
-    if diff > CLI_AUC_ATOL:
-        raise AssertionError("the CLI's AUC differs between gpu and cpu")
+    for other in ("cpu", "gpu/xchg"):
+        diff = abs(aucs["gpu"] - aucs[other])
+        log(f"  AUC gpu vs {other}: |diff| {diff:.2e} (tolerance {CLI_AUC_ATOL:g})")
+        if diff > CLI_AUC_ATOL:
+            raise AssertionError(f"the CLI's AUC differs between gpu and {other}")
     return aucs
 
 
@@ -479,6 +756,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    from photon_tpu_torch.native import build as native_build
     from photon_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -497,13 +775,22 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
+    if native_build.get_lib() is None:
+        raise RuntimeError(f"the host router did not build: {native_build.build_error()}")
+    log(f"  built the host router ({native_build.lib_path()}) in "
+        f"{native_build.build_seconds:.2f} s")
 
     log("phase 2: kernels against their plain versions")
     k1 = check_fused_kernel(dev)
     k2 = check_position_kernel(dev)
+    log(f"  the main path's layouts and exchange routes, n={N}, k={K}, d={D}:")
+    prepared = prepare_batches(dev)
+    kv = check_vperm_kernels(prepared, dev)
 
     log(f"phase 3: main path, L-BFGS at n={N}, k={K}, d={D}")
-    main_path = run_main_path(dev)
+    main_path = run_main_path(prepared, dev)
+    del prepared
+    torch.cuda.empty_cache()
 
     log("phase 4: train CLI on a1a")
     run_cli()
@@ -511,6 +798,7 @@ def main() -> int:
     timings = main_path["timings"]["uniform"]
     zipf = main_path["timings"]["zipf"]
     grad_row = timings["position_reduce[grad]"]
+    vt = main_path["vperm_timings"]
     kernels = [
         {
             "name": "fused_sparse", "route": "cuda",
@@ -535,7 +823,25 @@ def main() -> int:
                      "forward": zipf["position_reduce[forward]"]},
         },
     ]
+    for name, replaces in (("vperm_chunk", "photon_tpu/ops/vperm.py:309"),
+                           ("vperm_lane", "photon_tpu/ops/vperm.py:328"),
+                           ("vperm_chunk_expand", "photon_tpu/ops/vperm.py:860")):
+        # The first per-evaluation launch on the uniform route where it runs
+        # the kernel, else on the first route that does; every other launch
+        # of the kernel beside it.
+        timed = [row for rows in vt.values() for row in rows if row["kernel"] == name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "photon_tpu_torch/ops/csrc/vperm.cu", "replaces": replaces,
+            "launches": main_path["launches"][name],
+            "max_abs_err": kv["max_abs_err"],
+            **{key: timed[0][key] for key in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
+            "other_launches": timed[1:],
+        })
     log(f"main path runs: {json.dumps(main_path['runs'])}")
+    if "forced_colored" in main_path:
+        log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 Counterpart of ``photon_tpu/core/objective.py`` for value and gradient.
 ``value_and_grad`` dispatches a sparse batch to one of the routes of
-``ops/sparse_grad_select.py`` — the fused kernel, the slab position-reduce,
-or the torch-op ``fm`` / ``autodiff`` reductions — and adds the L2 term
+``ops/sparse_grad_select.py`` — the fused kernel, the slab position-reduce
+(with or without the static exchange), or the torch-op ``fm`` /
+``autodiff`` reductions — and adds the L2 term
 analytically.  No route differentiates through a kernel: each returns the
 value and the gradient explicitly.  L1 never enters the smooth objective.
 """
@@ -116,14 +117,15 @@ class GlmObjective:
         from photon_tpu_torch.ops.sparse_grad_select import select_kernel
 
         return select_kernel(
-            has_fm=batch.fm is not None, has_aligned=batch.al is not None
+            has_fm=batch.fm is not None, has_aligned=batch.al is not None,
+            has_xchg=batch.xchg is not None and batch.al is not None,
         )
 
     def _xu_product(self, kernel: str, u: Tensor, batch: SparseBatch) -> Tensor:
         """Per-row ``X u`` (no offset): through the transposed slab layout
-        on the ``pallas`` route when the batch carries one, else the
-        row-major gather."""
-        if kernel == "pallas" and batch.al_t is not None:
+        on the ``pallas`` and ``xchg`` routes when the batch carries one,
+        else the row-major gather."""
+        if kernel in ("pallas", "xchg") and batch.al_t is not None:
             from photon_tpu_torch.ops.slab_reduce import aligned_segment_grad
 
             return aligned_segment_grad(u, batch.al_t, batch.num_examples)
@@ -136,6 +138,10 @@ class GlmObjective:
         self, kernel: str, per_row: Tensor, batch: SparseBatch, dim: int
     ) -> Tensor:
         """``g[f] = sum_e per_row[row_e] * val_e`` through the route's layout."""
+        if kernel == "xchg":
+            from photon_tpu_torch.ops.vperm import xchg_segment_grad
+
+            return xchg_segment_grad(per_row, batch.vals, batch.al, batch.xchg, dim)
         if kernel == "pallas":
             from photon_tpu_torch.ops.slab_reduce import aligned_segment_grad
 
@@ -148,7 +154,8 @@ class GlmObjective:
         self, w: Tensor, batch: SparseBatch, kernel: str
     ) -> tuple[Tensor, Tensor]:
         """Data term (no regularization) of value and gradient via a route
-        that reduces through a layout (``pallas``, ``fm``, ``autodiff``)."""
+        that reduces through a layout (``pallas``, ``xchg``, ``fm``,
+        ``autodiff``)."""
         z = self._margins_for_kernel(kernel, w, batch)
         v = torch.sum(batch.weight * self.loss.value(z, batch.label))
         dz = batch.weight * self.loss.d1(z, batch.label)

@@ -11,7 +11,8 @@ Both carry ``label``, ``offset`` and ``weight`` per row.  A sparse batch can
 also carry static layouts built once on the host and used by every
 objective evaluation: the feature-major sort (``fm``, for the ``fm`` route)
 and the slab-aligned layouts (``al`` for the gradient, ``al_t`` for the
-margins, for the ``pallas`` route — ``ops/slab_reduce.py``).
+margins, for the ``pallas`` route — ``ops/slab_reduce.py``) and the
+exchange route of the ``xchg`` route (``xchg``, ``ops/vperm.py``).
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ class SparseBatch(NamedTuple):
     fm: Optional[FeatureMajorAux] = None
     al: Optional[object] = None  # ops.slab_reduce.AlignedLayoutDev
     al_t: Optional[object] = None  # transposed (row-dictionary) layout
+    xchg: Optional[object] = None  # ops.vperm.XchgAux, into al's slot order
 
     @property
     def num_examples(self) -> int:
@@ -91,6 +93,7 @@ class SparseBatch(NamedTuple):
             fm=fm,
             al=None if self.al is None else self.al.to(device),
             al_t=None if self.al_t is None else self.al_t.to(device),
+            xchg=None if self.xchg is None else self.xchg.to(device),
         )
 
 
@@ -182,7 +185,12 @@ def attach_feature_major(
     ``aligned_dim`` (the coefficient dimension) also the slab-aligned
     gradient layout ``al`` and, unless ``aligned_forward`` is False, the
     transposed layout ``al_t`` whose position-reduce yields the margins —
-    the inputs of the ``pallas`` route.  Single-device batches only.
+    the inputs of the ``pallas`` route.  When the ``xchg`` route is forced
+    (``PHOTON_SPARSE_GRAD=xchg``) also the exchange route into ``al``'s
+    slot order with the values baked in, and ``al_t`` whatever
+    ``aligned_forward`` says: the route exists to remove the per-step
+    gathers, and row-major margins would bring one back.  Single-device
+    batches only.
     """
     if not isinstance(batch, SparseBatch) or batch.ids.ndim != 2:
         raise ValueError("feature-major layout requires a 2-D SparseBatch")
@@ -203,14 +211,23 @@ def attach_feature_major(
             build_row_aligned_layout,
             device_layout,
         )
+        from photon_tpu_torch.ops.sparse_grad_select import xchg_route_wanted
 
         ids2 = ids.reshape(n, k)
         vals2 = vals.reshape(n, k)
-        batch = batch._replace(
-            al=device_layout(build_aligned_layout(ids2, vals2, aligned_dim), dev)
-        )
-        if aligned_forward:
+        want_xchg = xchg_route_wanted()
+        layout = build_aligned_layout(ids2, vals2, aligned_dim)
+        batch = batch._replace(al=device_layout(layout, dev))
+        if aligned_forward or want_xchg:
             batch = batch._replace(
                 al_t=device_layout(build_row_aligned_layout(ids2, vals2), dev)
+            )
+        if want_xchg:
+            from photon_tpu_torch.ops.vperm import build_xchg_aux
+
+            # The route needs the host layout's slot sources (``src``),
+            # which the device layout does not carry.
+            batch = batch._replace(
+                xchg=build_xchg_aux(layout, ids2, vals=vals2, device=dev)
             )
     return batch

@@ -113,10 +113,13 @@ def test_route_selection(monkeypatch):
     assert select_kernel() == "fused"
     monkeypatch.setenv("PHOTON_SPARSE_GRAD", "fm")
     assert select_kernel(has_fm=False) == "autodiff"
-    for mode in ("xchg", "benes"):
-        monkeypatch.setenv("PHOTON_SPARSE_GRAD", mode)
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            select_kernel()
+    monkeypatch.setenv("PHOTON_SPARSE_GRAD", "xchg")
+    assert aligned_layout_wanted()
+    assert select_kernel(has_fm=True, has_aligned=True, has_xchg=True) == "xchg"
+    assert select_kernel(has_fm=True, has_aligned=True) == "pallas"
+    monkeypatch.setenv("PHOTON_SPARSE_GRAD", "benes")
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        select_kernel()
     monkeypatch.setenv("PHOTON_SPARSE_GRAD", "bogus")
     with pytest.raises(ValueError):
         select_kernel()

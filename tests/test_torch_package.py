@@ -21,6 +21,13 @@ from photon_tpu_torch.ops.slab_reduce import (
     device_layout,
     position_partial_sums,
 )
+from photon_tpu_torch.ops.vperm import (
+    build_xchg_aux,
+    chunk_expand_pass,
+    chunk_pass,
+    lane_pass,
+    xchg_segment_grad,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "photon_tpu_torch")
@@ -91,7 +98,9 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
 
 
 def test_cpu_tensors_take_the_plain_version():
-    before = (fused_value_and_grad.launches, position_partial_sums.launches)
+    kernels = (fused_value_and_grad, position_partial_sums, chunk_pass,
+               lane_pass, chunk_expand_pass)
+    before = tuple(k.launches for k in kernels)
     rng = np.random.default_rng(0)
     ids = rng.integers(0, 32, size=(64, 4)).astype(np.int32)
     vals = rng.standard_normal((64, 4)).astype(np.float32)
@@ -100,15 +109,18 @@ def test_cpu_tensors_take_the_plain_version():
         get_loss("logistic"), torch.zeros(32), *t,
         torch.zeros(64), torch.zeros(64), torch.ones(64),
     )
-    al = device_layout(build_aligned_layout(ids, vals, 32), "cpu")
+    layout = build_aligned_layout(ids, vals, 32)
+    al = device_layout(layout, "cpu")
     aligned_segment_grad(torch.ones(64), al, 32)
-    assert (fused_value_and_grad.launches, position_partial_sums.launches) == before == (0, 0)
+    aux = build_xchg_aux(layout, ids, vals=vals, device="cpu")  # K4 bake
+    xchg_segment_grad(torch.ones(64), t[1], al, aux, 32)  # K6, K4, K2
+    assert tuple(k.launches for k in kernels) == before == (0,) * len(kernels)
 
 
 def test_build_needs_nvcc_only_when_building(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
-    assert _build.sources() == ["fused_sparse", "position_reduce"]
+    assert _build.sources() == ["fused_sparse", "position_reduce", "vperm"]
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
