@@ -20,16 +20,26 @@ Phases (any failure exits non-zero and prints no result line):
    value bake; colored: K4 + K5 + K4) and, when neither draw takes the
    colored route, one forced on the uniform batch; then each route's slot
    products bit for bit against the ``pallas`` route's and its gradient
-   under the gradient gate;
+   under the gradient gate; the slab gather (K3) bit for bit on both
+   draws' gradient layouts; the ``benes`` route of the uniform batch: its
+   two Clos directions composed to the identity and its slot products bit
+   for bit against the ``pallas`` route's, its gradient and forward under
+   the gradient gate;
 3. the main path: ``GlmOptimizationProblem.run`` (L-BFGS, logistic + L2) at
    the headline GLM shape n=2^20, k=32, d=2^18 on the ``fused``, ``pallas``
    and ``xchg`` routes, uniform and zipf ids (and one ``value_and_grad`` on
    a forced colored route, when there is one); each kernel's launch count
    over each run, per-evaluation time, steps/s, layout and route build
    seconds, and each kernel's time beside its plain version's, a library
-   call's and its bound;
+   call's and its bound; then TRON (Poisson + L2) at the same shape on the
+   ``fused``, ``pallas``, ``xchg`` and ``benes`` routes (uniform ids) and
+   the first three (zipf ids): iterations, CG steps, host reads, seconds
+   per outer iteration, milliseconds per Hessian-vector product and each
+   kernel's launches;
 4. the ``train`` CLI on the a1a fixture, on the card (default route and
-   ``xchg``) and with ``--backend cpu``; the AUCs must agree.
+   ``xchg``) and with ``--backend cpu``; then with ``--optimizer tron`` on
+   the card, with ``--backend cpu`` and on the card under ``benes``; the
+   AUCs must agree.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -50,6 +60,7 @@ import torch
 
 N, K, D = 1 << 20, 32, 1 << 18  # headline GLM shape (rows, nnz per row, dim)
 LBFGS_ITERATIONS = 10
+TRON_ITERATIONS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, data sheet
 # Kernel vs plain, on the card, element by element:
@@ -79,9 +90,15 @@ CLI_AUC_ATOL = 1e-4
 # xchg route's slot products to the pallas route's ``dz[rows] * vals``.  The
 # two routes' gradients then share K2 and its epilogue, whose index_add_
 # sums a key split over several dictionary slots (the hot zipf features)
-# with float atomics, in another order each run: they are held to the
-# gradient gate (GRAD_RTOL plus SUM_ULPS of the key's summed magnitudes).
+# with atomics, in another order each run (in float64, rounded once): they
+# are held to the gradient gate (GRAD_RTOL plus SUM_ULPS of the key's
+# summed magnitudes).
+# The same holds for the benes route: the slab gather (one f32 multiply a
+# slot), its Clos permutations and its slot products bit for bit; its
+# gradient and its forward (per-row sums in another order than the
+# row-major gather's) under the gradient gate.
 DISTS = ("uniform", "zipf")
+BENES_DISTS = ("uniform",)  # the benes route is built for uniform ids only
 
 
 def log(msg: str) -> None:
@@ -290,6 +307,7 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
     """Kernel, plain and library times and bounds at the main path's
     shapes (``batch`` and its layouts ``al``/``al_t``)."""
     from photon_tpu_torch.core.losses import get_loss
+    from photon_tpu_torch.data.batch import scatter_sum
     from photon_tpu_torch.ops.fused_sparse import (
         fused_value_and_grad,
         fused_value_and_grad_plain,
@@ -335,8 +353,9 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
             # pv gather and the epilogue into out_dim key sums.
             "gather_ms": cuda_ms(lambda: per.index_select(
                 0, lay.rows.view(-1)).view(lay.rows.shape) * lay.vals),
-            "epilogue_ms": cuda_ms(lambda: torch.zeros(out_dim, device=dev).index_add_(
-                0, lay.sorted_feats, partial.view(-1).index_select(0, lay.grad_perm))),
+            "epilogue_ms": cuda_ms(lambda: scatter_sum(
+                lay.sorted_feats, partial.view(-1).index_select(0, lay.grad_perm),
+                out_dim)),
             "ms": cuda_ms(lambda: position_partial_sums(
                 lay.slab_of_tile, pv, lay.lo, lay.n_slabs)),
             "plain_ms": cuda_ms(lambda: position_partial_sums_plain(
@@ -365,10 +384,12 @@ def prepare_batches(dev) -> dict:
     ``al_t`` and the exchange route with the values baked in).  The route
     is balanced where the block census allows it and colored where it does
     not (zipf ids put a hot key's consecutive entries in one destination
-    window).  When neither draw takes the colored route, the uniform batch
-    gets one too (``force_colored``), so that K5 runs on a path."""
+    window).  The uniform batch also carries the ``benes`` routes.  When
+    neither draw takes the colored route, the uniform batch gets one too
+    (``force_colored``), so that K5 runs on a path."""
     from photon_tpu_torch.data.batch import attach_feature_major
     from photon_tpu_torch.ops import vperm
+    from photon_tpu_torch.ops.benes import build_benes_aux
     from photon_tpu_torch.ops.slab_reduce import build_aligned_layout
 
     out = {}
@@ -388,12 +409,25 @@ def prepare_batches(dev) -> dict:
         log(f"  {dist}: layouts {out[dist]['layout_build_s']:.2f} s, "
             f"{describe_route(route)} in {vperm.route_build_seconds:.2f} s")
     os.environ.pop("PHOTON_SPARSE_GRAD", None)
-    if any(out[dist]["route_kind"] == "colored" for dist in DISTS):
-        return out
     uniform = out["uniform"]
     ids = uniform["batch"].ids.cpu().numpy()
     vals = uniform["batch"].vals.cpu().numpy()
     layout = build_aligned_layout(ids, vals, D)
+    for dist in BENES_DISTS:
+        # The benes routes between the row-major stream and the slots of
+        # the same gradient layout (the builder is deterministic).
+        t0 = time.monotonic()
+        aux = build_benes_aux(layout, N, K, device=dev)
+        torch.cuda.synchronize()
+        prep = out[dist]
+        prep["benes_build_s"] = time.monotonic() - t0
+        if aux.n_slots != prep["attached"].al.lo.numel():
+            raise AssertionError("the benes route's slots differ from the batch layout's")
+        prep["attached"] = prep["attached"]._replace(benes=aux)
+        log(f"  {dist}: benes routes (grid {aux.to_slots.a} x {aux.to_slots.b}, "
+            f"{aux.n_slots} slots) in {prep['benes_build_s']:.2f} s")
+    if any(out[dist]["route_kind"] == "colored" for dist in DISTS):
+        return out
     aux = vperm.build_xchg_aux(layout, ids, vals=vals, force_colored=True,
                                device=dev)
     if aux.route.n_out != uniform["attached"].al.lo.numel():
@@ -532,6 +566,129 @@ def check_vperm_kernels(prepared, dev) -> dict:
     return {"max_abs_err": 0.0, "gradient_max_abs_err": worst}
 
 
+def slab_gather_library_call(w2d, al):
+    """Two PyTorch calls that compute K3's function: ``torch.gather`` over
+    ``w2d`` by the row index ``slab * 8 + lo`` (composed once, here, outside
+    any timing), then the multiply by ``vals``."""
+    from photon_tpu_torch.ops.slab_reduce import TILE_SUBLANES
+
+    n_tiles = int(al.slab_of_tile.shape[0])
+    tile = torch.arange(n_tiles * TILE_SUBLANES, device=w2d.device) // TILE_SUBLANES
+    idx = al.slab_of_tile[tile].long()[:, None] * 8 + al.lo.long()
+    return lambda: torch.gather(w2d, 0, idx) * al.vals
+
+
+def check_slab_gather_kernel(prepared, dev) -> dict:
+    """K3 on both draws' gradient layouts against its plain version and the
+    library call, bit for bit (one f32 multiply a slot)."""
+    from photon_tpu_torch.ops.slab_reduce import (
+        LANES,
+        aligned_gather_products,
+        aligned_gather_products_plain,
+    )
+
+    saved = aligned_gather_products.launches
+    for dist in DISTS:
+        al = prepared[dist]["attached"].al
+        w = torch.randn(D, device=dev)
+        w2d = w.index_select(0, al.dup_map).view(-1, LANES)
+        args = (w2d, al.slab_of_tile, al.lo, al.vals)
+        got, ref = aligned_gather_products(*args), aligned_gather_products_plain(*args)
+        lib = slab_gather_library_call(w2d, al)()
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref) and torch.equal(got, lib)
+        log(f"  slab_gather[{dist}, {tuple(al.lo.shape)}, tiles="
+            f"{al.slab_of_tile.shape[0]}]: max_abs_err="
+            f"{float((got - ref).abs().max()):.3e}, bitwise {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("slab_gather differs from its plain version")
+    aligned_gather_products.launches = saved
+    return {"max_abs_err": 0.0}
+
+
+def check_benes(prepared, dev) -> dict:
+    """The benes route of each batch that carries one: ``to_slots`` after
+    ``to_rows`` is the identity on the grid, bit for bit; the slot products
+    equal the ``pallas`` route's ``dz[rows] * vals`` bit for bit; the
+    gradient (shared K2 and epilogue) and the forward (per-row sums in
+    another order) under the gradient gate."""
+    from photon_tpu_torch.data.batch import gather_dot
+    from photon_tpu_torch.ops.benes import benes_slot_products, benes_xu_product
+    from photon_tpu_torch.ops.clos import apply_clos_grid
+    from photon_tpu_torch.ops.slab_reduce import aligned_gather_products, aligned_reduce
+
+    saved = aligned_gather_products.launches
+    worst = 0.0
+    for dist in BENES_DISTS:
+        batch = prepared[dist]["attached"]
+        aux, al = batch.benes, batch.al
+        x = torch.randn(aux.grid, device=dev)
+        back = apply_clos_grid(apply_clos_grid(x, aux.to_rows), aux.to_slots)
+        torch.cuda.synchronize()
+        same = torch.equal(back, x)
+        log(f"  benes[{dist}] to_slots(to_rows(x)) == x on {aux.grid} elements: "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{dist}: the benes routes are not inverse")
+        dz = torch.randn(N, device=dev)
+        pv_b = benes_slot_products(dz, batch.vals, aux).view(al.lo.shape)
+        pv_p = dz.index_select(0, al.rows.view(-1)).view(al.rows.shape) * al.vals
+        torch.cuda.synchronize()
+        same = torch.equal(pv_b, pv_p)
+        log(f"  benes_slot_products[{dist}] vs pallas dz[rows] * vals: max_abs_err="
+            f"{float((pv_b - pv_p).abs().max()):.3e}, bitwise {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{dist}: the benes slot products differ from pallas")
+        worst = max(worst, gate_report(
+            f"benes_segment_grad[{dist}] vs pallas gradient",
+            aligned_reduce(pv_b, al, D), aligned_reduce(pv_p, al, D),
+            GRAD_RTOL, aligned_reduce(pv_p.abs(), al, D),
+        ))
+        w = torch.randn(D, device=dev) * 0.1
+        worst = max(worst, gate_report(
+            f"benes_xu_product[{dist}] vs row-major gather",
+            benes_xu_product(w, al, aux, N, K), gather_dot(w, batch.ids, batch.vals),
+            GRAD_RTOL, gather_dot(w.abs(), batch.ids, batch.vals.abs()),
+        ))
+    aligned_gather_products.launches = saved
+    return {"gradient_max_abs_err": worst}
+
+
+def slab_gather_timings(prepared, dev) -> dict:
+    """K3's, its plain version's and the library call's times and K3's
+    bound on each draw's gradient layout."""
+    from photon_tpu_torch.ops.slab_reduce import (
+        LANES,
+        aligned_gather_products,
+        aligned_gather_products_plain,
+    )
+
+    saved = aligned_gather_products.launches
+    out = {}
+    for dist in DISTS:
+        al = prepared[dist]["attached"].al
+        w2d = torch.randn(D, device=dev).index_select(0, al.dup_map).view(-1, LANES)
+        args = (w2d, al.slab_of_tile, al.lo, al.vals)
+        n_tiles = int(al.slab_of_tile.shape[0])
+        slots = al.lo.numel()
+        # Each input read once, the output written once: lo, vals and out
+        # (12 bytes a slot), w2d and slab_of_tile; one multiply a slot.
+        t_bound, by = bound(12 * slots + 4 * w2d.numel() + 4 * n_tiles, slots)
+        row = out[dist] = {
+            "ms": cuda_ms(lambda: aligned_gather_products(*args)),
+            "plain_ms": cuda_ms(lambda: aligned_gather_products_plain(*args)),
+            "library_ms": cuda_ms(slab_gather_library_call(w2d, al)),
+            "bound_ms": t_bound, "bound_by": by,
+            "slots": slots, "tiles": n_tiles, "slabs": al.n_slabs,
+        }
+        log(f"  slab_gather [{dist}, {slots} slots, {n_tiles} tiles]: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms (torch.gather + multiply), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    aligned_gather_products.launches = saved
+    return out
+
+
 def vperm_timings(prepared, dev) -> dict:
     """K4, K5 and K6 times at the main path's shapes, for every launch of
     each route's exchange: ``{route name: [row, ...]}`` in route_passes'
@@ -569,7 +726,10 @@ def run_main_path(prepared, dev) -> dict:
     from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
     from photon_tpu_torch.ops import vperm as vp
     from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad
-    from photon_tpu_torch.ops.slab_reduce import position_partial_sums
+    from photon_tpu_torch.ops.slab_reduce import (
+        aligned_gather_products,
+        position_partial_sums,
+    )
 
     reg = RegularizationContext("l2", 1.0)
     objective = GlmObjective.create("logistic", reg)
@@ -585,7 +745,8 @@ def run_main_path(prepared, dev) -> dict:
     counters = {"fused_sparse": fused_value_and_grad,
                 "position_reduce": position_partial_sums,
                 "vperm_chunk": vp.chunk_pass, "vperm_lane": vp.lane_pass,
-                "vperm_chunk_expand": vp.chunk_expand_pass}
+                "vperm_chunk_expand": vp.chunk_expand_pass,
+                "slab_gather": aligned_gather_products}
     launches = {name: 0 for name in counters}
     result = {"runs": []}
 
@@ -606,6 +767,8 @@ def run_main_path(prepared, dev) -> dict:
             return {"fused_sparse"}
         if route == "pallas":
             return {"position_reduce"}
+        if route == "benes":
+            return {"slab_gather", "position_reduce"}
         xr = batch.xchg.route
         if route_kind(xr) == "colored":
             return {"position_reduce", "vperm_chunk"} | (
@@ -705,24 +868,129 @@ def run_main_path(prepared, dev) -> dict:
         result["forced_colored"] = {
             "value_and_grad_ms": colored_ms, "launches": counts,
             "route_build_s": prepared["forced"]["route_build_s"]}
+    log(f"  TRON, Poisson + L2, {TRON_ITERATIONS} outer iterations:")
+    result["tron"] = run_tron(prepared, dev, counted, expected)
     log("  permutation kernel times:")
     result["vperm_timings"] = vperm_timings(prepared, dev)
+    log("  slab gather times:")
+    result["slab_gather_timings"] = slab_gather_timings(prepared, dev)
     result["launches"] = launches
     return result
+
+
+def poisson_labels(batch, seed: int) -> torch.Tensor:
+    """Counts drawn with numpy from exp(x . w*) for a seeded w*."""
+    rng = np.random.default_rng(seed)
+    ids = batch.ids.cpu().numpy()
+    vals = batch.vals.cpu().numpy()
+    w_star = (rng.standard_normal(D) * 0.05).astype(np.float32)
+    rate = np.exp((w_star[ids] * vals).sum(axis=1))
+    return torch.as_tensor(rng.poisson(rate).astype(np.float32), device=batch.ids.device)
+
+
+def run_tron(prepared, dev, counted, expected) -> list:
+    """``GlmOptimizationProblem.run`` with TRON (Poisson + L2 = 1.0, the
+    JAX default CG cap) on each route of each draw, on the batches and
+    routes phase 2 built with Poisson labels; the final values of one draw's
+    routes must agree within ROUTE_RTOL."""
+    from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
+    from photon_tpu_torch.core.optimizers import OptimizerConfig
+    from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
+
+    reg = RegularizationContext("l2", 1.0)
+    objective = GlmObjective.create("poisson", reg)
+
+    def problem(iterations: int):
+        return GlmOptimizationProblem(objective, ProblemConfig(
+            optimizer="tron", regularization=reg,
+            optimizer_config=OptimizerConfig(
+                max_iterations=iterations, tolerance=0.0, gradient_tolerance=0.0),
+        ))
+
+    runs = []
+    for dist in DISTS:
+        prep = prepared[dist]
+        label = poisson_labels(prep["batch"], seed=11)
+        routes = ("fused", "pallas", "xchg") + (("benes",) if dist in BENES_DISTS else ())
+        finals = {}
+        for route in routes:
+            os.environ["PHOTON_SPARSE_GRAD"] = route
+            run_batch = (prep["batch"] if route == "fused"
+                         else prep["attached"])._replace(label=label)
+            if objective._sparse_kernel(run_batch) != route:
+                raise AssertionError(f"{dist}/{route}: the batch takes another route")
+            w0 = torch.zeros(D, device=dev)
+            problem(1).run(run_batch, w0)  # module loads, outside the timing
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            (coefficients, res), counts = counted(
+                lambda: problem(TRON_ITERATIONS).run(run_batch, w0))
+            wall = time.monotonic() - t0
+            unlaunched = sorted(k for k in expected(route, run_batch) if not counts[k])
+            if unlaunched:
+                raise AssertionError(f"TRON {dist}/{route}: never launched {unlaunched}")
+            f0 = float(res.history_value[0])
+            if not (np.isfinite(res.value) and res.value < f0):
+                raise AssertionError(f"TRON {dist}/{route}: objective did not decrease")
+            w = coefficients.means
+            op = objective.hvp_operator(w, run_batch)
+            v = torch.randn(D, device=dev)
+            hv_ms = cuda_ms(lambda: op(v), reps=10)
+            vg_ms = cuda_ms(lambda: objective.value_and_grad(w, run_batch), reps=10)
+            # Products: one per CG step; evaluations: one per outer iteration
+            # and one at the start.  What remains of the host clock is the
+            # loops' own work and their reads.
+            rest_ms = (wall * 1e3 - res.cg_iterations * hv_ms
+                       - (res.iterations + 1) * vg_ms)
+            finals[route] = res.value
+            row = {
+                "dist": dist, "route": route, "iterations": res.iterations,
+                "cg_steps": res.cg_iterations, "host_reads": res.host_reads,
+                "f0": f0, "final_value": res.value, "grad_norm": res.grad_norm,
+                "fit_s": wall, "s_per_iteration": wall / res.iterations,
+                "hv_ms": hv_ms, "value_and_grad_ms": vg_ms,
+                "outside_products_ms": rest_ms,
+                "outside_products_ms_per_read": rest_ms / res.host_reads,
+                "launches": counts,
+            }
+            runs.append(row)
+            log(f"  TRON {dist}/{route}: {res.iterations} iterations, {res.cg_iterations}"
+                f" CG steps, {res.host_reads} host reads, f {f0:.6g} -> {res.value:.9g},"
+                f" {row['s_per_iteration']:.4f} s/iteration, Hv {hv_ms:.3f} ms,"
+                f" value_and_grad {vg_ms:.3f} ms, outside the products "
+                f"{rest_ms:.2f} ms ({row['outside_products_ms_per_read']:.4f} ms per "
+                f"read), launches { {k: v for k, v in counts.items() if v} }")
+        os.environ.pop("PHOTON_SPARSE_GRAD", None)
+        for other in routes[1:]:
+            rel = abs(finals["fused"] - finals[other]) / abs(finals["fused"])
+            log(f"  TRON {dist}: fused vs {other} final value rel diff {rel:.3e} "
+                f"(tolerance {ROUTE_RTOL:g}{', exact' if rel == 0 else ''})")
+            if rel > ROUTE_RTOL:
+                raise AssertionError(f"TRON {dist}: routes fused and {other} disagree")
+    return runs
+
+
+# (optimizer, backend, PHOTON_SPARSE_GRAD) of each CLI run; None: the default.
+CLI_RUNS = (
+    ("lbfgs", "gpu", None), ("lbfgs", "cpu", None), ("lbfgs", "gpu", "xchg"),
+    ("tron", "gpu", None), ("tron", "cpu", None), ("tron", "gpu", "benes"),
+)
 
 
 def run_cli() -> dict:
     aucs = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        for backend, route in (("gpu", None), ("cpu", None), ("gpu", "xchg")):
+        for optimizer, backend, route in CLI_RUNS:
             name = backend if route is None else f"{backend}/{route}"
-            out_dir = os.path.join(tmp, name.replace("/", "_"))
+            if optimizer != "lbfgs":
+                name = f"{optimizer}:{name}"
+            out_dir = os.path.join(tmp, name.replace("/", "_").replace(":", "_"))
             cmd = [
                 sys.executable, "-m", "photon_tpu_torch.drivers.train",
                 "--input", "tests/fixtures/a1a.libsvm",
                 "--validation-input", "tests/fixtures/a1a.t.libsvm",
-                "--task", "logistic_regression", "--optimizer", "lbfgs",
+                "--task", "logistic_regression", "--optimizer", optimizer,
                 "--reg-type", "l2", "--reg-weights", "0.1,1,10",
                 "--evaluators", "AUC,LOGISTIC_LOSS",
                 "--output-dir", out_dir, "--backend", backend,
@@ -739,16 +1007,18 @@ def run_cli() -> dict:
             best = next(e for e in summary["sweep"]
                         if e["lambda"] == summary["best_lambda"])
             aucs[name] = best["metrics"]["AUC"]
-            log(f"  train CLI --backend {backend}, route {route or 'default'}: "
+            log(f"  train CLI --optimizer {optimizer} --backend {backend}, route "
+                f"{route or 'default'}: "
                 f"best lambda {summary['best_lambda']:g}, AUC {aucs[name]:.6f}, "
                 f"device {summary['device']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for other in ("cpu", "gpu/xchg"):
-        diff = abs(aucs["gpu"] - aucs[other])
-        log(f"  AUC gpu vs {other}: |diff| {diff:.2e} (tolerance {CLI_AUC_ATOL:g})")
+    for base, other in (("gpu", "cpu"), ("gpu", "gpu/xchg"),
+                        ("tron:gpu", "tron:cpu"), ("tron:gpu", "tron:gpu/benes")):
+        diff = abs(aucs[base] - aucs[other])
+        log(f"  AUC {base} vs {other}: |diff| {diff:.2e} (tolerance {CLI_AUC_ATOL:g})")
         if diff > CLI_AUC_ATOL:
-            raise AssertionError(f"the CLI's AUC differs between gpu and {other}")
+            raise AssertionError(f"the CLI's AUC differs between {base} and {other}")
     return aucs
 
 
@@ -786,8 +1056,10 @@ def main() -> int:
     log(f"  the main path's layouts and exchange routes, n={N}, k={K}, d={D}:")
     prepared = prepare_batches(dev)
     kv = check_vperm_kernels(prepared, dev)
+    k3 = check_slab_gather_kernel(prepared, dev)
+    kb = check_benes(prepared, dev)
 
-    log(f"phase 3: main path, L-BFGS at n={N}, k={K}, d={D}")
+    log(f"phase 3: main path, L-BFGS and TRON at n={N}, k={K}, d={D}")
     main_path = run_main_path(prepared, dev)
     del prepared
     torch.cuda.empty_cache()
@@ -839,7 +1111,21 @@ def main() -> int:
                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
             "other_launches": timed[1:],
         })
+    k3_rows = main_path["slab_gather_timings"]
+    kernels.append({
+        "name": "slab_gather", "route": "cuda",
+        "source": "photon_tpu_torch/ops/csrc/slab_gather.cu",
+        "replaces": "photon_tpu/ops/pallas_gather.py:521",
+        "launches": main_path["launches"]["slab_gather"],
+        "max_abs_err": k3["max_abs_err"],
+        **{key: k3_rows["uniform"][key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library_calls": "torch.gather + multiply",
+        "zipf": k3_rows["zipf"],
+        "benes_gradient_max_abs_err": kb["gradient_max_abs_err"],
+    })
     log(f"main path runs: {json.dumps(main_path['runs'])}")
+    log(f"TRON runs: {json.dumps(main_path['tron'])}")
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

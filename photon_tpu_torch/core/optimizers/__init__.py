@@ -1,5 +1,5 @@
-"""Optimizers of the port (L-BFGS in this slice; OWL-QN, TRON and the
-Newton solvers wait in ROADMAP.md queue 1, item 3)."""
+"""Optimizers of the port: L-BFGS, TRON and Newton-CG (OWL-QN and the
+batched Newton solvers wait in ROADMAP.md queue 1, item 3)."""
 
 from photon_tpu_torch.core.optimizers.base import (
     ConvergenceReason,
@@ -8,6 +8,8 @@ from photon_tpu_torch.core.optimizers.base import (
     OptimizerResult,
 )
 from photon_tpu_torch.core.optimizers.lbfgs import lbfgs
+from photon_tpu_torch.core.optimizers.newton_cg import newton_cg
+from photon_tpu_torch.core.optimizers.tron import tron
 
 __all__ = [
     "ConvergenceReason",
@@ -15,4 +17,6 @@ __all__ = [
     "OptimizerConfig",
     "OptimizerResult",
     "lbfgs",
+    "newton_cg",
+    "tron",
 ]

@@ -40,19 +40,27 @@ class OptimizerConfig:
     ``gradient_tolerance`` the relative gradient-norm tolerance
     (``||g|| <= gtol * max(1, ||g0||)``), both checked each iteration.
     ``history_length`` is the L-BFGS memory; ``max_line_search`` bounds the
-    backtracking halvings."""
+    backtracking halvings.  ``cg_max_iterations`` bounds the inner CG of
+    TRON and Newton-CG (0 means ``min(dim, 100)`` for TRON, LIBLINEAR's
+    constant, and ``min(dim, 256)`` for Newton-CG); ``cg_tolerance`` is
+    TRON's relative CG tolerance."""
 
     max_iterations: int = 100
     tolerance: float = 1e-7
     gradient_tolerance: float = 1e-6
     history_length: int = 10
     max_line_search: int = 25
+    cg_max_iterations: int = 0
+    cg_tolerance: float = 0.1
 
 
 class OptimizerResult(NamedTuple):
     """Final state plus per-iteration history (host arrays of length
     ``max_iterations + 1``; entry 0 is the initial point, entries not marked
-    in ``history_valid`` are unused)."""
+    in ``history_valid`` are unused).  ``cg_iterations`` is the total inner
+    CG work of the solvers that have an inner loop (TRON, Newton-CG), None
+    elsewhere; ``host_reads`` counts the device-to-host reads the loop
+    made to take its decisions."""
 
     w: torch.Tensor
     value: float
@@ -63,6 +71,8 @@ class OptimizerResult(NamedTuple):
     history_value: np.ndarray
     history_grad_norm: np.ndarray
     history_valid: np.ndarray
+    cg_iterations: Optional[int] = None
+    host_reads: Optional[int] = None
 
 
 class OptimizationStatesTracker:

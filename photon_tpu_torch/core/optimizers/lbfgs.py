@@ -86,6 +86,7 @@ def lbfgs(
     w = w0
     f, g = fun(w)
     f_h, gnorm0 = torch.stack([f, torch.linalg.vector_norm(g)]).tolist()
+    reads = 1
     gnorm_h = gnorm0
     hv[0], hg[0], hvalid[0] = f_h, gnorm0, True
     hist = _History(config.history_length, w0)
@@ -125,6 +126,7 @@ def lbfgs(
             t *= 0.5
             w_t, f_t, g_t, s, y, packed = trial(t)
             halvings += 1
+        reads += 1 + halvings
         f_new, ok, sy, yy, gnorm_new = packed
         ok = bool(ok)
         if ok and sy > _PAIR_EPS:  # cautious update: positive curvature only
@@ -151,6 +153,7 @@ def lbfgs(
             torch.isfinite(step).all().to(step.dtype),
             torch.linalg.vector_norm(step), torch.linalg.vector_norm(w),
         ]).tolist()
+        reads += 1
         if not (finite and step_norm <= 1e-3 * max(w_norm, 1.0)):
             continue
         w_p = w + step
@@ -159,10 +162,12 @@ def lbfgs(
             f_p, torch.isfinite(g_p).all().to(f_p.dtype),
             torch.linalg.vector_norm(g_p),
         ]).tolist()
+        reads += 1
         if np.isfinite(f_ph) and g_finite and gnorm_p <= gnorm_h:
             w, f, g, f_h, gnorm_h = w_p, f_p, g_p, f_ph, gnorm_p
     return OptimizerResult(
         w=w, value=f_h, grad_norm=gnorm_h, iterations=it,
         converged=reason_is_converged(reason), reason=reason,
         history_value=hv, history_grad_norm=hg, history_valid=hvalid,
+        host_reads=reads,
     )

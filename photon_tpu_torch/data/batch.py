@@ -11,8 +11,9 @@ Both carry ``label``, ``offset`` and ``weight`` per row.  A sparse batch can
 also carry static layouts built once on the host and used by every
 objective evaluation: the feature-major sort (``fm``, for the ``fm`` route)
 and the slab-aligned layouts (``al`` for the gradient, ``al_t`` for the
-margins, for the ``pallas`` route — ``ops/slab_reduce.py``) and the
-exchange route of the ``xchg`` route (``xchg``, ``ops/vperm.py``).
+margins, for the ``pallas`` route — ``ops/slab_reduce.py``), the
+exchange route of the ``xchg`` route (``xchg``, ``ops/vperm.py``) and the
+Clos routes of the ``benes`` route (``benes``, ``ops/benes.py``).
 """
 
 from __future__ import annotations
@@ -74,6 +75,7 @@ class SparseBatch(NamedTuple):
     al: Optional[object] = None  # ops.slab_reduce.AlignedLayoutDev
     al_t: Optional[object] = None  # transposed (row-dictionary) layout
     xchg: Optional[object] = None  # ops.vperm.XchgAux, into al's slot order
+    benes: Optional[object] = None  # ops.benes.BenesAux, al's slots <-> rows
 
     @property
     def num_examples(self) -> int:
@@ -94,6 +96,7 @@ class SparseBatch(NamedTuple):
             al=None if self.al is None else self.al.to(device),
             al_t=None if self.al_t is None else self.al_t.to(device),
             xchg=None if self.xchg is None else self.xchg.to(device),
+            benes=None if self.benes is None else self.benes.to(device),
         )
 
 
@@ -103,6 +106,17 @@ Batch = Union[DenseBatch, SparseBatch]
 def gather_dot(u: Tensor, ids: Tensor, vals: Tensor) -> Tensor:
     """Per-row ``sum_j u[ids_ij] * vals_ij`` (the row-major gather)."""
     return (u.index_select(0, ids.reshape(-1)).view(ids.shape) * vals).sum(-1)
+
+
+def scatter_sum(index: Tensor, values: Tensor, dim: int) -> Tensor:
+    """``out[f] = sum of values[e] over index[e] == f`` (``[dim]`` float32),
+    the transpose of a gather.  The sums accumulate in float64 and round
+    once: on the card ``index_add_`` adds with atomics in another order each
+    run, and a float32 sum of a hot key's millions of terms moves by about
+    1e-4 relative from one order to the next, which TRON's inner solves
+    amplify; in float64 the order hardly ever shows after the rounding."""
+    out = torch.zeros(dim, dtype=torch.float64, device=values.device)
+    return out.index_add_(0, index, values.double()).float()
 
 
 def margins(w: Tensor, batch: Batch) -> Tensor:
@@ -189,8 +203,11 @@ def attach_feature_major(
     (``PHOTON_SPARSE_GRAD=xchg``) also the exchange route into ``al``'s
     slot order with the values baked in, and ``al_t`` whatever
     ``aligned_forward`` says: the route exists to remove the per-step
-    gathers, and row-major margins would bring one back.  Single-device
-    batches only.
+    gathers, and row-major margins would bring one back.  When the
+    ``benes`` route is forced (``PHOTON_SPARSE_GRAD=benes``) also its Clos
+    routes between the row-major stream and ``al``'s slots, and no
+    ``al_t``: that route's forward reads ``al``.  Single-device batches
+    only.
     """
     if not isinstance(batch, SparseBatch) or batch.ids.ndim != 2:
         raise ValueError("feature-major layout requires a 2-D SparseBatch")
@@ -211,14 +228,18 @@ def attach_feature_major(
             build_row_aligned_layout,
             device_layout,
         )
-        from photon_tpu_torch.ops.sparse_grad_select import xchg_route_wanted
+        from photon_tpu_torch.ops.sparse_grad_select import (
+            benes_route_wanted,
+            xchg_route_wanted,
+        )
 
         ids2 = ids.reshape(n, k)
         vals2 = vals.reshape(n, k)
         want_xchg = xchg_route_wanted()
+        want_benes = benes_route_wanted()
         layout = build_aligned_layout(ids2, vals2, aligned_dim)
         batch = batch._replace(al=device_layout(layout, dev))
-        if aligned_forward or want_xchg:
+        if want_xchg or (aligned_forward and not want_benes):
             batch = batch._replace(
                 al_t=device_layout(build_row_aligned_layout(ids2, vals2), dev)
             )
@@ -230,4 +251,8 @@ def attach_feature_major(
             batch = batch._replace(
                 xchg=build_xchg_aux(layout, ids2, vals=vals2, device=dev)
             )
+        if want_benes:
+            from photon_tpu_torch.ops.benes import build_benes_aux
+
+            batch = batch._replace(benes=build_benes_aux(layout, n, k, device=dev))
     return batch

@@ -2,9 +2,10 @@
 
 Counterpart of the resident single-process path of
 ``photon_tpu/drivers/train.py``: read LIBSVM data, sweep the regularization
-weights with L-BFGS (optionally warm-starting each weight from the last),
-evaluate each model on the validation data, keep the best, and write the
-model, the feature index and ``training_summary.json``.
+weights with L-BFGS or TRON (optionally warm-starting each weight from the
+last), compute the coefficient variances if asked, evaluate each model on
+the validation data, keep the best, and write the model (variances
+included), the feature index and ``training_summary.json``.
 
 Usage:
     python -m photon_tpu_torch.drivers.train \\
@@ -13,9 +14,9 @@ Usage:
         --reg-weights 0.1,1,10 --evaluators AUC,LOGISTIC_LOSS \\
         --output-dir out --backend gpu
 
-Not carried in this slice (ROADMAP.md queue 1): other optimizers and L1
-(item 3), normalization and variances (items 2-3), streaming, checkpoints,
-multi-process runs, fault injection and telemetry (items 6 and 9-10).
+Not carried in this slice (ROADMAP.md queue 1): OWL-QN and L1 (item 3),
+normalization (item 2), streaming, checkpoints, multi-process runs, fault
+injection and telemetry (items 6 and 9-10).
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--task", default="logistic_regression",
                    choices=("logistic_regression", "linear_regression",
                             "poisson_regression", "smoothed_hinge_loss_linear_svm"))
-    p.add_argument("--optimizer", default="lbfgs", choices=("lbfgs",),
-                   help="lbfgs (OWL-QN and TRON wait in ROADMAP.md queue 1, item 3)")
+    p.add_argument("--optimizer", default="lbfgs", choices=("lbfgs", "tron"),
+                   help="lbfgs or tron (OWL-QN waits in ROADMAP.md queue 1, item 3)")
     p.add_argument("--reg-type", default="l2", choices=("none", "l2"),
                    help="none or l2 (L1 and elastic net need OWL-QN, ROADMAP.md "
                    "queue 1, item 3)")
@@ -50,6 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tolerance", type=float, default=1e-7)
     p.add_argument("--evaluators", default=None,
                    help="comma-separated evaluator names; default per task")
+    p.add_argument("--variance-computation", default="none",
+                   choices=("none", "simple", "full"))
     p.add_argument("--model-format", default="avro", choices=("avro", "json"))
     p.add_argument("--sweep-warm-start", action=argparse.BooleanOptionalAction,
                    default=True,
@@ -70,7 +73,7 @@ def run(args: argparse.Namespace) -> dict:
         MultiEvaluator,
         default_evaluators_for_task,
     )
-    from photon_tpu_torch.models.glm import Coefficients, model_for_task
+    from photon_tpu_torch.models.glm import model_for_task
     from photon_tpu_torch.ops.sparse_grad_select import aligned_layout_wanted
 
     device = common.device_for_backend(args.backend)
@@ -103,7 +106,8 @@ def run(args: argparse.Namespace) -> dict:
         problem = GlmOptimizationProblem(
             GlmObjective.create(args.task, reg),
             ProblemConfig(optimizer=args.optimizer, regularization=reg,
-                          optimizer_config=opt_config),
+                          optimizer_config=opt_config,
+                          variance_computation=args.variance_computation),
         )
         with logger.timed(f"train-lambda-{lam}"):
             t0 = time.monotonic()
@@ -113,7 +117,7 @@ def run(args: argparse.Namespace) -> dict:
             w_start = coefficients.means
         tracker = OptimizationStatesTracker(result, wall)
         logger.info("lambda=%g %s", lam, tracker.summary().splitlines()[0])
-        model = model_for_task(args.task, Coefficients(coefficients.means))
+        model = model_for_task(args.task, coefficients)
         metrics = {}
         if val_batch is not None:
             metrics = evaluators.evaluate(

@@ -16,9 +16,17 @@ test oracle and the path for grids under ``PYTHON_ROUTE_CAP`` elements when
 the native library cannot be built.  Larger grids refuse rather than run an
 hours-long Python walk.
 
-Everything here is numpy on the host: routing is one-time work per dataset
-layout, and the stage arrays are re-factored by ``ops/vperm.py`` before any
-of them reaches a device.
+Routing is numpy on the host, one-time work per dataset layout.  The
+``xchg`` route re-factors the stage arrays (``ops/vperm.py``) before any of
+them reaches a device; the ``benes`` route (``ops/benes.py``) applies them
+as they are: :func:`device_route` puts a route's stages on a device and
+:func:`apply_clos_grid` runs the three row-local stages as ``torch.gather``
+with transposes between them, as the reference runs them in XLA
+(``take_along_axis``).  ``torch.gather`` takes int64 indices only, so the
+device stages are stored int64: at a 2^26-element grid that is 512 MB a
+stage, about 3.2 GB for the two directions of one exchange, against
+widening three int32 stages on every call.  :func:`invert_route` inverts
+a route row by row on the host, so one coloring serves both directions.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 # Grids at or above this many elements need the native router.
 PYTHON_ROUTE_CAP = 1 << 18
@@ -191,3 +200,74 @@ def route_permutation(perm: np.ndarray, a: Optional[int] = None,
     p2[color, dst_row] = src_row
     p3[dst_row, dst_col] = color
     return ClosRoute(n=n, a=a, b=b, p1=p1, p2=p2, p3=p3)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClosRouteDev:
+    """A :class:`ClosRoute` on a device: ``p1`` [A, B], ``p2`` [B, A] and
+    ``p3`` [A, B] int64 within-row gather indices."""
+
+    n: int
+    a: int
+    b: int
+    p1: torch.Tensor
+    p2: torch.Tensor
+    p3: torch.Tensor
+
+    def to(self, device) -> "ClosRouteDev":
+        return dataclasses.replace(
+            self, p1=self.p1.to(device), p2=self.p2.to(device),
+            p3=self.p3.to(device),
+        )
+
+
+def device_route(route: ClosRoute, device) -> ClosRouteDev:
+    """Put a host route's stage arrays on ``device`` (int64, see above)."""
+
+    def put(p: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(p.astype(np.int64), device=device)
+
+    return ClosRouteDev(n=route.n, a=route.a, b=route.b,
+                        p1=put(route.p1), p2=put(route.p2), p3=put(route.p3))
+
+
+def invert_route(route: ClosRoute, n: Optional[int] = None) -> ClosRoute:
+    """The inverse permutation's route, from the same routing (host).
+
+    ``(P1 . T . P2 . T . P3)^-1 = P3^-1 . T . P2^-1 . T . P1^-1``: the same
+    three-stage form with each stage's rows inverted.  Every row is a
+    permutation, so its inverse (what the reference takes as its
+    ``argsort``) is one scatter of the column numbers.  ``n`` sets the
+    unpadded length of the inverse (defaults to the forward's)."""
+
+    def inv_rows(p: np.ndarray) -> np.ndarray:
+        inv = np.empty_like(p)
+        cols = np.broadcast_to(np.arange(p.shape[1], dtype=p.dtype), p.shape)
+        np.put_along_axis(inv, p.astype(np.int64), cols, axis=1)
+        return inv
+
+    return ClosRoute(
+        n=route.n if n is None else n, a=route.a, b=route.b,
+        p1=inv_rows(route.p3), p2=inv_rows(route.p2), p3=inv_rows(route.p1),
+    )
+
+
+def apply_clos_grid(x: torch.Tensor, route: ClosRouteDev) -> torch.Tensor:
+    """Apply a routed permutation to a full-grid flat tensor (``a * b``
+    elements in and out): three row-local gathers, two transposes."""
+    g = x.view(route.a, route.b)
+    g = torch.gather(g, 1, route.p1)
+    g = torch.gather(g.T.contiguous(), 1, route.p2)
+    g = torch.gather(g.T.contiguous(), 1, route.p3)
+    return g.view(-1)
+
+
+def apply_clos(x: torch.Tensor, route: ClosRouteDev) -> torch.Tensor:
+    """``x[perm]`` for the routed ``perm`` over a flat ``[route.n]`` tensor:
+    zero-padded to the grid, permuted, cut back to ``route.n``."""
+    if x.shape != (route.n,):
+        raise ValueError(f"shape {tuple(x.shape)} != routed n ({route.n},)")
+    total = route.a * route.b
+    if total > route.n:
+        x = torch.cat([x, x.new_zeros(total - route.n)])
+    return apply_clos_grid(x, route)[:route.n]

@@ -1,12 +1,14 @@
-"""Slab-aligned sparse reduction: host layout builders and the position-reduce
-kernel.
+"""Slab-aligned sparse reduction: host layout builders, the position-reduce
+kernel and the slab gather kernel.
 
 Counterpart of ``photon_tpu/ops/pallas_gather.py`` for the parts the
-``pallas`` route runs: the numpy layout builders (copied unchanged, so both
-packages build bit-identical layouts), the position-reduce kernel
-(``_position_reduce_kernel`` there, ``ops/csrc/position_reduce.cu`` here)
-and the two functions around it, :func:`aligned_reduce` and
-:func:`aligned_segment_grad`.
+``pallas`` and ``benes`` routes run: the numpy layout builders (copied
+unchanged, so both packages build bit-identical layouts), the
+position-reduce kernel (``_position_reduce_kernel`` there,
+``ops/csrc/position_reduce.cu`` here) and the two functions around it,
+:func:`aligned_reduce` and :func:`aligned_segment_grad`, and the slab gather
+kernel (``_gather_kernel`` there, ``ops/csrc/slab_gather.cu`` here) behind
+:func:`aligned_gather_products`, the ``benes`` forward.
 
 The layout: entries sit in tiles of ``128 x 128`` slots; every tile reads one
 *slab* of ``8 x 128`` dictionary positions, and each slot holds its entry's
@@ -402,11 +404,13 @@ position_partial_sums.launches = 0
 def aligned_reduce(pv: Tensor, al: AlignedLayoutDev, dim: int) -> Tensor:
     """Fold per-slot products ``pv`` (``[total_sub, 128]``, zeros in pad
     slots) into ``dim`` key sums: the position-reduce, then the slots in
-    key order summed into their keys."""
+    key order summed into their keys (``scatter_sum``: a hot key split over
+    thousands of slots sums in float64)."""
+    from photon_tpu_torch.data.batch import scatter_sum
+
     partial = position_partial_sums(al.slab_of_tile, pv, al.lo, al.n_slabs)
     flat = partial.view(-1).index_select(0, al.grad_perm)
-    out = torch.zeros(dim, dtype=torch.float32, device=pv.device)
-    return out.index_add_(0, al.sorted_feats, flat)
+    return scatter_sum(al.sorted_feats, flat, dim)
 
 
 def aligned_segment_grad(per_row: Tensor, al: AlignedLayoutDev, dim: int) -> Tensor:
@@ -415,3 +419,91 @@ def aligned_segment_grad(per_row: Tensor, al: AlignedLayoutDev, dim: int) -> Ten
     (``per_row`` = w over the transposed layout)."""
     pv = per_row.index_select(0, al.rows.view(-1)).view(al.rows.shape) * al.vals
     return aligned_reduce(pv, al, dim)
+
+
+def aligned_gather_products_plain(
+    w2d: Tensor, slab_of_tile: Tensor, lo: Tensor, vals: Tensor
+) -> Tensor:
+    """Plain PyTorch slab gather: each tile's ``[8, 128]`` slab block, then
+    a gather along its positions by ``lo``, times ``vals``."""
+    n_tiles = slab_of_tile.shape[0]
+    slabs = w2d.view(-1, SUBLANES, LANES).index_select(0, slab_of_tile)
+    picked = torch.take_along_dim(
+        slabs, lo.view(n_tiles, TILE_SUBLANES, LANES).long(), dim=1
+    )
+    return (picked * vals.view(n_tiles, TILE_SUBLANES, LANES)).view(lo.shape)
+
+
+def aligned_gather_products(
+    w2d: Tensor, slab_of_tile: Tensor, lo: Tensor, vals: Tensor
+) -> Tensor:
+    """Per-slot ``w[f] * val`` over a slab-aligned layout:
+    ``out[t * 128 + s, l] = w2d[slab_of_tile[t] * 8 + lo[t * 128 + s, l], l]
+    * vals[t * 128 + s, l]``, with ``w2d = w[dup_map].view(-1, 128)`` (see
+    :func:`gather_products`).  ``[total_sub, 128]`` float32, 0.0 in pad
+    slots.
+
+    CUDA tensors launch the ``slab_gather`` kernel; CPU tensors take
+    :func:`aligned_gather_products_plain`.
+    """
+    n_tiles = int(slab_of_tile.shape[0])
+    shape = (n_tiles * TILE_SUBLANES, LANES)
+    if lo.shape != shape or vals.shape != shape:
+        raise ValueError(
+            f"lo/vals must be [{shape[0]}, {LANES}], got {tuple(lo.shape)} "
+            f"and {tuple(vals.shape)}"
+        )
+    if w2d.ndim != 2 or w2d.shape[1] != LANES or w2d.shape[0] % SUBLANES:
+        raise ValueError(
+            f"w2d must be [n_slabs * {SUBLANES}, {LANES}], got {tuple(w2d.shape)}"
+        )
+    if w2d.dtype != torch.float32 or vals.dtype != torch.float32 or (
+        lo.dtype != torch.int32 or slab_of_tile.dtype != torch.int32
+    ):
+        raise TypeError("w2d and vals must be float32; lo and slab_of_tile int32")
+    if not (w2d.device == slab_of_tile.device == lo.device == vals.device):
+        raise ValueError("w2d, slab_of_tile, lo and vals must share one device")
+    if w2d.device.type == "cpu":
+        return aligned_gather_products_plain(w2d, slab_of_tile, lo, vals)
+    if w2d.device.type != "cuda":
+        raise ValueError(f"unsupported device {w2d.device}")
+    if not all(t.is_contiguous() for t in (w2d, slab_of_tile, lo, vals)):
+        raise ValueError("the slab gather kernel takes contiguous tensors only")
+    from photon_tpu_torch.ops import _build
+
+    fn = _build.load("slab_gather").photon_slab_gather
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    out = torch.empty(shape, dtype=torch.float32, device=w2d.device)
+    stream = torch.cuda.current_stream(w2d.device).cuda_stream
+    aligned_gather_products.launches += 1
+    _build.check(
+        fn(w2d.data_ptr(), slab_of_tile.data_ptr(), lo.data_ptr(),
+           vals.data_ptr(), n_tiles, out.data_ptr(), stream),
+        "slab_gather",
+    )
+    return out
+
+
+aligned_gather_products.launches = 0
+
+
+def gather_products(w: Tensor, layout) -> Tensor:
+    """The dictionary gather ``w[dup_map]`` (an ``index_select``, as in
+    the reference), then the slab gather over ``layout`` (an
+    :class:`AlignedLayout` or :class:`AlignedLayoutDev`; a host layout is
+    put on ``w``'s device)."""
+    if isinstance(layout, AlignedLayout):
+        layout = device_layout(layout, w.device)
+    w2d = w.index_select(0, layout.dup_map).view(-1, LANES)
+    return aligned_gather_products(w2d, layout.slab_of_tile, layout.lo, layout.vals)
+
+
+def gather_products_reference(w: np.ndarray, layout: AlignedLayout) -> np.ndarray:
+    """NumPy reference: resolve each slot's feature through ``dup_map``."""
+    n_sub = layout.lo.shape[0]
+    s = layout.slab_of_tile[np.arange(n_sub) // TILE_SUBLANES]
+    f = layout.dup_map[
+        s[:, None] * SLAB_POSITIONS + layout.lo * LANES + np.arange(LANES)[None, :]
+    ]
+    return w[f] * layout.vals

@@ -14,23 +14,29 @@ Counterpart of ``photon_tpu/ops/sparse_grad_select.py``, reading the same
   replaced by a static exchange routed once on the host (``ops/vperm.py``):
   gradient through the batch's ``xchg`` route and ``al``, margins over
   ``al_t``.  The attach builds the route only when this route is forced.
+- ``benes`` — the ``pallas`` reduce fed by a static Clos permutation of
+  the row-major products into slot order, and a forward that gathers from
+  the slab dictionary (the slab gather kernel, ``ops/slab_reduce.py``) and
+  permutes the products back to row order (``ops/benes.py``); it reads no
+  ``al_t``.  The attach routes it only when this route is forced.
 - ``fm`` — feature-major sorted sum over the batch's ``fm`` layout (torch
   ops only).
 - ``autodiff`` — the row-major unsorted scatter that differentiating the
   margin gather lowers to (torch ops only).
 
-``pallas``, ``xchg``, ``fm`` and ``autodiff`` are taken only when forced.
-The reference picks among its routes by timing them once on the live device
-(``_measure``); the port's ``auto`` waits for that probe until the card's
-times of the kernels are on record, and picks ``fused``.  ``benes`` (the
-reference's refuted research route) is not ported.
+``pallas``, ``xchg``, ``benes``, ``fm`` and ``autodiff`` are taken only
+when forced; a forced route whose layouts the batch lacks falls back as the
+reference's does (``xchg`` and ``benes`` to ``pallas``, then ``fm``).  The
+reference picks among the others by timing them once on the live device
+(``_measure``; ``benes`` never enters it); the port's ``auto`` waits for
+that probe and picks ``fused``.
 """
 
 from __future__ import annotations
 
 import os
 
-ROUTES = ("fused", "pallas", "xchg", "fm", "autodiff")
+ROUTES = ("fused", "pallas", "xchg", "benes", "fm", "autodiff")
 
 
 def _mode() -> str:
@@ -38,15 +44,11 @@ def _mode() -> str:
 
 
 def select_kernel(has_fm: bool = False, has_aligned: bool = False,
-                  has_xchg: bool = False) -> str:
-    """The route for a batch carrying the given layouts (``has_xchg``: an
-    exchange route and the aligned layout it reduces over)."""
+                  has_xchg: bool = False, has_benes: bool = False) -> str:
+    """The route for a batch carrying the given layouts (``has_xchg`` /
+    ``has_benes``: an exchange route and the aligned layout it reduces
+    over)."""
     mode = _mode()
-    if mode == "benes":
-        raise NotImplementedError(
-            "PHOTON_SPARSE_GRAD=benes: its slab gather kernel waits in "
-            "ROADMAP.md queue 2 (TPU kernels still to port)"
-        )
     if mode not in ROUTES + ("auto",):
         raise ValueError(
             f"PHOTON_SPARSE_GRAD={mode!r}; the port supports "
@@ -54,7 +56,9 @@ def select_kernel(has_fm: bool = False, has_aligned: bool = False,
         )
     if mode == "xchg" and has_xchg:
         return "xchg"
-    if mode in ("pallas", "xchg"):
+    if mode == "benes" and has_benes:
+        return "benes"
+    if mode in ("pallas", "xchg", "benes"):
         return "pallas" if has_aligned else ("fm" if has_fm else "fused")
     if mode == "fm":
         return "fm" if has_fm else "autodiff"
@@ -65,8 +69,8 @@ def select_kernel(has_fm: bool = False, has_aligned: bool = False,
 
 def aligned_layout_wanted() -> bool:
     """Should batch builders pay the host-side aligned-layout build?  Only
-    when the ``pallas`` or ``xchg`` route is forced."""
-    return _mode() in ("pallas", "xchg")
+    when the ``pallas``, ``xchg`` or ``benes`` route is forced."""
+    return _mode() in ("pallas", "xchg", "benes")
 
 
 def xchg_route_wanted() -> bool:
@@ -74,3 +78,10 @@ def xchg_route_wanted() -> bool:
     colorings, the costliest layout build)?  Only when ``xchg`` is forced,
     as on every backend but the TPU in the reference."""
     return _mode() == "xchg"
+
+
+def benes_route_wanted() -> bool:
+    """Should batch builders pay the Clos routing of the ``benes`` route
+    (one edge coloring of the whole entry stream)?  Only when ``benes`` is
+    forced, as in the reference: ``auto`` never pays it speculatively."""
+    return _mode() == "benes"

@@ -118,8 +118,12 @@ def test_route_selection(monkeypatch):
     assert select_kernel(has_fm=True, has_aligned=True, has_xchg=True) == "xchg"
     assert select_kernel(has_fm=True, has_aligned=True) == "pallas"
     monkeypatch.setenv("PHOTON_SPARSE_GRAD", "benes")
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        select_kernel()
+    assert aligned_layout_wanted()
+    assert select_kernel(has_fm=True, has_aligned=True, has_benes=True) == "benes"
+    assert select_kernel(has_fm=True, has_aligned=True, has_xchg=True) == "pallas"
+    assert select_kernel(has_fm=True) == "fm"
+    monkeypatch.setenv("PHOTON_SPARSE_GRAD", "auto")
+    assert select_kernel(has_fm=True, has_aligned=True, has_benes=True) == "fused"
     monkeypatch.setenv("PHOTON_SPARSE_GRAD", "bogus")
     with pytest.raises(ValueError):
         select_kernel()

@@ -15,7 +15,9 @@ from photon_tpu_torch.core.losses import get_loss
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.ops import _build
 from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad
+from photon_tpu_torch.ops.benes import benes_segment_grad, benes_xu_product, build_benes_aux
 from photon_tpu_torch.ops.slab_reduce import (
+    aligned_gather_products,
     aligned_segment_grad,
     build_aligned_layout,
     device_layout,
@@ -99,7 +101,7 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
 
 def test_cpu_tensors_take_the_plain_version():
     kernels = (fused_value_and_grad, position_partial_sums, chunk_pass,
-               lane_pass, chunk_expand_pass)
+               lane_pass, chunk_expand_pass, aligned_gather_products)
     before = tuple(k.launches for k in kernels)
     rng = np.random.default_rng(0)
     ids = rng.integers(0, 32, size=(64, 4)).astype(np.int32)
@@ -114,6 +116,9 @@ def test_cpu_tensors_take_the_plain_version():
     aligned_segment_grad(torch.ones(64), al, 32)
     aux = build_xchg_aux(layout, ids, vals=vals, device="cpu")  # K4 bake
     xchg_segment_grad(torch.ones(64), t[1], al, aux, 32)  # K6, K4, K2
+    benes = build_benes_aux(layout, 64, 4, device="cpu")
+    benes_xu_product(torch.ones(32), al, benes, 64, 4)  # K3
+    benes_segment_grad(torch.ones(64), t[1], al, benes, 32)  # K2
     assert tuple(k.launches for k in kernels) == before == (0,) * len(kernels)
 
 
@@ -121,6 +126,7 @@ def test_build_needs_nvcc_only_when_building(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
-    assert _build.sources() == ["fused_sparse", "position_reduce", "vperm"]
+    assert _build.sources() == [
+        "fused_sparse", "position_reduce", "slab_gather", "vperm"]
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()

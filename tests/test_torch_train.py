@@ -100,9 +100,16 @@ def test_lbfgs_stops_on_max_iterations_and_zero_gradient():
 
 def test_unported_optimizers_raise():
     with pytest.raises(NotImplementedError, match="queue 1"):
-        ProblemConfig(optimizer="tron")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ProblemConfig(variance_computation="simple")
+        ProblemConfig(optimizer="owlqn")
+    with pytest.raises(ValueError, match="OWL-QN"):
+        ProblemConfig(regularization=RegularizationContext("l1", 1.0))
+    with pytest.raises(KeyError):
+        ProblemConfig(optimizer="bogus")
+    with pytest.raises(ValueError):
+        ProblemConfig(variance_computation="bogus")
+    # Ported in the second-order slice: these construct.
+    ProblemConfig(optimizer="tron", variance_computation="simple")
+    ProblemConfig(optimizer="newton_cg", variance_computation="full")
 
 
 def _best_auc(summary):
