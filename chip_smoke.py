@@ -18,7 +18,11 @@ Phases (any failure exits non-zero and prints no result line):
    lane, K6 chunk-expand) over the main path's own routes, each launch bit
    for bit: the route of each id draw (balanced: K6 + K4, and K4 in the
    value bake; colored: K4 + K5 + K4) and, when neither draw takes the
-   colored route, one forced on the uniform batch; then each route's slot
+   colored route, one forced on the uniform batch; K4 and K6 in both forms
+   (the cluster form ``chunk_form`` picks and the global form), there and
+   at the edge shapes of ``chunk_form_edges`` on random in-range planes
+   (one chunk, K4's largest cluster chunk and 8 rows above it, ch = 8192,
+   K6 at k = 1, 4, 32, 128); then each route's slot
    products bit for bit against the ``pallas`` route's and its gradient
    under the gradient gate; the slab gather (K3) bit for bit on both
    draws' gradient layouts; the ``benes`` route of the uniform batch: its
@@ -29,9 +33,10 @@ Phases (any failure exits non-zero and prints no result line):
    the headline GLM shape n=2^20, k=32, d=2^18 on the ``fused``, ``pallas``
    and ``xchg`` routes, uniform and zipf ids (and one ``value_and_grad`` on
    a forced colored route, when there is one); each kernel's launch count
-   over each run, per-evaluation time, steps/s, layout and route build
+   over each run (K4's and K6's per form: every main-path launch must take
+   the cluster form), per-evaluation time, steps/s, layout and route build
    seconds, and each kernel's time beside its plain version's, a library
-   call's and its bound; then TRON (Poisson + L2) at the same shape on the
+   call's and its bound (K4 and K6 also in the global form); then TRON (Poisson + L2) at the same shape on the
    ``fused``, ``pallas``, ``xchg`` and ``benes`` routes (uniform ids) and
    the first three (zipf ids): iterations, CG steps, host reads, seconds
    per outer iteration, milliseconds per Hessian-vector product and each
@@ -530,16 +535,43 @@ def pass_library_call(kernel, args):
     return lambda: flat.index_select(0, idx).view(nc * ch, 128)
 
 
+CHUNK_KERNELS = ("vperm_chunk", "vperm_chunk_expand")
+
+
+def chunk_form_of(args) -> tuple:
+    """The form ``chunk_form`` picks for a K4/K6 launch's inputs."""
+    from photon_tpu_torch.ops import vperm as vp
+
+    src, *_, nc, ch = args
+    return vp.chunk_form(nc, ch, src.shape[1])
+
+
+def save_vperm_counts():
+    """The vperm wrappers' launch counts (total and per form), to restore
+    after launches that only check or time a kernel."""
+    from photon_tpu_torch.ops import vperm as vp
+
+    fns = (vp.chunk_pass, vp.lane_pass, vp.chunk_expand_pass)
+    saved = [(fn.launches, dict(getattr(fn, "form_launches", {}))) for fn in fns]
+
+    def restore():
+        for fn, (n, forms) in zip(fns, saved):
+            fn.launches = n
+            if forms:
+                fn.form_launches = forms
+    return restore
+
+
 def check_vperm_kernels(prepared, dev) -> dict:
     """K4, K5 and K6 on the main path's routes against their plain versions
-    and one library call, bit for bit; then each route's slot products
-    against the ``pallas`` route's, bit for bit, and its gradient against
-    the ``pallas`` route's under the gradient gate."""
+    and one library call, bit for bit, K4 and K6 in both forms (the one
+    ``chunk_form`` picks and the global form); then each route's slot
+    products against the ``pallas`` route's, bit for bit, and its gradient
+    against the ``pallas`` route's under the gradient gate."""
     from photon_tpu_torch.ops import vperm as vp
     from photon_tpu_torch.ops.slab_reduce import aligned_reduce
 
-    counters = (vp.chunk_pass, vp.lane_pass, vp.chunk_expand_pass)
-    saved = [fn.launches for fn in counters]
+    restore = save_vperm_counts()
     seen = set()
     worst = 0.0
     for name in route_names(prepared):
@@ -547,11 +579,16 @@ def check_vperm_kernels(prepared, dev) -> dict:
         for kernel, fn, plain, label, args, _ in route_passes(batch.xchg.route, dev):
             got, ref = fn(*args), plain(*args)
             lib = pass_library_call(kernel, args)()
+            forms = {"chosen": got}
+            if kernel in CHUNK_KERNELS:
+                forms["global"] = vp.run_chunk_form(fn, ("global", 0), *args)
             torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            same = torch.equal(got, ref) and torch.equal(got, lib)
-            log(f"  {kernel}[{name} {label}, {tuple(args[0].shape)}]: "
-                f"max_abs_err={err:.3e}, bitwise {'ok' if same else 'FAIL'}")
+            err = max(float((g - ref).abs().max()) for g in forms.values())
+            same = all(torch.equal(g, ref) for g in forms.values()) and torch.equal(got, lib)
+            form = chunk_form_of(args) if kernel in CHUNK_KERNELS else None
+            log(f"  {kernel}[{name} {label}, {tuple(args[0].shape)}"
+                + (f", {form[0]} form, CL={form[1]}, and the global form" if form else "")
+                + f"]: max_abs_err={err:.3e}, bitwise {'ok' if same else 'FAIL'}")
             if not same:
                 raise AssertionError(f"{kernel} differs from its plain version")
             seen.add(kernel)
@@ -571,12 +608,61 @@ def check_vperm_kernels(prepared, dev) -> dict:
             aligned_reduce(pv_x, al, D), aligned_reduce(pv_p, al, D),
             GRAD_RTOL, aligned_reduce(pv_p.abs(), al, D),
         ))
-    for fn, n in zip(counters, saved):
-        fn.launches = n
+    restore()
     missing = {"vperm_chunk", "vperm_lane", "vperm_chunk_expand"} - seen
     if missing:
         raise AssertionError(f"no route of the main path runs {sorted(missing)}")
     return {"max_abs_err": 0.0, "gradient_max_abs_err": worst}
+
+
+def chunk_form_edges() -> list:
+    """K4/K6 shapes off the main path that hold each form to its plain
+    version: (kernel, nc, ch, k) with k = 0 for K4.  One chunk; the largest
+    chunk the cluster form takes and 8 rows above it (the global form), for
+    K4 and for K6 at k = 32; the builders' cap, ch = 8192; K6 at k = 1, 4,
+    32 and 128."""
+    from photon_tpu_torch.ops import vperm as vp
+
+    def largest(width: int) -> int:
+        return max(ch for ch in range(8, vp.CH_MAX + 1, 8)
+                   if vp.chunk_form(1, ch, width)[0] == "cluster")
+
+    k4, k6 = largest(vp.LANES), largest(vp.LANES // 32)
+    return [("vperm_chunk", 1, 2432, 0), ("vperm_chunk", 1, k4, 0),
+            ("vperm_chunk", 1, k4 + 8, 0), ("vperm_chunk", 2, vp.CH_MAX, 0),
+            *[("vperm_chunk_expand", 1, 2432, k) for k in (1, 4, 32, 128)],
+            ("vperm_chunk_expand", 1, k6, 32), ("vperm_chunk_expand", 1, k6 + 8, 32),
+            ("vperm_chunk_expand", 2, vp.CH_MAX, 32)]
+
+
+def check_chunk_form_edges(dev) -> list:
+    """Each edge shape with random in-range planes: the form ``chunk_form``
+    picks and the global form, each bit for bit against the plain version."""
+    from photon_tpu_torch.ops import vperm as vp
+    from photon_tpu_torch.tools.probe_chunk_forms import random_planes
+
+    restore = save_vperm_counts()
+    rows = []
+    for kernel, nc, ch, k in chunk_form_edges():
+        width = vp.LANES // k if k else vp.LANES
+        fn, plain = ((vp.chunk_expand_pass, vp.chunk_expand_pass_plain) if k
+                     else (vp.chunk_pass, vp.chunk_pass_plain))
+        args = (*random_planes(nc, ch, width, seed=ch + k, dev=dev), nc, ch)
+        form = vp.chunk_form(nc, ch, width)
+        ref = plain(*args)
+        same = {f[0]: torch.equal(vp.run_chunk_form(fn, f, *args), ref)
+                for f in {form, ("global", 0)}}
+        torch.cuda.synchronize()
+        row = {"kernel": kernel, "nc": nc, "ch": ch, "k": k, "form": form[0],
+               "cluster_blocks": form[1], "bitwise": same}
+        rows.append(row)
+        log(f"  {kernel}[nc={nc}, ch={ch}" + (f", k={k}" if k else "")
+            + f"]: {form[0]} form, CL={form[1]}; bitwise "
+            + ", ".join(f"{f} {'ok' if ok else 'FAIL'}" for f, ok in same.items()))
+        if not all(same.values()):
+            raise AssertionError(f"{kernel} at nc={nc}, ch={ch}, k={k} differs from plain")
+    restore()
+    return rows
 
 
 def slab_gather_library_call(w2d, al):
@@ -705,31 +791,44 @@ def slab_gather_timings(prepared, dev) -> dict:
 def vperm_timings(prepared, dev) -> dict:
     """K4, K5 and K6 times at the main path's shapes, for every launch of
     each route's exchange: ``{route name: [row, ...]}`` in route_passes'
-    order (the per-evaluation launches first)."""
+    order (the per-evaluation launches first).  K4 and K6 also carry the
+    form ``chunk_form`` picks, its cluster size and
+    ``cudaOccupancyMaxActiveClusters``, and the global form's time, taken
+    in turn with the others."""
     from photon_tpu_torch.ops import vperm as vp
 
-    counters = (vp.chunk_pass, vp.lane_pass, vp.chunk_expand_pass)
-    saved = [fn.launches for fn in counters]
+    restore = save_vperm_counts()
     out = {}
     for name in route_names(prepared):
         rows = out[name] = []
         for kernel, fn, plain, label, args, nbytes in route_passes(
                 prepared[name]["attached"].xchg.route, dev):
             t_bound, by = bound(nbytes, 0)
-            row = {
-                "kernel": kernel,
-                "ms": cuda_ms(lambda: fn(*args)),
+            row = {"kernel": kernel, "ms": cuda_ms(lambda: fn(*args))}
+            if kernel in CHUNK_KERNELS:
+                form = chunk_form_of(args)
+                src, *_, nc, ch = args
+                row.update({
+                    "form": form[0], "cluster_blocks": form[1],
+                    "max_active_clusters": (vp.max_active_clusters(ch, src.shape[1], form[1])
+                                            if form[0] == "cluster" else None),
+                    "global_form_ms": cuda_ms(
+                        lambda: vp.run_chunk_form(fn, ("global", 0), *args)),
+                })
+            row.update({
                 "plain_ms": cuda_ms(lambda: plain(*args)),
                 "library_ms": cuda_ms(pass_library_call(kernel, args)),
                 "bound_ms": t_bound, "bound_by": by,
                 "at": f"{name} {label}, {tuple(args[0].shape)}",
-            }
+            })
             rows.append(row)
-            log(f"  {kernel} [{row['at']}]: kernel {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+            log(f"  {kernel} [{row['at']}]: kernel {row['ms']:.4f} ms"
+                + (f" ({row['form']} form, CL={row['cluster_blocks']}, max active "
+                   f"clusters {row['max_active_clusters']}; global form "
+                   f"{row['global_form_ms']:.4f} ms)" if "form" in row else "")
+                + f", plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-    for fn, n in zip(counters, saved):
-        fn.launches = n
+    restore()
     return out
 
 
@@ -761,18 +860,30 @@ def run_main_path(prepared, dev) -> dict:
                 "vperm_chunk_expand": vp.chunk_expand_pass,
                 "slab_gather": aligned_gather_products}
     launches = {name: 0 for name in counters}
-    result = {"runs": []}
+    form_launches = {name: {"cluster": 0, "global": 0} for name in CHUNK_KERNELS}
+    result = {"runs": [], "form_launches": form_launches}
 
     def counted(fn):
-        """Run ``fn`` with every launch count set to 0 just before it;
-        returns (its result, the counts just after)."""
+        """Run ``fn`` with every launch count (K4's and K6's per form too)
+        set to 0 just before it; returns (its result, the counts just
+        after).  Every K4/K6 launch of the main path must take the form
+        ``chunk_form`` picks at its shapes: the cluster form."""
         for c in counters.values():
             c.launches = 0
+        for name in CHUNK_KERNELS:
+            counters[name].form_launches = {"cluster": 0, "global": 0}
         out = fn()
         torch.cuda.synchronize()
         counts = {name: c.launches for name, c in counters.items()}
         for name in counts:
             launches[name] += counts[name]
+        for name in CHUNK_KERNELS:
+            forms = counters[name].form_launches
+            if forms["global"]:
+                raise AssertionError(f"{name}: {forms['global']} main-path launches "
+                                     "took the global form")
+            for form, n in forms.items():
+                form_launches[name][form] += n
         return out, counts
 
     def expected(route: str, batch) -> set:
@@ -1300,6 +1411,8 @@ def main() -> int:
     log(f"  the main path's layouts and exchange routes, n={N}, k={K}, d={D}:")
     prepared = prepare_batches(dev)
     kv = check_vperm_kernels(prepared, dev)
+    log("  K4 and K6 off the main path, random in-range planes:")
+    edges = check_chunk_form_edges(dev)
     k3 = check_slab_gather_kernel(prepared, dev)
     kb = check_benes(prepared, dev)
 
@@ -1355,7 +1468,7 @@ def main() -> int:
         # the kernel, else on the first route that does; every other launch
         # of the kernel beside it.
         timed = [row for rows in vt.values() for row in rows if row["kernel"] == name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "photon_tpu_torch/ops/csrc/vperm.cu", "replaces": replaces,
             "launches": main_path["launches"][name],
@@ -1363,7 +1476,14 @@ def main() -> int:
             **{key: timed[0][key] for key in
                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "at")},
             "other_launches": timed[1:],
-        })
+        }
+        if name in CHUNK_KERNELS:
+            entry.update({key: timed[0][key] for key in
+                          ("form", "cluster_blocks", "max_active_clusters", "global_form_ms")})
+            entry["form_launches"] = main_path["form_launches"][name]
+            entry["edge_shapes"] = [e for e in edges if e["kernel"] == name]
+            entry["card"] = card
+        kernels.append(entry)
     k3_rows = main_path["slab_gather_timings"]
     kernels.append({
         "name": "slab_gather", "route": "cuda",

@@ -29,17 +29,32 @@ Two route kinds (:func:`build_xchg_aux` picks):
 Each chunk pass is the 5-stage micro-Clos of the JAX kernel (lane gather by
 ``i1``, transpose, gather along CH by ``i2``, transpose, lane gather by
 ``i3``), whose three index planes come from two edge colorings per chunk
-(``ops/clos.py``).  The kernels (``ops/csrc/vperm.cu``):
+(``ops/clos.py``).  The kernels (``ops/csrc/vperm.cu``, whose note has the
+details):
 
-- K4 :func:`chunk_pass` (``_chunk_kernel``): R1 and R2, stages A (for the
-  value bake) and B;
+- K4 :func:`chunk_pass` (``_chunk_kernel``, ``photon_tpu/ops/vperm.py``):
+  R1 and R2, stages A (for the value bake) and B;
 - K5 :func:`lane_pass` (``_lane_kernel``): the colored route's middle stage;
 - K6 :func:`chunk_expand_pass` (``_chunk_expand_kernel``): stage A with the
   dz repeat.
 
-Each launches on CUDA tensors and takes its plain PyTorch version on CPU
-tensors; both are pure data movement and equal bit for bit.  Index planes are
-int8 (lanes) and int16 (chunk rows) tensors on the route's device.
+What bounds K4 and K6 is device-memory bytes at 3.35 TB/s (12 and 8 bytes a
+slot); only their middle stage reads across a 1-4 MB chunk.  Each has two
+forms, picked before the launch by :func:`chunk_form` from the shape alone:
+
+- the cluster form keeps the chunk's state in shared memory (227 KB a
+  block), so no random read reaches L2: K4 in a cluster of 16 blocks that
+  trade y1 by columns and y2 by rows through distributed shared memory
+  (:func:`exchange_passes`), K6 in one block holding the chunk's dz rows
+  and packed lane selectors (48 bytes a row at k = 32);
+- the global form, the first version of both, composes the stages into one
+  read an element through L2, and takes chunks that no cluster holds (K4
+  above 5320 rows; the builders allow 8192).
+
+Each launches on CUDA tensors (a refused launch raises) and takes its plain
+PyTorch version on CPU tensors; all are pure data movement and equal bit for
+bit.  Index planes are int8 (lanes) and int16 (chunk rows) tensors on the
+route's device.
 
 Not ported (``ROADMAP.md`` queue 2): the ``cumsum`` reduce mode
 (``PHOTON_XCHG_REDUCE=cumsum``, the compensated prefix scan over the
@@ -624,6 +639,134 @@ def _cuda_tensors(*ts: Tensor) -> bool:
     return True
 
 
+# -- the two forms of K4 and K6 -------------------------------------------------
+
+SMEM_BLOCK = 232_448         # shared memory a block may use on sm_90 (227 KB)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size
+CH_LIMIT = 32767             # int16 i2 planes
+# Scratch of a cluster-form block (csrc/vperm.cu): K4's 32 x 132 f32 y1
+# tile; K6's barriers, ring of four 64 x 128 int8 slots and 64 x 130 int16
+# i2 tile.
+EXCHANGE_TILE = 32 * (LANES + 4) * 4
+EXPAND_SCRATCH = 64 + 4 * 64 * LANES + 64 * (LANES + 2) * 2
+
+
+def exchange_passes(ch: int, cl: int) -> int:
+    """Passes of K4's exchange form at ``cl`` blocks a chunk: the fewest of
+    1, 2, 4, 8 whose block holds two barriers, the stage-1 y1 tile (whose
+    room then holds a pass's i3, ``rpp x 128`` int8), its ``128 / cl``
+    columns of y1 over the chunk's ``ch`` rows (A, f32), and for one pass of
+    ``rpp`` rows (its rows over ``passes``, rounded up to 8) their y2 (B,
+    ``128 x pitch`` f32, the pitch ``rpp`` rounded up to 32) and the i2 of
+    its columns over every block's pass rows (``128 x rpp`` int16); 0 when
+    none fits."""
+    for passes in (1, 2, 4, 8):
+        q = 8 * passes
+        rpp = -(-(-(-ch // cl)) // q) * q // passes
+        pitch = -(-rpp // 32) * 32
+        smem = (32 + max(EXCHANGE_TILE, rpp * LANES) + LANES // cl * ch * 4
+                + LANES * pitch * 4 + LANES * rpp * 2)
+        if smem <= SMEM_BLOCK:
+            return passes
+    return 0
+
+
+def _selector_bits(width: int) -> int:
+    """Bits a packed K6 lane selector ``i1 >> log2 k`` takes in the dz-tile
+    form: log2(width) rounded up to 0, 1, 2, 4 or 8."""
+    need = width.bit_length() - 1
+    return need if need <= 2 else 4 if need <= 4 else 8
+
+
+def cluster_fits(ch: int, width: int, cl: int) -> bool:
+    """Whether the cluster form takes a chunk of ``ch`` rows (a multiple of
+    8) at ``cl`` blocks: K4's exchange form for a 128-wide source (K4, and
+    K6 at k = 1), else K6's dz-tile form, one block holding the chunk's dz
+    rows and packed selectors (``4 * width + 16 * bits`` bytes a row)."""
+    if ch % 8 or ch > CH_LIMIT:
+        return False
+    if width == LANES:
+        return exchange_passes(ch, cl) > 0
+    row = 4 * width + 16 * _selector_bits(width)
+    return cl == 1 and EXPAND_SCRATCH + ch * row <= SMEM_BLOCK
+
+
+def chunk_form(nc: int, ch: int, width: int) -> tuple[str, int]:
+    """The shape rule between the two forms of K4 (``width`` 128) and K6
+    (``width`` 128/k): ``("cluster", CL)``, else ``("global", 0)`` for a
+    chunk that no cluster holds.  K4 takes the smallest CL of
+    :data:`CLUSTER_SIZES` whose exchange runs in one pass, else the
+    smallest that fits at all (2 MB chunks: 16 blocks, four passes); K6 one
+    block when it holds the chunk's dz rows and selectors (the headline
+    shape).  ch is a multiple of 8 on every route; the cluster form needs
+    it.  Raises on a shape neither form takes."""
+    if nc < 1 or ch < 1 or ch > CH_LIMIT:
+        raise ValueError(f"no chunk form takes nc={nc}, ch={ch} (1 <= ch <= {CH_LIMIT})")
+    if width < 1 or LANES % width or width & (width - 1):
+        raise ValueError(f"src width {width} must be a power of two dividing {LANES}")
+    if width == LANES:
+        for cl in CLUSTER_SIZES:
+            if ch % 8 == 0 and exchange_passes(ch, cl) == 1:
+                return ("cluster", cl)
+    for cl in CLUSTER_SIZES:
+        if cluster_fits(ch, width, cl):
+            return ("cluster", cl)
+    return ("global", 0)
+
+
+def max_active_clusters(ch: int, width: int, cl: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster form at chunk height
+    ``ch`` and cluster size ``cl``: how many such clusters the card runs at
+    once (needs the card)."""
+    from photon_tpu_torch.ops import _build
+
+    fn = _build.load("vperm").photon_vperm_max_active_clusters
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    n = fn(0 if width == LANES else LANES // width, ch, cl)
+    if n < 0:
+        _build.check(-n, "vperm max_active_clusters")
+    return n
+
+
+def _aligned(*ts: Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("the cluster form takes 16-byte aligned tensors only")
+
+
+def run_chunk_form(wrapper, form: tuple[str, int], src: Tensor, i1: Tensor,
+                   i2: Tensor, i3: Tensor, nc: int, ch: int) -> Tensor:
+    """Launch ``form`` (``("cluster", CL)`` or ``("global", 0)``) of the
+    kernel behind ``wrapper`` (:func:`chunk_pass`: K4; :func:`chunk_expand_pass`:
+    K6) on CUDA tensors; counts the launch on the wrapper, in total and per
+    form.  :func:`chunk_form` picks the form a wrapper launches; this entry
+    also lets a check run the other form.  Raises on CPU tensors."""
+    kind, cl = form
+    expand = wrapper is chunk_expand_pass
+    if kind not in ("cluster", "global") or (kind == "cluster") != (cl in CLUSTER_SIZES):
+        raise ValueError(f"unknown chunk form {form!r}")
+    _check_chunk_args(src, i1, i2, i3, nc, ch, src.shape[1] if src.ndim == 2 else 0)
+    if not expand and src.shape[1] != LANES:
+        raise ValueError(f"K4 takes a [rows, {LANES}] source")
+    if not _cuda_tensors(src, i1, i2, i3):
+        raise ValueError("run_chunk_form launches a kernel: it takes CUDA tensors")
+    out = torch.empty(nc * ch, LANES, dtype=torch.float32, device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (src, i1, i2, i3, out)]
+    k = LANES // src.shape[1]
+    name = "vperm_chunk_expand" if expand else "vperm_chunk"
+    fn = "photon_" + name + ("_cluster" if kind == "cluster" else "")
+    extra = ([k] if expand else []) + ([cl] if kind == "cluster" else [])
+    if kind == "cluster":
+        _aligned(src, i1, i2, i3, out)
+    wrapper.launches += 1
+    wrapper.form_launches[kind] += 1
+    _launch(f"{name} ({kind} form)", fn,
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * (2 + len(extra)) + [ctypes.c_void_p],
+            *ptrs, nc, ch, *extra, stream)
+    return out
+
+
 def chunk_pass_plain(x2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
                      nc: int, ch: int) -> Tensor:
     """Plain PyTorch K4: the JAX kernel's five stages, batched over the
@@ -641,22 +784,17 @@ def chunk_pass(x2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor, nc: int,
                ch: int) -> Tensor:
     """K4: the micro-Clos within each ``[ch, 128]`` chunk of ``x2d``
     (``[nc * ch, 128]`` float32): ``out[r, l] = x[r2, i1[r2, c]]`` with
-    ``c = i3[r, l]`` and ``r2 = i2[c, r]``, all chunk-local."""
+    ``c = i3[r, l]`` and ``r2 = i2[c, r]``, all chunk-local.  Launches the
+    form :func:`chunk_form` picks."""
     _check_chunk_args(x2d, i1, i2, i3, nc, ch, LANES)
     if not _cuda_tensors(x2d, i1, i2, i3):
         return chunk_pass_plain(x2d, i1, i2, i3, nc, ch)
-    out = torch.empty_like(x2d)
-    chunk_pass.launches += 1
-    _launch(
-        "vperm_chunk", "photon_vperm_chunk",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-        x2d.data_ptr(), i1.data_ptr(), i2.data_ptr(), i3.data_ptr(),
-        out.data_ptr(), nc, ch, torch.cuda.current_stream(x2d.device).cuda_stream,
-    )
-    return out
+    return run_chunk_form(chunk_pass, chunk_form(nc, ch, LANES),
+                          x2d, i1, i2, i3, nc, ch)
 
 
 chunk_pass.launches = 0
+chunk_pass.form_launches = {"cluster": 0, "global": 0}
 
 
 def chunk_expand_pass_plain(dz2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
@@ -670,26 +808,20 @@ def chunk_expand_pass(dz2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
                       nc: int, ch: int) -> Tensor:
     """K6: :func:`chunk_pass` over the ``[nc * ch, 128]`` stream that repeats
     each element of ``dz2d`` (``[nc * ch, 128 / k]`` float32) k times along
-    the lanes, without writing that stream."""
+    the lanes, without writing that stream.  Launches the form
+    :func:`chunk_form` picks."""
     width = dz2d.shape[1] if dz2d.ndim == 2 else 0
     if width < 1 or LANES % width or (width & (width - 1)):
         raise ValueError(f"dz tile width {width} must be a power of two dividing 128")
     _check_chunk_args(dz2d, i1, i2, i3, nc, ch, width)
     if not _cuda_tensors(dz2d, i1, i2, i3):
         return chunk_expand_pass_plain(dz2d, i1, i2, i3, nc, ch)
-    out = torch.empty(nc * ch, LANES, dtype=torch.float32, device=dz2d.device)
-    chunk_expand_pass.launches += 1
-    _launch(
-        "vperm_chunk_expand", "photon_vperm_chunk_expand",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-        dz2d.data_ptr(), i1.data_ptr(), i2.data_ptr(), i3.data_ptr(),
-        out.data_ptr(), nc, ch, LANES // width,
-        torch.cuda.current_stream(dz2d.device).cuda_stream,
-    )
-    return out
+    return run_chunk_form(chunk_expand_pass, chunk_form(nc, ch, width),
+                          dz2d, i1, i2, i3, nc, ch)
 
 
 chunk_expand_pass.launches = 0
+chunk_expand_pass.form_launches = {"cluster": 0, "global": 0}
 
 
 def lane_pass_plain(x2d: Tensor, c: Tensor) -> Tensor:

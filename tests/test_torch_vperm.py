@@ -189,3 +189,136 @@ def test_kernel_wrappers_check_inputs():
         tv.lane_pass(x.double(), lanes)
     with pytest.raises(ValueError):
         tv.lane_pass(x, lanes[:, :8])
+
+
+# -- the two forms of K4 and K6 --------------------------------------------------
+
+@pytest.mark.parametrize("nc,ch,width,form", [
+    (128, 2432, 128, ("cluster", 16)),  # uniform balanced: stage B, the bake
+    (128, 4096, 128, ("cluster", 16)),  # zipf colored: R1, R2
+    (128, 2432, 4, ("cluster", 1)),     # uniform balanced stage A, k = 32
+    (1, 2432, 128, ("cluster", 16)),    # one chunk
+    (1, 5320, 128, ("cluster", 16)),    # K4's largest cluster chunk
+    (1, 5328, 128, ("global", 0)),      # 8 rows above it
+    (2, 8192, 128, ("global", 0)),      # the builders' cap
+    (1, 100, 128, ("global", 0)),       # not a multiple of 8
+    (4, 64, 128, ("cluster", 1)),       # a small chunk, one block
+    (128, 2432, 1, ("cluster", 1)),     # k = 128: no selectors
+    (128, 2432, 64, ("global", 0)),     # k = 2: 384 bytes a row, 912 KB
+    (1, 3808, 4, ("cluster", 1)),       # k = 32: the largest one-block chunk
+    (1, 3816, 4, ("global", 0)),        # 8 rows above it
+    (2, 8192, 4, ("global", 0)),        # k = 32 at the builders' cap
+], ids=lambda v: str(v))
+def test_chunk_form_picks_the_form_and_cluster_size(nc, ch, width, form):
+    assert tv.chunk_form(nc, ch, width) == form
+    if form[0] == "cluster" and width == tv.LANES:
+        assert tv.exchange_passes(ch, form[1]) == (4 if ch == 4096 else 1 if ch <= 2432 else 8)
+    # K6 at k = 1 reads a 128-wide tile: K4's form at every shape.
+    assert tv.chunk_form(nc, ch, tv.LANES) == tv.chunk_form(nc, ch, 128)
+
+
+def test_chunk_form_limits_and_refusals():
+    cluster = [ch for ch in range(8, tv.CH_MAX + 1, 8)
+               if tv.chunk_form(1, ch, tv.LANES)[0] == "cluster"]
+    assert max(cluster) == 5320 and cluster == list(range(8, 5321, 8))
+    assert tv.cluster_fits(3808, 4, 1) and not tv.cluster_fits(3816, 4, 1)
+    for nc, ch, width in [(0, 8, 128), (1, 0, 128), (1, tv.CH_LIMIT + 1, 128),
+                          (1, 8, 3), (1, 8, 256), (1, 8, 0)]:
+        with pytest.raises(ValueError):
+            tv.chunk_form(nc, ch, width)
+
+
+def _plane_case(nc, ch, width, seed):
+    """Random in-range planes: every i1/i3 row a permutation of the lanes,
+    every i2 row one of the chunk's rows."""
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((nc * ch, width)).astype(np.float32)
+    i1 = np.argsort(rng.random((nc * ch, tv.LANES)), axis=1).astype(np.int8)
+    i2 = np.argsort(rng.random((nc * tv.LANES, ch)), axis=1).astype(np.int16)
+    i3 = np.argsort(rng.random((nc * ch, tv.LANES)), axis=1).astype(np.int8)
+    return src, i1, i2, i3
+
+
+@pytest.mark.parametrize("nc,ch", [(1, 24), (3, 16)])
+def test_plain_chunk_pass_equals_jax_kernel(nc, ch):
+    arrays = _plane_case(nc, ch, tv.LANES, seed=nc * ch)
+    got = tv.chunk_pass(*(torch.as_tensor(a) for a in arrays), nc, ch).numpy()
+    want = np.asarray(jv._chunk_pass(*(_jax(a) for a in arrays), nc, ch, True))
+    np.testing.assert_array_equal(got, want)
+    assert tv.chunk_pass.launches == 0
+
+
+@pytest.mark.parametrize("k", [1, 128])
+def test_plain_chunk_expand_equals_jax_at_the_extreme_repeats(k):
+    """K6's plain version at k = 1 (the tile is the stream) and k = 128 (one
+    dz value a row), one chunk, against the JAX kernel in interpret mode."""
+    n = 4096 if k == 1 else 256
+    ids, vals, layout = _balanced_case(n, k, 512, False, seed=k)
+    ref = jv.build_xchg_aux(layout, ids, 512, vals=vals)
+    aux = tv.build_xchg_aux(layout, ids, vals=vals, device="cpu")
+    r = aux.route
+    assert isinstance(r, tv.BalancedRoute) and r.nc == 1 and r.k_expand == k
+    dz = np.random.default_rng(k).standard_normal(n).astype(np.float32)
+    np.testing.assert_array_equal(
+        tv.apply_balanced_dz(torch.as_tensor(dz), r).numpy(),
+        np.asarray(jv.apply_balanced_dz(_jax(dz), ref.route, interpret=True)),
+    )
+    assert tv.chunk_expand_pass.launches == 0
+
+
+def test_wrappers_launch_the_form_the_rule_picks(monkeypatch):
+    """On a card tensor a wrapper launches chunk_form's choice (here caught
+    before the launch); it never takes its plain version there."""
+    seen = []
+    monkeypatch.setattr(tv, "_cuda_tensors", lambda *ts: True)
+    monkeypatch.setattr(tv, "run_chunk_form",
+                        lambda wrapper, form, *args: seen.append((wrapper, form)))
+    for nc, ch, width in [(1, 2432, 128), (1, 5328, 128), (1, 2432, 4)]:
+        lanes = torch.zeros(nc * ch, tv.LANES, dtype=torch.int8)
+        rows = torch.zeros(nc * tv.LANES, ch, dtype=torch.int16)
+        src = torch.zeros(nc * ch, width)
+        fn = tv.chunk_pass if width == tv.LANES else tv.chunk_expand_pass
+        fn(src, lanes, rows, lanes, nc, ch)
+    assert seen == [(tv.chunk_pass, ("cluster", 16)), (tv.chunk_pass, ("global", 0)),
+                    (tv.chunk_expand_pass, ("cluster", 1))]
+
+
+def test_run_chunk_form_refuses_cpu_tensors_and_unknown_forms():
+    src, i1, i2, i3 = (torch.as_tensor(a) for a in _plane_case(1, 16, tv.LANES, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        tv.run_chunk_form(tv.chunk_pass, ("cluster", 1), src, i1, i2, i3, 1, 16)
+    for form in [("cluster", 3), ("global", 16), ("shared", 1)]:
+        with pytest.raises(ValueError, match="unknown chunk form"):
+            tv.run_chunk_form(tv.chunk_pass, form, src, i1, i2, i3, 1, 16)
+    assert tv.chunk_pass.form_launches == {"cluster": 0, "global": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 4, 32, 128])
+def test_both_forms_equal_plain_on_the_card(k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    width = tv.LANES // k if k else tv.LANES
+    wrapper, plain = ((tv.chunk_expand_pass, tv.chunk_expand_pass_plain) if k
+                      else (tv.chunk_pass, tv.chunk_pass_plain))
+    for nc, ch in [(1, 2432), (3, 512)]:
+        args = [torch.as_tensor(a).cuda() for a in _plane_case(nc, ch, width, k)]
+        ref = plain(*args, nc, ch)
+        for form in [tv.chunk_form(nc, ch, width), ("global", 0)]:
+            got = tv.run_chunk_form(wrapper, form, *args, nc, ch)
+            assert torch.equal(got, ref), form
+
+
+def test_probe_chunk_forms_needs_a_card_and_lists_the_rule_forms(monkeypatch):
+    from photon_tpu_torch.tools import probe_chunk_forms as tool
+
+    assert tool.candidate_forms(2432, tv.LANES) == [("global", 0), ("cluster", 8),
+                                                     ("cluster", 16)]
+    assert tool.candidate_forms(2432, 4) == [("global", 0), ("cluster", 1)]
+    for _, nc, ch, k in tool.CASES:
+        width = tv.LANES // k if k else tv.LANES
+        assert tv.chunk_form(nc, ch, width) in tool.candidate_forms(ch, width)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["probe_chunk_forms"])
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        tool.main()
