@@ -12,8 +12,13 @@ Phases (any failure exits non-zero and prints no result line):
    ``photon_tpu_torch/native/src`` and time both builds;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes: the fused value+gradient (four losses, ragged row count,
-   uniform and zipf ids, zero-weight rows), the slab position-reduce
-   (gradient and forward layouts, uniform and zipf ids, padded geometry),
+   uniform and zipf ids, zero-weight rows; the hot-set cases of
+   ``FUSED_CASES``: zipf exponents 1.1, 1.3 and 2.0, one id in every slot,
+   more hot candidates than slots, d = 64, k = 48; a hot set gone stale;
+   two calls in one form bit for bit on the hot ids), the row scatter of
+   the ``fused`` route's Hv (``ROW_SCATTER_CASES``: both draws, a constant
+   r), the slab position-reduce (gradient and forward layouts, uniform and
+   zipf ids, padded geometry),
    and the three permutation passes of the ``xchg`` route (K4 chunk, K5
    lane, K6 chunk-expand) over the main path's own routes, each launch bit
    for bit: the route of each id draw (balanced: K6 + K4, and K4 in the
@@ -36,11 +41,13 @@ Phases (any failure exits non-zero and prints no result line):
    over each run (K4's and K6's per form: every main-path launch must take
    the cluster form), per-evaluation time, steps/s, layout and route build
    seconds, and each kernel's time beside its plain version's, a library
-   call's and its bound (K4 and K6 also in the global form); then TRON (Poisson + L2) at the same shape on the
-   ``fused``, ``pallas``, ``xchg`` and ``benes`` routes (uniform ids) and
-   the first three (zipf ids): iterations, CG steps, host reads, seconds
-   per outer iteration, milliseconds per Hessian-vector product and each
-   kernel's launches;
+   call's and its bound (K4 and K6 also in the global form; the row
+   scatter beside ``index_add_`` in float32 and float64); then TRON
+   (Poisson + L2) at the same shape on the ``fused``, ``pallas``, ``xchg``
+   and ``benes`` routes (uniform ids) and the first three (zipf ids):
+   iterations, CG steps, host reads, seconds per outer iteration,
+   milliseconds per Hessian-vector product and each kernel's launches (on
+   ``fused`` the row scatter's too);
 4. the ``train`` CLI on the a1a fixture, on the card (default route and
    ``xchg``) and with ``--backend cpu``; then with ``--optimizer tron`` on
    the card, with ``--backend cpu`` and on the card under ``benes``; the
@@ -152,11 +159,11 @@ def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def make_ids(rng, n: int, k: int, d: int, dist: str) -> np.ndarray:
+def make_ids(rng, n: int, k: int, d: int, dist: str, exponent: float = 1.3) -> np.ndarray:
     """Feature ids as the repository's benchmark draws them (id 0 is left
-    for the pad slot)."""
+    for the pad slot); ``exponent`` is the zipf draw's."""
     if dist == "zipf":
-        return (1 + (rng.zipf(1.3, size=(n, k)) - 1) % (d - 1)).astype(np.int32)
+        return (1 + (rng.zipf(exponent, size=(n, k)) - 1) % (d - 1)).astype(np.int32)
     return rng.integers(1, d, size=(n, k), dtype=np.int32)
 
 
@@ -200,71 +207,205 @@ def gate_report(name, got, ref, rtol, mag=None) -> float:
     return float(err.max())
 
 
-def check_fused_kernel(dev) -> dict:
-    from photon_tpu_torch.core.losses import get_loss
+# K1's cases in phase 2: (loss, ids draw, rows, nonzeros per row, d).  The
+# draws beyond the main path's two: zipf exponents 1.1 and 2.0; one id in
+# every non-pad slot; 1536 features of one share each, more hot candidates
+# than the kernel's slots; d = 64, every feature hot; k = 48, the kernels'
+# loop for rows of more than 32 entries.
+FUSED_CASES = (
+    *[(loss, "uniform", N, K, D) for loss in
+      ("logistic", "squared", "poisson", "smoothed_hinge")],
+    ("logistic", "zipf1.3", N, K, D), ("logistic", "uniform", N - 77, K, D),
+    ("logistic", "zipf1.1", N, K, D), ("logistic", "zipf2.0", N, K, D),
+    ("logistic", "one_id", N, K, D), ("logistic", "candidates", N, K, D),
+    ("poisson", "all_hot", N, K, 64), ("logistic", "zipf1.3", 1 << 16, 48, D),
+)
+
+
+def fused_case_ids(rng, n: int, k: int, d: int, draw: str) -> np.ndarray:
+    """The ids of a FUSED_CASES draw (a zipf draw names its exponent)."""
+    if draw.startswith("zipf"):
+        return make_ids(rng, n, k, d, "zipf", float(draw[4:]))
+    if draw == "one_id":
+        return np.full((n, k), 7, np.int32)
+    if draw == "candidates":
+        return rng.integers(1, 1537, size=(n, k), dtype=np.int32)
+    if draw == "all_hot":
+        return rng.integers(0, d, size=(n, k), dtype=np.int32)
+    return make_ids(rng, n, k, d, draw)
+
+
+def fused_inputs(rng, loss_name: str, n: int, k: int, d: int, draw: str, dev) -> list:
+    """(w, ids, vals, label, offset, weight) on the card: padded row tails
+    (id 0, val 0), labels for the loss, 10% zero-weight rows."""
+    ids = fused_case_ids(rng, n, k, d, draw)
+    vals = rng.standard_normal((n, k)).astype(np.float32)
+    cut = rng.integers(1, k + 1, size=n)  # padded row tails
+    pad = np.arange(k)[None, :] >= cut[:, None]
+    ids[pad], vals[pad] = 0, 0.0
+    if loss_name == "poisson":
+        label = rng.poisson(1.5, size=n).astype(np.float32)
+    elif loss_name == "squared":
+        label = rng.standard_normal(n).astype(np.float32)
+    else:
+        label = (rng.random(n) < 0.5).astype(np.float32)
+    weight = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    weight[rng.random(n) < 0.1] = 0.0  # zero-weight rows
+    offset = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    w = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (w, ids, vals, label, offset, weight)]
+
+
+def gate_fused(tag: str, loss, args, got) -> float:
+    """K1's (value, grad) against the plain version's under the value and
+    gradient gates; returns the largest absolute error."""
     from photon_tpu_torch.data.batch import gather_dot
-    from photon_tpu_torch.ops.fused_sparse import (
-        fused_value_and_grad,
-        fused_value_and_grad_plain,
+    from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad_plain
+
+    v_p, g_p = fused_value_and_grad_plain(loss, *args)
+    w_t, ids_t, vals_t, label_t, offset_t, weight_t = args
+    coeff = weight_t * loss.d1(gather_dot(w_t, ids_t, vals_t) + offset_t, label_t)
+    mag = torch.zeros_like(w_t).index_add_(
+        0, ids_t.view(-1),
+        ((coeff.abs() + weight_t)[:, None] * vals_t.abs()).view(-1),
     )
+    torch.cuda.synchronize()
+    return max(gate_report(tag + " value", got[0], v_p, VALUE_RTOL),
+               gate_report(tag + " grad", got[1], g_p, GRAD_RTOL, mag))
+
+
+def hot_ids_equal(tag: str, hot, first: torch.Tensor, second: torch.Tensor) -> None:
+    """Two calls' outputs on the hot ids, bit for bit: in one kernel form
+    (one grid) the hot slots are summed in a fixed order."""
+    if not hot.n_hot:
+        return
+    at = hot.ids[: hot.n_hot].long()
+    same = torch.equal(first[at], second[at])
+    log(f"  {tag}: two calls on the {hot.n_hot} hot ids bit for bit "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{tag}: the hot ids' sums differ between two calls")
+
+
+def check_fused_kernel(dev) -> dict:
+    """K1 in every FUSED_CASES case against its plain version, twice: the
+    first call on new ids takes the form with every hot slot (the set's size
+    is not read yet), the second the form that size picks; the hot ids bit
+    for bit between the second call and a third.  The hot set's size is
+    held to the draw where it is known: 0 on uniform ids, every slot with more candidates, every
+    feature at d = 64.  Then a hot set gone stale (ids changed behind the
+    version counter) both ways between zipf and uniform ids, and the bad-id
+    checks."""
+    from photon_tpu_torch.core.losses import get_loss
+    from photon_tpu_torch.ops import fused_sparse as fs
 
     worst = 0.0
-    cases = [(loss, "uniform", N) for loss in
-             ("logistic", "squared", "poisson", "smoothed_hinge")]
-    cases += [("logistic", "zipf", N), ("logistic", "uniform", N - 77)]
-    for i, (loss_name, dist, n) in enumerate(cases):
+    expect_hot = {"uniform": 0, "candidates": fs.HOT_SLOTS, "all_hot": 64}
+    ragged = None
+    for i, (loss_name, draw, n, k, d) in enumerate(FUSED_CASES):
         rng = np.random.default_rng(100 + i)
-        ids = make_ids(rng, n, K, D, dist)
-        vals = rng.standard_normal((n, K)).astype(np.float32)
-        cut = rng.integers(1, K + 1, size=n)  # padded row tails
-        pad = np.arange(K)[None, :] >= cut[:, None]
-        ids[pad], vals[pad] = 0, 0.0
-        if loss_name == "poisson":
-            label = rng.poisson(1.5, size=n).astype(np.float32)
-        elif loss_name == "squared":
-            label = rng.standard_normal(n).astype(np.float32)
-        else:
-            label = (rng.random(n) < 0.5).astype(np.float32)
-        weight = rng.uniform(0.5, 2.0, n).astype(np.float32)
-        weight[rng.random(n) < 0.1] = 0.0  # zero-weight rows
-        offset = (rng.standard_normal(n) * 0.1).astype(np.float32)
-        w = (rng.standard_normal(D) * 0.1).astype(np.float32)
-        args = [torch.as_tensor(a, device=dev)
-                for a in (w, ids, vals, label, offset, weight)]
+        args = fused_inputs(rng, loss_name, n, k, d, draw, dev)
         loss = get_loss(loss_name)
-        v_k, g_k = fused_value_and_grad(loss, *args)
-        v_p, g_p = fused_value_and_grad_plain(loss, *args)
-        w_t, ids_t, vals_t, label_t, offset_t, weight_t = args
-        coeff = weight_t * loss.d1(gather_dot(w_t, ids_t, vals_t) + offset_t, label_t)
-        mag = torch.zeros_like(w_t).index_add_(
-            0, ids_t.view(-1),
-            ((coeff.abs() + weight_t)[:, None] * vals_t.abs()).view(-1),
-        )
-        torch.cuda.synchronize()
-        tag = f"fused_sparse[{loss_name},{dist},n={n}]"
-        worst = max(worst, gate_report(tag + " value", v_k, v_p, VALUE_RTOL))
-        worst = max(worst, gate_report(tag + " grad", g_k, g_p, GRAD_RTOL, mag))
+        first = fs.fused_value_and_grad(loss, *args)
+        hot = fs.hot_set(args[1], args[2], d)
+        second = fs.fused_value_and_grad(loss, *args)
+        third = fs.fused_value_and_grad(loss, *args)
+        tag = f"fused_sparse[{loss_name},{draw},n={n},k={k},d={d},n_hot={hot.n_hot}]"
+        for call, got in (("first call", first), ("second call", second)):
+            worst = max(worst, gate_fused(f"{tag} {call}", loss, args, got))
+        hot_ids_equal(tag, hot, second[1], third[1])
+        if expect_hot.get(draw, hot.n_hot) != hot.n_hot or (draw != "uniform" and not hot.n_hot):
+            raise AssertionError(f"{tag}: unexpected hot set size {hot.n_hot}")
+        if (loss_name, draw, n) == ("logistic", "uniform", N - 77):
+            ragged = (loss, args, first[0])
+    # A hot set gone stale: ids changed through .data keep their version, so
+    # the wrapper keeps the set (and its size) it built for the old ids.
+    loss = get_loss("logistic")
+    for i, (built_on, changed_to) in enumerate((("zipf1.3", "uniform"),
+                                                ("uniform", "zipf1.3"))):
+        rng = np.random.default_rng(200 + i)
+        args = fused_inputs(rng, "logistic", N, K, D, built_on, dev)
+        fs.fused_value_and_grad(loss, *args)
+        hot = fs.hot_set(args[1], args[2], D)
+        new_ids = fused_case_ids(rng, N, K, D, changed_to)
+        new_ids[args[2].cpu().numpy() == 0] = 0
+        args[1].data.copy_(torch.as_tensor(new_ids, device=dev))
+        if fs.hot_set(args[1], args[2], D) is not hot:
+            raise AssertionError("the hot set was rebuilt: the stale case did not arise")
+        got = fs.fused_value_and_grad(loss, *args)
+        worst = max(worst, gate_fused(
+            f"fused_sparse[hot set of {built_on} ids (n_hot={hot.n_hot}) on "
+            f"{changed_to} ids]", loss, args, got))
     # An id outside [0, d) raises IndexError, as the plain version does on
     # the CPU: in a new ids tensor, and in one the kernel had already found
     # clean and that was then changed in place.  The kernel reads nothing
     # out of bounds, so the card stays usable: the same call on the clean
-    # batch then gives the same value (the loss sum is deterministic).
+    # batch then gives the same value (the loss sum is deterministic, and
+    # the ids' hot set is rebuilt, so the call takes the first call's form).
+    loss, args, v_k = ragged
     ids_t = args[1]
+    n = ids_t.shape[0]
     keep = int(ids_t[n // 2, 0])
     for bad_id, in_place in ((-1, False), (D, False), (D, True)):
         bad = ids_t if in_place else ids_t.clone()
         bad[n // 2, 0] = bad_id
         try:
-            fused_value_and_grad(loss, args[0], bad, *args[2:])
+            fs.fused_value_and_grad(loss, args[0], bad, *args[2:])
         except IndexError as e:
             log(f"  fused_sparse[id {bad_id}, in place {in_place}]: raised "
                 f"IndexError ({e}) ok")
         else:
             raise AssertionError(f"fused_sparse: id {bad_id} did not raise")
     ids_t[n // 2, 0] = keep
-    v_again, _ = fused_value_and_grad(loss, *args)
+    v_again, _ = fs.fused_value_and_grad(loss, *args)
     if float(v_again) != float(v_k):
         raise AssertionError("fused_sparse: value changed after a raising call")
+    return {"max_abs_err": worst}
+
+
+# The row scatter's cases in phase 2: (ids draw, r, nonzeros per row).
+ROW_SCATTER_CASES = (("uniform", "random", K), ("zipf", "random", K),
+                     ("zipf", "constant", K), ("zipf", "random", 48))
+
+
+def check_row_scatter(dev) -> dict:
+    """The row scatter against its plain version under the gradient gate,
+    on both draws with a random r and on zipf ids with a constant r (and at
+    k = 48), each as K1 is: the first call in the form with every hot slot,
+    the second in the form the set's size picks, the hot ids bit for bit
+    between the second and a third.  Then an id outside [0, d) raises."""
+    from photon_tpu_torch.ops import fused_sparse as fs
+
+    worst = 0.0
+    for i, (dist, r_kind, k) in enumerate(ROW_SCATTER_CASES):
+        rng = np.random.default_rng(300 + i)
+        n = N if k == K else 1 << 16
+        ids = make_ids(rng, n, k, D, dist)
+        vals = rng.standard_normal((n, k)).astype(np.float32)
+        r = (np.full(n, 0.5, np.float32) if r_kind == "constant"
+             else rng.standard_normal(n).astype(np.float32))
+        ids_t, vals_t, r_t = (torch.as_tensor(a, device=dev) for a in (ids, vals, r))
+        first = fs.row_scatter(r_t, ids_t, vals_t, D)
+        hot = fs.hot_set(ids_t, vals_t, D)
+        second = fs.row_scatter(r_t, ids_t, vals_t, D)
+        third = fs.row_scatter(r_t, ids_t, vals_t, D)
+        ref = fs.row_scatter_plain(r_t, ids_t, vals_t, D)
+        mag = fs.row_scatter_plain(r_t.abs(), ids_t, vals_t.abs(), D)
+        torch.cuda.synchronize()
+        tag = f"row_scatter[{dist}, {r_kind} r, n={n}, k={k}, n_hot={hot.n_hot}]"
+        for call, got in (("first call", first), ("second call", second)):
+            worst = max(worst, gate_report(f"{tag} {call}", got, ref, GRAD_RTOL, mag))
+        hot_ids_equal(tag, hot, second, third)
+        if (hot.n_hot == 0) != (dist == "uniform"):
+            raise AssertionError(f"{tag}: unexpected hot set size")
+    bad = ids_t.clone()
+    bad[3, 1] = D
+    try:
+        fs.row_scatter(r_t, bad, vals_t, D)
+    except IndexError as e:
+        log(f"  row_scatter[id {D}]: raised IndexError ({e}) ok")
+    else:
+        raise AssertionError("row_scatter: an id outside [0, d) did not raise")
     return {"max_abs_err": worst}
 
 
@@ -329,6 +470,9 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
     from photon_tpu_torch.ops.fused_sparse import (
         fused_value_and_grad,
         fused_value_and_grad_plain,
+        hot_set,
+        row_scatter,
+        row_scatter_plain,
     )
     from photon_tpu_torch.ops.slab_reduce import (
         LANES,
@@ -344,13 +488,38 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
     n, k = batch.ids.shape
     nnz = int((batch.vals != 0).sum())
     t_bound, by = bound(8 * n * k + 12 * n + 8 * D + 4, 4 * nnz + 20 * n)
-    saved = fused_value_and_grad.launches
+    saved = fused_value_and_grad.launches, row_scatter.launches
+    fused_value_and_grad(*args)  # the hot set and its size, outside the timing
+    n_hot = hot_set(batch.ids, batch.vals, D).n_hot
     out["fused_sparse"] = {
         "ms": cuda_ms(lambda: fused_value_and_grad(*args)),
         "plain_ms": cuda_ms(lambda: fused_value_and_grad_plain(*args)),
-        "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        "bound_ms": t_bound, "bound_by": by, "library_ms": None, "n_hot": n_hot,
     }
-    fused_value_and_grad.launches = saved
+    # The row scatter at the same shape, with its library calls: one
+    # index_add_ of the products r_i * vals_ij (formed once, here) in float32
+    # and in float64.  The float32 one is the card's rate of random L2
+    # atomics on uniform ids (one atomic an entry).
+    r = torch.randn(n, device=dev)
+    rs_args = (r, batch.ids, batch.vals, D)
+    idx = batch.ids.view(-1).long()
+    prod = (r[:, None] * batch.vals).view(-1)
+    prod64 = prod.double()
+    out32 = torch.zeros(D, device=dev)
+    out64 = torch.zeros(D, dtype=torch.float64, device=dev)
+    # ids and vals read once, r read once, the float32 result written once;
+    # one multiply and one add an entry.
+    t_bound, by = bound(8 * n * k + 4 * n + 4 * D, 2 * nnz)
+    lib32 = cuda_ms(lambda: out32.zero_().index_add_(0, idx, prod))
+    out["row_scatter"] = {
+        "ms": cuda_ms(lambda: row_scatter(*rs_args)),
+        "plain_ms": cuda_ms(lambda: row_scatter_plain(*rs_args)),
+        "library_ms": lib32,
+        "library_f64_ms": cuda_ms(lambda: out64.zero_().index_add_(0, idx, prod64)),
+        "library_atomics_per_s": n * k / (lib32 * 1e-3),
+        "bound_ms": t_bound, "bound_by": by, "n_hot": n_hot,
+    }
+    fused_value_and_grad.launches, row_scatter.launches = saved
     saved = position_partial_sums.launches
     for direction, lay, payload in (("grad", al, N), ("forward", al_t, D)):
         per = torch.randn(payload, device=dev)
@@ -389,6 +558,12 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
         lib = row["library_ms"]
         stages = (f", route stages: gather {row['gather_ms']:.4f} ms, epilogue "
                   f"{row['epilogue_ms']:.4f} ms" if "gather_ms" in row else "")
+        if "library_f64_ms" in row:
+            stages += (f", index_add_ in float64 {row['library_f64_ms']:.4f} ms; "
+                       f"float32 index_add_ {row['library_atomics_per_s'] / 1e9:.2f} "
+                       f"G atomics/s")
+        if "n_hot" in row:
+            stages += f", hot set {row['n_hot']} ids"
         log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"library {'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){stages}")
@@ -837,7 +1012,7 @@ def run_main_path(prepared, dev) -> dict:
     from photon_tpu_torch.core.optimizers import OptimizerConfig
     from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
     from photon_tpu_torch.ops import vperm as vp
-    from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad
+    from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad, row_scatter
     from photon_tpu_torch.ops.slab_reduce import (
         aligned_gather_products,
         position_partial_sums,
@@ -854,7 +1029,7 @@ def run_main_path(prepared, dev) -> dict:
     warm = GlmOptimizationProblem(objective, ProblemConfig(
         regularization=reg, optimizer_config=OptimizerConfig(max_iterations=2),
     ))
-    counters = {"fused_sparse": fused_value_and_grad,
+    counters = {"fused_sparse": fused_value_and_grad, "row_scatter": row_scatter,
                 "position_reduce": position_partial_sums,
                 "vperm_chunk": vp.chunk_pass, "vperm_lane": vp.lane_pass,
                 "vperm_chunk_expand": vp.chunk_expand_pass,
@@ -886,9 +1061,10 @@ def run_main_path(prepared, dev) -> dict:
                 form_launches[name][form] += n
         return out, counts
 
-    def expected(route: str, batch) -> set:
+    def expected(route: str, batch, second_order: bool = False) -> set:
         if route == "fused":
-            return {"fused_sparse"}
+            # Hv's X^T r goes through the row scatter.
+            return {"fused_sparse", "row_scatter"} if second_order else {"fused_sparse"}
         if route == "pallas":
             return {"position_reduce"}
         if route == "benes":
@@ -1046,7 +1222,8 @@ def run_tron(prepared, dev, counted, expected) -> list:
             (coefficients, res), counts = counted(
                 lambda: problem(TRON_ITERATIONS).run(run_batch, w0))
             wall = time.monotonic() - t0
-            unlaunched = sorted(k for k in expected(route, run_batch) if not counts[k])
+            unlaunched = sorted(k for k in expected(route, run_batch, second_order=True)
+                                if not counts[k])
             if unlaunched:
                 raise AssertionError(f"TRON {dist}/{route}: never launched {unlaunched}")
             f0 = float(res.history_value[0])
@@ -1407,6 +1584,7 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     k1 = check_fused_kernel(dev)
+    krs = check_row_scatter(dev)
     k2 = check_position_kernel(dev)
     log(f"  the main path's layouts and exchange routes, n={N}, k={K}, d={D}:")
     prepared = prepare_batches(dev)
@@ -1446,7 +1624,21 @@ def main() -> int:
             "max_abs_err": k1["max_abs_err"],
             **{key: timings["fused_sparse"][key] for key in
                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "zipf": zipf["fused_sparse"],
+            "zipf": zipf["fused_sparse"], "n_hot": timings["fused_sparse"]["n_hot"],
+            "card": card,
+        },
+        {
+            # The fused route's Hv scatter, in the JAX package an XLA scatter
+            # (no pl.pallas_call).
+            "name": "row_scatter", "route": "cuda",
+            "source": "photon_tpu_torch/ops/csrc/fused_sparse.cu",
+            "replaces": "photon_tpu/core/objective.py:420",
+            "launches": main_path["launches"]["row_scatter"],
+            "max_abs_err": krs["max_abs_err"],
+            **{key: timings["row_scatter"][key] for key in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_f64_ms", "library_atomics_per_s", "n_hot")},
+            "zipf": zipf["row_scatter"], "card": card,
         },
         {
             "name": "position_reduce", "route": "cuda",

@@ -41,13 +41,6 @@ def _fm_segment_grad(per_row: Tensor, fm: FeatureMajorAux, dim: int) -> Tensor:
     return scatter_sum(fm.ids, per_row.index_select(0, fm.rows) * fm.vals, dim)
 
 
-def _row_scatter(per_row: Tensor, batch: SparseBatch, dim: int) -> Tensor:
-    """``g[ids_ij] += per_row_i * vals_ij``: the unsorted row-major scatter."""
-    return scatter_sum(
-        batch.ids.reshape(-1), (per_row[:, None] * batch.vals).reshape(-1), dim
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class RegularizationContext:
     """L1/L2/elastic-net configuration; ``alpha`` is the elastic-net mix
@@ -178,7 +171,12 @@ class GlmObjective:
             return aligned_segment_grad(per_row, batch.al, dim)
         if kernel == "fm":
             return _fm_segment_grad(per_row, batch.fm, dim)
-        return _row_scatter(per_row, batch, dim)
+        # The unsorted row-major scatter: the fused route's kernel (its Hv
+        # half; K1 fuses value and gradient), else its plain version.
+        from photon_tpu_torch.ops.fused_sparse import row_scatter, row_scatter_plain
+
+        scatter = row_scatter if kernel == "fused" else row_scatter_plain
+        return scatter(per_row, batch.ids, batch.vals, dim)
 
     def _fast_data_value_and_grad(
         self, w: Tensor, batch: SparseBatch, kernel: str
@@ -225,7 +223,8 @@ class GlmObjective:
         """``(u -> X u, r -> X^T r)`` on the batch's route.  ``fused`` and
         ``autodiff`` take the row-major gather and the row scatter, as the
         JAX package does for a batch without a static layout: K1 fuses
-        value and gradient only."""
+        value and gradient only, and ``fused`` scatters through the row
+        scatter kernel."""
         if kernel is None:
             return (lambda u: batch.x @ u), (lambda r: batch.x.T @ r)
         return (

@@ -70,10 +70,13 @@ smoothed_hinge_loss_metric = _mean_loss("smoothed_hinge")
 def precision_at_k(
     scores: Tensor, labels: Tensor, weights: Optional[Tensor] = None, k: int = 10
 ) -> Tensor:
-    """Fraction of positives among the k highest-scoring (non-padded) rows."""
+    """Fraction of positives among the k highest-scoring (non-padded) rows.
+    Among equal scores the lower index comes first, as ``lax.top_k`` takes
+    them (``torch.topk`` promises no order among ties)."""
     w = _weights_or_ones(scores, weights)
     masked = torch.where(w > 0, scores, torch.full_like(scores, -float("inf")))
-    top_idx = torch.topk(masked, min(k, int(scores.shape[0]))).indices
+    order = torch.sort(masked, descending=True, stable=True).indices
+    top_idx = order[: min(k, int(scores.shape[0]))]
     valid = w[top_idx] > 0
     hits = labels[top_idx] * valid
     return torch.sum(hits) / torch.clamp_min(torch.sum(valid), 1)

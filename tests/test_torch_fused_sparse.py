@@ -119,3 +119,140 @@ def test_empty_batch_and_input_checks():
         fused_value_and_grad(loss, w, empty[0].long(), *empty[1:])
     with pytest.raises(ValueError):
         fused_value_and_grad(loss, w, *empty[:2], torch.zeros(2), *empty[3:])
+
+
+# -- the hot set and the row scatter ------------------------------------------
+# The card's kernels route each id through its hot slot or its atomic; the
+# hot set decides only the speed, so on the CPU it is held to its
+# definition: the HOT_SLOTS most frequent ids among the entries with an id
+# in [0, d) and a non-zero value, largest count first and the lower id first
+# among equal counts, that hold at least ceil(entries / HOT_SHARE) entries.
+
+
+def _hot_reference(ids, vals, d):
+    flat, v = ids.reshape(-1), vals.reshape(-1)
+    counts = np.bincount(flat[(flat >= 0) & (flat < d) & (v != 0)], minlength=d)[:d]
+    order = np.argsort(-counts, kind="stable")[: fused_sparse.HOT_SLOTS]
+    threshold = max(1, -(-flat.size // fused_sparse.HOT_SHARE))
+    return order[counts[order] >= threshold]
+
+
+def _hot_ids(hot):
+    n_hot = int(hot[fused_sparse.HOT_SLOTS])
+    assert (hot[n_hot:fused_sparse.HOT_SLOTS] == -1).all()
+    return hot[:n_hot].numpy()
+
+
+def _padded(rng, ids):
+    """Values for ``ids`` with padded row tails (id 0, value 0)."""
+    n, k = ids.shape
+    vals = rng.standard_normal((n, k)).astype(np.float32)
+    pad = np.arange(k)[None, :] >= rng.integers(1, k + 1, size=n)[:, None]
+    ids[pad], vals[pad] = 0, 0.0
+    return vals
+
+
+@pytest.mark.parametrize("exponent", [1.1, 1.3, 2.0])
+def test_hot_set_is_the_top_of_a_zipf_draw_and_deterministic(exponent):
+    rng = np.random.default_rng(int(exponent * 10))
+    d = 1 << 14
+    ids = (1 + (rng.zipf(exponent, size=(4096, 32)) - 1) % (d - 1)).astype(np.int32)
+    vals = _padded(rng, ids)
+    t, tv = torch.as_tensor(ids), torch.as_tensor(vals)
+    hot = fused_sparse.build_hot_set(t, tv, d)
+    assert hot.dtype == torch.int32 and hot.shape == (fused_sparse.HOT_SLOTS + 1,)
+    want = _hot_reference(ids, vals, d)
+    assert 0 < want.size <= fused_sparse.HOT_SLOTS and 0 not in want
+    np.testing.assert_array_equal(_hot_ids(hot), want)
+    assert torch.equal(fused_sparse.build_hot_set(t.clone(), tv.clone(), d), hot)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_hot_set_is_empty_on_uniform_ids(padded):
+    """Uniform ids make no feature hot, and neither do the pad slots."""
+    rng = np.random.default_rng(21)
+    d = 1 << 20  # about a sixteenth of an entry per feature: far below the share
+    ids = rng.integers(1, d, size=(8192, 32), dtype=np.int32)
+    vals = _padded(rng, ids) if padded else np.ones(ids.shape, np.float32)
+    hot = fused_sparse.build_hot_set(torch.as_tensor(ids), torch.as_tensor(vals), d)
+    assert int(hot[fused_sparse.HOT_SLOTS]) == 0
+    assert (hot[:fused_sparse.HOT_SLOTS] == -1).all()
+
+
+@pytest.mark.parametrize("d", [64, 2048])
+def test_hot_set_of_a_small_dim_and_of_more_candidates_than_slots(d):
+    """d = 64: every feature is hot; d = 2048: every feature passes the
+    threshold, and the set keeps the HOT_SLOTS most frequent."""
+    rng = np.random.default_rng(d)
+    ids = rng.integers(0, d, size=(8192, 32), dtype=np.int32)
+    vals = rng.standard_normal(ids.shape).astype(np.float32)
+    hot = _hot_ids(fused_sparse.build_hot_set(torch.as_tensor(ids), torch.as_tensor(vals), d))
+    assert hot.size == min(d, fused_sparse.HOT_SLOTS)
+    np.testing.assert_array_equal(hot, _hot_reference(ids, vals, d))
+
+
+def test_hot_set_counts_only_scattered_entries():
+    """Ids outside [0, d) and entries with value 0 are not counted."""
+    ids = np.zeros((64, 4), np.int32)
+    ids[:, 1:] = [[-1, 7, 9]]
+    vals = np.ones((64, 4), np.float32)
+    hot = fused_sparse.build_hot_set(torch.as_tensor(ids), torch.as_tensor(vals), 8)
+    np.testing.assert_array_equal(_hot_ids(hot), [0, 7])
+    vals[:, 0] = 0.0
+    hot = fused_sparse.build_hot_set(torch.as_tensor(ids), torch.as_tensor(vals), 8)
+    np.testing.assert_array_equal(_hot_ids(hot), [7])
+
+
+def test_hot_set_is_cached_per_tensor_version_and_dim():
+    ids = torch.as_tensor(np.random.default_rng(3).zipf(1.5, size=(256, 8))
+                          .clip(max=63).astype(np.int32))
+    vals = torch.ones(ids.shape)
+    first = fused_sparse.hot_set(ids, vals, 64)
+    assert fused_sparse.hot_set(ids, vals, 64) is first
+    assert fused_sparse.hot_set(ids, vals, 128) is not first
+    again = fused_sparse.hot_set(ids, vals, 64)
+    ids[:] = 5  # every entry now holds feature 5: the set is rebuilt
+    rebuilt = fused_sparse.hot_set(ids, vals, 64)
+    assert rebuilt is not again
+    np.testing.assert_array_equal(_hot_ids(rebuilt.ids), [5])
+    key = id(ids)
+    del ids, first, again, rebuilt
+    assert key not in fused_sparse._HOT_SETS
+
+
+@pytest.mark.parametrize("dist", ["uniform", "zipf"])
+def test_row_scatter_plain_matches_the_xla_scatter(dist):
+    """The CPU path of the row scatter (the kernel's plain version) against
+    the JAX package's ``zeros(d).at[ids].add(r[:, None] * vals)``, which
+    sums in float32 (rtol 1e-5 of each feature's summed magnitudes)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(8)
+    n, k, d = 600, 12, 96
+    if dist == "zipf":
+        ids = np.minimum(rng.zipf(1.3, size=(n, k)) - 1, d - 1).astype(np.int32)
+    else:
+        ids = rng.integers(0, d, size=(n, k), dtype=np.int32)
+    vals = rng.standard_normal((n, k)).astype(np.float32)
+    r = rng.standard_normal(n).astype(np.float32)
+    ref = np.asarray(jnp.zeros(d, jnp.float32).at[jnp.asarray(ids)].add(
+        jnp.asarray(r)[:, None] * jnp.asarray(vals)))
+    got = fused_sparse.row_scatter(torch.as_tensor(r), torch.as_tensor(ids),
+                                   torch.as_tensor(vals), d)
+    mag = np.zeros(d)
+    np.add.at(mag, ids.reshape(-1), np.abs(r[:, None] * vals).reshape(-1))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_less(np.abs(got.numpy() - ref), 1e-5 * mag + 1e-30)
+
+
+def test_row_scatter_checks_and_bad_ids():
+    r, vals = torch.ones(4), torch.ones(4, 3)
+    ids = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fused_sparse.row_scatter(torch.ones(5), ids, vals, 8)
+    with pytest.raises(ValueError):
+        fused_sparse.row_scatter(r, ids, torch.ones(4, 2), 8)
+    for bad in (-1, 8):
+        ids[2, 1] = bad
+        with pytest.raises(IndexError):
+            fused_sparse.row_scatter(r, ids, vals, 8)

@@ -145,6 +145,30 @@ def test_dense_batch_hessian_terms_match_jax():
         np.asarray(obj_j.hessian_matrix(jnp.asarray(w), jb)), rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("loss", ["logistic", "poisson"])
+@pytest.mark.parametrize("dist", ["uniform", "zipf"])
+def test_fused_hvp_operator_matches_jax(monkeypatch, dist, loss):
+    """The ``fused`` route's Hv (the row-major gather and the row scatter,
+    on the CPU the scatter's plain version) against the JAX package's
+    ``hvp_operator`` on uniform and zipf ids, at the tolerances of
+    test_hessian_terms_match_jax; one D(w) serves several products."""
+    d = 48
+    arrays = _arrays(d=d, seed=23, zipf=dist == "zipf", poisson=loss == "poisson")
+    rng = np.random.default_rng(24)
+    w = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    obj_j = JaxObjective.create(loss, JaxReg("l2", 0.6))
+    op_j = obj_j.hvp_operator(jnp.asarray(w), _jax_batch(arrays))
+    batch = _port_batch(monkeypatch, "fused", arrays, d)
+    obj = GlmObjective.create(loss, RegularizationContext("l2", 0.6))
+    assert obj._sparse_kernel(batch, d) == "fused"
+    op = obj.hvp_operator(torch.as_tensor(w), batch)
+    for _ in range(3):
+        v = rng.standard_normal(d).astype(np.float32)
+        np.testing.assert_allclose(op(torch.as_tensor(v)).numpy(),
+                                   np.asarray(op_j(jnp.asarray(v))),
+                                   rtol=2e-4, atol=1e-5)
+
+
 def test_normalized_objective_waits():
     with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         GlmObjective.create("logistic", normalization=object())
