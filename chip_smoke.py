@@ -55,8 +55,12 @@ Phases (any failure exits non-zero and prints no result line):
 5. the primitive probes: the seven probe kernels (PK1-PK7,
    ``ops/probe_kernels.py``) against their plain versions and a library
    call, bit for bit, at the probe tools' default shapes (E = 2^25, PK1 at
-   windows of 128 and 2048, PK2 and PK3 at every tile height), each launch
-   counted; then the three probe tools' probe functions
+   windows of 128 and 2048, PK2 and PK3 at every tile height, PK3 also at
+   262,143 rows; PK5 also at one chunk, ch = 8, 256, 512, 1024, 4096 and
+   8192, and with its planes out of range, each in the form
+   ``fused_chunk_form`` picks), each launch counted; PK5 at the tool's shape and PK3 timed in
+   turns with their library calls, medians and spreads beside their bars
+   (reported, not enforced); then the three probe tools' probe functions
    (``photon_tpu_torch/tools``) at E = 2^25 and ``probe_permute``'s rows h
    and i at 2^26 (the headline ``benes`` grid), every probe kernel launched;
    then the measured ``auto`` route probe on phase 2's batches of each id
@@ -65,8 +69,8 @@ Phases (any failure exits non-zero and prints no result line):
    phase 3's fit on the chosen route.
 
 The line before the last is a JSON object with one entry per kernel (the
-probe kernels' ``launches`` count the probe tools' run; the training main
-path launches none of them); the last line is ``{"ok": true, "device":
+probe kernels' ``launches`` count the probe tools' run; phase 3 checks that
+the training main path launches none of them); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -1011,6 +1015,7 @@ def run_main_path(prepared, dev) -> dict:
     from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
     from photon_tpu_torch.core.optimizers import OptimizerConfig
     from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
+    from photon_tpu_torch.ops import probe_kernels as pk
     from photon_tpu_torch.ops import vperm as vp
     from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad, row_scatter
     from photon_tpu_torch.ops.slab_reduce import (
@@ -1036,20 +1041,27 @@ def run_main_path(prepared, dev) -> dict:
                 "slab_gather": aligned_gather_products}
     launches = {name: 0 for name in counters}
     form_launches = {name: {"cluster": 0, "global": 0} for name in CHUNK_KERNELS}
-    result = {"runs": [], "form_launches": form_launches}
+    probe_launches = {fn.__name__: 0 for fn in pk.KERNELS}
+    result = {"runs": [], "form_launches": form_launches, "probe_launches": probe_launches}
 
     def counted(fn):
-        """Run ``fn`` with every launch count (K4's and K6's per form too)
-        set to 0 just before it; returns (its result, the counts just
-        after).  Every K4/K6 launch of the main path must take the form
-        ``chunk_form`` picks at its shapes: the cluster form."""
-        for c in counters.values():
+        """Run ``fn`` with every launch count (K4's and K6's per form too,
+        and the probe kernels') set to 0 just before it; returns (its
+        result, the counts just after).  Every K4/K6 launch of the main path
+        must take the form ``chunk_form`` picks at its shapes: the cluster
+        form; no probe kernel may launch."""
+        for c in (*counters.values(), *pk.KERNELS):
             c.launches = 0
         for name in CHUNK_KERNELS:
             counters[name].form_launches = {"cluster": 0, "global": 0}
         out = fn()
         torch.cuda.synchronize()
         counts = {name: c.launches for name, c in counters.items()}
+        probes = {c.__name__: c.launches for c in pk.KERNELS}
+        if any(probes.values()):
+            raise AssertionError(f"the training path launched probe kernels: {probes}")
+        for name, n in probes.items():
+            probe_launches[name] += n
         for name in counts:
             launches[name] += counts[name]
         for name in CHUNK_KERNELS:
@@ -1269,14 +1281,51 @@ def run_tron(prepared, dev, counted, expected) -> list:
 
 PROBE_E = 1 << 25  # the probe tools' default entry count
 CLOS_E = 1 << 26  # the headline benes grid (8192 x 8192) for probe rows h and i
+# PK5 off the tool's shape, (ch, rows, planes out of range): one chunk; the
+# block form (ch = 8, 256); the cluster form at every other size the rule
+# can give (4 and 8 blocks at 512 and 1024; 16 at 4096, one block an SM);
+# the global form (8192); each form with every plane out of its range.
+PK5_SHAPES = ((2048, 2048, False), (8, PROBE_E // 128, False),
+              (256, PROBE_E // 128, False), (512, PROBE_E // 128, False),
+              (1024, PROBE_E // 128, False), (4096, PROBE_E // 128, False),
+              (8192, PROBE_E // 128, False), (2048, PROBE_E // 128, True),
+              (256, PROBE_E // 128, True), (8192, PROBE_E // 128, True))
+# The bars phase 5 reports (it fails on a wrong result, not on a time): PK5
+# at the tool's shape under index_select's median and at most PK5_BAR_MS;
+# PK3 at most PK3_BAR x the median of x * c at every h and row count.
+PK5_BAR_MS = 0.30
+PK3_BAR = 1.02
+BAR_ROUNDS = 3
+
+
+def pk5_case(dev, ch: int, rows: int, out_of_range: bool, seed: int):
+    """PK5's inputs at ``rows`` rows of chunk height ``ch`` (random
+    permutation planes; out of range: ``i1 + 128``, ``i2 + ch``, ``i3 -
+    128``) and its library call, ``index_select`` by the source map composed
+    from the in-range planes."""
+    from photon_tpu_torch.ops import probe_kernels as pk
+    from photon_tpu_torch.tools.probe_common import generator, row_perms
+
+    L = pk.LANES
+    gen = generator(dev, seed)
+    x = torch.rand(rows, L, generator=gen, device=dev)
+    i1 = row_perms(rows, L, gen, dev)
+    i2 = row_perms(rows // ch * L, ch, gen, dev)
+    i3 = row_perms(rows, L, gen, dev)
+    src = pk.fused_chunk_source(i1, i2, i3, ch).view(-1)
+    if out_of_range:
+        i1, i2, i3 = i1 + L, i2 + ch, i3 - L
+    return (x, i1, i2, i3, ch), lambda: x.view(-1).index_select(0, src).view(rows, L)
 
 
 def probe_kernel_cases(dev) -> list:
     """PK1-PK7 at the probe tools' default shapes (E = 2^25): per case the
     kernel's name, the site it replaces, a label, the wrapper, its plain
-    version, a library call, the inputs and the bytes the bound counts.
-    The first case of each kernel is its row in the kernels line; PK2 and
-    PK3 also run at every tile height of probe_tiles."""
+    version, ``make()`` returning the inputs and a library call, the bytes
+    the bound counts and the bar it is held to (None, "pk5", "pk3").  The
+    first case of each kernel is its row in the kernels line; PK2 and PK3
+    also run at every tile height of probe_tiles (PK3 also at 262,143
+    rows), PK5 at ``PK5_SHAPES``."""
     from photon_tpu_torch.ops import probe_kernels as pk
     from photon_tpu_torch.tools.probe_blocklocal import CH
     from photon_tpu_torch.tools.probe_common import generator, row_perms
@@ -1290,63 +1339,97 @@ def probe_kernel_cases(dev) -> list:
     xt = torch.rand(L, rows, generator=gen, device=dev)
     win_idx = row_perms(L * n_tiles, CH, gen, dev).view(L, rows)
     mask = (torch.rand(rows, L, generator=gen, device=dev) < 0.5).float()
-    i2 = row_perms(n_tiles * L, CH, gen, dev)
-    i3 = row_perms(rows, L, gen, dev)
     sub_idx = torch.randint(0, 8, (rows, L), generator=gen, device=dev,
                             dtype=torch.int32)
     narrow = torch.rand(rows, L // 32, generator=gen, device=dev)
-    # Library calls' int64 indices and composed maps, built once here.
+    # Library calls' int64 indices, built once here.
     lane64, win64, sub64 = lane_idx.long(), win_idx.long(), sub_idx.long()
-    src5 = pk.fused_chunk_source(lane_idx, i2, i3, CH).view(-1)
     flip = lambda y: y.view(-1, 4, 32).flip(1).reshape_as(y)  # noqa: E731
+    ragged = x[: rows - 1]  # 262,143 rows: a ragged last tile at every h
     permute = "tools/probe_permute.py"
     block = "tools/probe_blocklocal.py"
     tiles = "tools/probe_tiles.py"
+
+    def fixed(args, library):
+        return lambda: (args, library)
+
+    def copy_case(a, h):
+        return fixed((a, h), lambda: a * pk.SCALE)
+
     cases = [
         ("window_gather", f"{permute}:110 (body :98-99); {block}:52 (bodies :68, :199)",
          "W=128", pk.window_gather, pk.window_gather_plain,
-         lambda: torch.gather(x, 1, lane64), (x, lane_idx, L), 12 * E),
+         fixed((x, lane_idx, L), lambda: torch.gather(x, 1, lane64)), 12 * E, None),
         ("window_gather", None, "W=2048, [128, E/128] view", pk.window_gather,
          pk.window_gather_plain,
-         lambda: torch.gather(xt.view(-1, CH), 1, win64.view(-1, CH)).view(L, rows),
-         (xt, win_idx, CH), 12 * E),
+         fixed((xt, win_idx, CH), lambda: torch.gather(
+             xt.view(-1, CH), 1, win64.view(-1, CH)).view(L, rows)), 12 * E, None),
         ("lane_swap", f"{permute}:166 (body :151-158); {tiles}:53 (swap_kernel :37)",
          "masked, h=512", lambda a, m, h: pk.lane_swap(a, m, h=h),
          lambda a, m, h: pk.lane_swap_plain(a, m, h),
-         lambda: torch.where(mask > 0, flip(x), x), (x, mask, 512), 12 * E),
+         fixed((x, mask, 512), lambda: torch.where(mask > 0, flip(x), x)), 12 * E, None),
         ("copy_scale", f"{tiles}:53 (copy_kernel :33)", "h=512",
          lambda a, h: pk.copy_scale(a, h=h), pk.copy_scale_plain,
-         lambda: x * pk.SCALE, (x, 512), 8 * E),
+         copy_case(x, 512), 8 * E, "pk3"),
         ("tile_transpose", f"{block}:101 (body)", f"[{CH},128] tiles",
          pk.tile_transpose, pk.tile_transpose_plain,
-         lambda: x.view(-1, CH, L).transpose(1, 2).contiguous(), (x, CH), 8 * E),
+         fixed((x, CH), lambda: x.view(-1, CH, L).transpose(1, 2).contiguous()),
+         8 * E, None),
         ("fused_chunk", f"{block}:146-151 (body)", f"CH={CH}, {n_tiles} chunks",
          pk.fused_chunk, pk.fused_chunk_plain,
-         lambda: x.view(-1).index_select(0, src5).view(rows, L),
-         (x, lane_idx, i2, i3, CH), 20 * E),
+         lambda: pk5_case(dev, CH, rows, False, 52), 20 * E, "pk5"),
         ("sublane_gather", f"{block}:245-250 (body)", "[8,128] groups",
          pk.sublane_gather, pk.sublane_gather_plain,
-         lambda: x.view(-1, 8, L).gather(1, sub64.view(-1, 8, L)).view(rows, L),
-         (x, sub_idx), 12 * E),
+         fixed((x, sub_idx), lambda: x.view(-1, 8, L).gather(
+             1, sub64.view(-1, 8, L)).view(rows, L)), 12 * E, None),
         ("lane_repeat", f"{block}:327-328 (body)", "k=32, [E/128,4] -> [E/128,128]",
          pk.lane_repeat, pk.lane_repeat_plain,
-         lambda: narrow.repeat_interleave(32, dim=1), (narrow, 32), 4 * E + 4 * E // 32),
+         fixed((narrow, 32), lambda: narrow.repeat_interleave(32, dim=1)),
+         4 * E + 4 * E // 32, None),
     ]
     for h in HEIGHTS:
         cases.append(("lane_swap", None, f"unmasked, h={h}",
                       lambda a, h: pk.lane_swap(a, h=h),
                       lambda a, h: pk.lane_swap_plain(a, None, h),
-                      lambda: flip(x), (x, h), 8 * E))
-        cases.append(("copy_scale", None, f"h={h}",
-                      lambda a, h: pk.copy_scale(a, h=h), pk.copy_scale_plain,
-                      lambda: x * pk.SCALE, (x, h), 8 * E))
+                      fixed((x, h), lambda: flip(x)), 8 * E, None))
+        for a in (x, ragged):
+            cases.append(("copy_scale", None, f"h={h}, {a.shape[0]} rows",
+                          lambda a, h: pk.copy_scale(a, h=h), pk.copy_scale_plain,
+                          copy_case(a, h), 8 * a.numel(), "pk3"))
+    for n, (ch, r, oor) in enumerate(PK5_SHAPES):
+        label = f"CH={ch}, {r // ch} chunk{'s' if r > ch else ''}" + (
+            f", planes out of range (i1 + 128, i2 + {ch}, i3 - 128)" if oor else "")
+        cases.append(("fused_chunk", None, label, pk.fused_chunk, pk.fused_chunk_plain,
+                      lambda ch=ch, r=r, oor=oor, n=n: pk5_case(dev, ch, r, oor, 60 + n),
+                      20 * r * L, None))
     return cases
+
+
+def turns(fns: list, rounds: int = BAR_ROUNDS) -> list:
+    """``rounds`` turns of the functions in order, each time a CUDA-event
+    mean over 20 calls (``cuda_ms``, as every other row); per function (median, spread = max - min,
+    the rounds), milliseconds."""
+    ts = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(ts, fns):
+            t.append(cuda_ms(fn, reps=20))
+    return [(float(np.median(t)), max(t) - min(t), t) for t in ts]
+
+
+def interleaved(fn, library) -> dict:
+    """The kernel and its library call in turns: medians and spreads."""
+    (k, ks, kr), (lib, ls, lr) = turns([fn, library])
+    return {"ms": k, "library_ms": lib, "ms_rounds": kr, "library_ms_rounds": lr,
+            "spread_ms": ks, "library_spread_ms": ls}
 
 
 def check_probe_kernels(dev) -> dict:
     """Phase 5, part 1: every PK case against its plain version and its
-    library call, bit for bit; each kernel's launch counter must move.
-    Every case is timed (kernel, plain, library) and bounded.  Returns
+    library call, bit for bit; each kernel's launch counter must move (and
+    PK5's count of the form ``fused_chunk_form`` picks).  Every case is
+    timed (kernel, plain, library) and bounded; the cases under a bar
+    (PK5 at the tool's shape, PK3) take kernel and library in turns,
+    ``BAR_ROUNDS`` times, and report medians, spreads and the bar.  Returns
     ``{kernel: row}``: the kernel's first case, its others under
     ``other_shapes``."""
     from photon_tpu_torch.ops import probe_kernels as pk
@@ -1354,33 +1437,61 @@ def check_probe_kernels(dev) -> dict:
     counters = {fn.__name__: fn for fn in pk.KERNELS}
     saved = {name: fn.launches for name, fn in counters.items()}
     rows = {}
-    for name, replaces, label, fn, plain, library, args, nbytes in probe_kernel_cases(dev):
+    for name, replaces, label, fn, plain, make, nbytes, bar in probe_kernel_cases(dev):
+        args, library = make()
         before = counters[name].launches
+        form = None
+        if name == "fused_chunk":
+            x5, ch = args[0], args[-1]
+            form = pk.fused_chunk_form(x5.shape[0] // ch, ch)
+            forms_before = dict(pk.fused_chunk.form_launches)
         got, ref, lib = fn(*args), plain(*args), library()
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         same = torch.equal(got, ref) and torch.equal(got, lib.reshape(got.shape))
         moved = counters[name].launches == before + 1
+        if form is not None:
+            moved = moved and (pk.fused_chunk.form_launches[form[0]]
+                               == forms_before[form[0]] + 1)
         log(f"  {name}[{label}, {tuple(args[0].shape)}]: max_abs_err={err:.3e}, "
-            f"bitwise {'ok' if same else 'FAIL'}, launch counted {'ok' if moved else 'FAIL'}")
+            f"bitwise {'ok' if same else 'FAIL'}, launch counted {'ok' if moved else 'FAIL'}"
+            + (f", form {form}" if form else ""))
         if not same:
             raise AssertionError(f"{name} [{label}] differs from its plain version")
         if not moved:
             raise AssertionError(f"{name} [{label}]: the launch counter did not move")
         t_bound, by = bound(nbytes, 0)
-        row = {
-            "at": label, "max_abs_err": err,
-            "ms": cuda_ms(lambda: fn(*args)),
-            "plain_ms": cuda_ms(lambda: plain(*args)),
-            "library_ms": cuda_ms(library),
-            "bound_ms": t_bound, "bound_by": by,
-        }
+        row = {"at": label, "max_abs_err": err}
+        if bar:
+            row.update(interleaved(lambda: fn(*args), library))
+            row["plain_ms"] = cuda_ms(lambda: plain(*args))
+        else:
+            row.update({"ms": cuda_ms(lambda: fn(*args)),
+                        "plain_ms": cuda_ms(lambda: plain(*args)),
+                        "library_ms": cuda_ms(library)})
+        row.update({"bound_ms": t_bound, "bound_by": by})
+        if form is not None:
+            row["form"] = list(form)
+            if form[0] == "cluster":
+                row["max_active_clusters"] = pk.fused_chunk_clusters(ch, *form[1:])
+        if bar == "pk5":
+            row["bar"] = {"below_library": row["ms"] < row["library_ms"],
+                          "at_most_ms": PK5_BAR_MS, "met": bool(
+                              row["ms"] < row["library_ms"] and row["ms"] <= PK5_BAR_MS)}
+        elif bar == "pk3":
+            ratio = row["ms"] / row["library_ms"]
+            row["bar"] = {"ratio": ratio, "at_most": PK3_BAR, "met": ratio <= PK3_BAR}
         log(f"  {name} [{label}]: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-            f"ms, library {row['library_ms']:.4f} ms, bound {t_bound:.4f} ms ({by})")
+            f"ms, library {row['library_ms']:.4f} ms, bound {t_bound:.4f} ms ({by})"
+            + (f"; medians of {BAR_ROUNDS} turns, spread {row['spread_ms']:.4f} / "
+               f"{row['library_spread_ms']:.4f} ms; bar {json.dumps(row['bar'])}"
+               if bar else ""))
         if replaces is None:  # a further shape of a kernel listed already
             rows[name]["other_shapes"].append(row)
         else:
             rows[name] = {"replaces": replaces, **row, "other_shapes": []}
+        del args, library, got, ref, lib
+    torch.cuda.empty_cache()
     for name, fn in counters.items():
         fn.launches = saved[name]
     return rows
@@ -1695,10 +1806,10 @@ def main() -> int:
             "source": "photon_tpu_torch/ops/csrc/probes.cu",
             # The probe tools are this slice's path; the training main path
             # (phases 3 and 4) never launches a probe kernel.
-            "launches": probe_launches[name], "training_path_launches": 0,
-            **{key: row[key] for key in ("replaces", "max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "library_ms", "at")},
-            "other_shapes": row["other_shapes"],
+            "launches": probe_launches[name],
+            "training_path_launches": main_path["probe_launches"][name],
+            **{key: value for key, value in row.items() if key != "other_shapes"},
+            "other_shapes": row["other_shapes"], "card": card,
         })
     log(f"probe tool seconds: {json.dumps(probe_seconds)}")
     log(f"auto route probe: {json.dumps(auto, default=str)}")

@@ -12,9 +12,10 @@ plain PyTorch version:
   2048-wide windows of a transposed view);
 - PK2 :func:`lane_swap` — the reversal of each row's four 32-lane blocks
   that the Pallas "swap stage" computes, optionally masked;
-- PK3 :func:`copy_scale` — ``x * 1.0000001``;
+- PK3 :func:`copy_scale` — ``x * 1.0000001``, over tiles of ``h`` rows;
 - PK4 :func:`tile_transpose` — ``[CH, 128]`` tiles to ``[128, CH]``;
-- PK5 :func:`fused_chunk` — the fused 5-stage chunk permutation;
+- PK5 :func:`fused_chunk` — the fused 5-stage chunk permutation, in the
+  form :func:`fused_chunk_form` picks from the shape;
 - PK6 :func:`sublane_gather` — a gather along the rows of ``[8, 128]``
   groups;
 - PK7 :func:`lane_repeat` — each element repeated ``k`` times along the
@@ -40,6 +41,7 @@ LANES = 128
 # PK3's factor: the float32 nearest 1.0000001 (1 + 2^-23), exact as a float.
 SCALE = float(np.float32(1.0000001))
 MAX_WINDOW = 2048  # PK1's shared-memory stage: a block's whole windows
+SMEM_BLOCK = 232_448  # shared memory a block may use on sm_90 (227 KB)
 
 
 def _on_card(*ts: Tensor) -> bool:
@@ -76,6 +78,12 @@ def _check(t: Tensor, dtype: torch.dtype, what: str) -> None:
 
 def _pow2(v: int) -> bool:
     return v > 0 and v & (v - 1) == 0
+
+
+def _aligned(*ts: Tensor) -> None:
+    """The float4/int4 kernels (PK3, PK5) read and write 16 bytes a lane."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("the kernel takes 16-byte aligned tensors only")
 
 
 def _rows128(x: Tensor, what: str = "x") -> int:
@@ -163,19 +171,22 @@ lane_swap.launches = 0
 # -- PK3 ------------------------------------------------------------------------
 
 def copy_scale_plain(x: Tensor, h: int = 512) -> Tensor:
-    """Plain PyTorch PK3 (``h`` only shapes the kernel's grid)."""
+    """Plain PyTorch PK3 (``h`` only cuts the kernel's work into tiles)."""
     return x * SCALE
 
 
 def copy_scale(x: Tensor, h: int = 512) -> Tensor:
-    """PK3: ``x * 1.0000001`` (float32 ``[rows, 128]``), ``h`` rows a block."""
+    """PK3: ``x * 1.0000001`` (float32 ``[rows, 128]``).  ``h``, the tile
+    height of the reference, is validated only: a block takes 8 rows, so
+    the launch is the same at every ``h`` and fills the card."""
     rows = _rows128(x)
-    if h < 1:
-        raise ValueError(f"h must be positive, got {h}")
+    if not 1 <= h < 2 ** 31:
+        raise ValueError(f"h must be a positive int32, got {h}")
     _check(x, torch.float32, "x")
     if not _on_card(x):
         return copy_scale_plain(x, h)
     out = torch.empty_like(x)
+    _aligned(x, out)
     copy_scale.launches += 1
     _launch("copy_scale",
             [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int],
@@ -218,6 +229,79 @@ tile_transpose.launches = 0
 
 # -- PK5 ------------------------------------------------------------------------
 
+GROUP_ROWS = 64  # the block form takes whole chunks, at least this many rows a block
+FUSED_CLUSTERS = (2, 4, 8, 16)  # 16 is a non-portable cluster size
+FUSED_PASSES = (1, 2, 4, 8)
+# Two blocks an SM: each may use half of the SM's 233,472 bytes less the
+# 1 KB the card reserves per block.
+SMEM_HALF_SM = (233_472 - 2 * 1024) // 2
+TILE_ROWS, TILE_PITCH = 32, LANES + 4  # the cluster form's stage-1 tile
+
+
+def fused_block_smem(ch: int, g: int) -> int:
+    """Shared memory of PK5's block form at ``g`` chunks of ``ch`` rows a
+    block: their y1 rows (f32) and i2 tiles (int16, pitch ``ch + 2``);
+    ``fused_block_smem`` in ``csrc/probes.cu``."""
+    return g * ch * LANES * 4 + g * LANES * (ch + 2) * 2
+
+
+def fused_cluster_smem(ch: int, cl: int, passes: int) -> int:
+    """Shared memory of a block of PK5's cluster form: A, its ``128 / cl``
+    columns over the chunk's ``ch`` rows (f32), and B, ``128 x pitch`` f32
+    for one pass of ``ch / cl / passes`` rows (the pitch rounded up to 32),
+    which also holds the 32-row stage-1 tile; ``fused_cluster_smem`` in
+    ``csrc/probes.cu``."""
+    rpp = ch // cl // passes
+    pitch = -(-rpp // 32) * 32
+    return 4 * (LANES // cl * ch + max(LANES * pitch, TILE_ROWS * TILE_PITCH))
+
+
+def _cluster_fits(ch: int, cl: int, passes: int, budget: int) -> bool:
+    return (ch % (cl * TILE_ROWS) == 0 and (ch // cl) % (passes * 4) == 0
+            and fused_cluster_smem(ch, cl, passes) <= budget)
+
+
+def fused_chunk_form(nc: int, ch: int) -> tuple[str, int, int]:
+    """The shape rule of PK5: ``(form, arg, passes)``.
+
+    - ``("block", g, 1)`` where one block holds whole chunks (``ch <=
+      256``): ``g`` chunks a block, at least :data:`GROUP_ROWS` rows;
+    - ``("cluster", cl, passes)`` where a cluster of ``cl`` blocks holds a
+      chunk: first the smallest cluster whose blocks fit two to an SM (the
+      fewest passes at that size), else the smallest that fits at all;
+    - ``("global", 0, 0)``, one thread an element, where no cluster holds
+      the chunk (``ch >= 8192``).
+
+    ``ch`` is a power of two.  Raises on a shape that no form takes."""
+    if nc < 1 or ch < 1 or ch & (ch - 1) or ch > 1 << 24:
+        raise ValueError(f"no PK5 form takes nc={nc}, ch={ch} "
+                         "(ch a power of two up to 2^24, nc >= 1)")
+    g = max(1, GROUP_ROWS // ch)
+    if fused_block_smem(ch, g) <= SMEM_BLOCK:
+        return ("block", g, 1)
+    for budget in (SMEM_HALF_SM, SMEM_BLOCK):
+        for cl in FUSED_CLUSTERS:
+            for passes in FUSED_PASSES:
+                if _cluster_fits(ch, cl, passes, budget):
+                    return ("cluster", cl, passes)
+    return ("global", 0, 0)
+
+
+def fused_chunk_clusters(ch: int, cl: int, passes: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of PK5's cluster form: how many
+    clusters of ``cl`` blocks at chunk height ``ch`` the card runs at once
+    (needs the card)."""
+    from photon_tpu_torch.ops import _build
+
+    fn = _build.load("probes").photon_probe_fused_chunk_clusters
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    n = fn(ch, cl, passes)
+    if n < 0:
+        _build.check(-n, "probes.fused_chunk_clusters")
+    return n
+
+
 def fused_chunk_source(i1: Tensor, i2: Tensor, i3: Tensor, ch: int) -> Tensor:
     """The flat source index of each output element of PK5 (int64,
     ``[n_tiles * ch, 128]``): ``c = i3[r, l]``, ``r2 = i2[t * 128 + c, r]``,
@@ -240,13 +324,17 @@ def fused_chunk_plain(x: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
     return x.reshape(-1)[fused_chunk_source(i1, i2, i3, ch)]
 
 
+_FORM_CODES = {"global": 0, "block": 1, "cluster": 2}
+
+
 def fused_chunk(x: Tensor, i1: Tensor, i2: Tensor, i3: Tensor, ch: int) -> Tensor:
     """PK5: the Pallas body's three gathers and two transposes within each
     ``[ch, 128]`` chunk, composed: ``out[r, l] = x[r2, i1[r2, c]]`` with
     ``c = i3[r, l]`` and ``r2 = i2[t * 128 + c, r]`` (chunk-local rows).
     ``x``, ``i1``, ``i3``: ``[n_tiles * ch, 128]``; ``i2``: ``[n_tiles *
     128, ch]`` (the transposed view, one tile a chunk); int32 indices;
-    ``ch`` a power of two."""
+    ``ch`` a power of two.  Launches the form :func:`fused_chunk_form`
+    picks, counted in ``fused_chunk.form_launches``."""
     rows = _rows128(x)
     if not _pow2(ch) or rows % ch:
         raise ValueError(f"ch {ch} must be a power of two dividing {rows} rows")
@@ -260,16 +348,21 @@ def fused_chunk(x: Tensor, i1: Tensor, i2: Tensor, i3: Tensor, ch: int) -> Tenso
         _check(t, torch.int32, name)
     if not _on_card(x, i1, i2, i3):
         return fused_chunk_plain(x, i1, i2, i3, ch)
+    nc = rows // ch
+    form, arg, passes = fused_chunk_form(nc, ch)
     out = torch.empty_like(x)
+    _aligned(x, i1, i2, i3, out)
     fused_chunk.launches += 1
+    fused_chunk.form_launches[form] += 1
     _launch("fused_chunk",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2,
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
             x, x.data_ptr(), i1.data_ptr(), i2.data_ptr(), i3.data_ptr(),
-            out.data_ptr(), rows // ch, ch)
+            out.data_ptr(), nc, ch, _FORM_CODES[form], arg, passes)
     return out
 
 
 fused_chunk.launches = 0
+fused_chunk.form_launches = {"block": 0, "cluster": 0, "global": 0}
 
 
 # -- PK6 ------------------------------------------------------------------------

@@ -1,15 +1,17 @@
-"""Block-count probe: the same kernel at varying rows per block.
+"""Tile-height probe: the same kernel at varying tile heights.
 
 Counterpart of ``tools/probe_tiles.py``.  The reference timed a minimal
 copy-scale kernel and the swap-stage kernel over a sweep of tile heights at
 a fixed total size, to ask whether the TPU's time per element depended on
-the grid step.  Here a tile height ``h`` is the rows of 128 lanes that one
-block of the kernel takes (PK3 copy-scale and PK2 unmasked lane swap,
-``ops/probe_kernels.py``), so the sweep is a sweep of the block count, from
-``E / 1024`` blocks down to ``E / 2^20``: the time an element should not
-depend on it while every SM holds a few blocks, and should rise once there
-are fewer blocks than SMs.  Each row also prints its bound and the time of
-one PyTorch call that computes the same function.  Run::
+the grid step.  Here ``h`` is the height of the tiles of 128 lanes that the
+rows are cut into.  PK2's unmasked lane swap gives each block one tile, so
+its sweep is a sweep of the block count, from ``E / 1024`` blocks down to
+``E / 2^20``: its time rises once there are fewer blocks than SMs.  PK3
+copy-scale (``ops/probe_kernels.py``) only validates ``h``: its launch is
+the same at every ``h`` (blocks of 8 rows, ``rows / 8`` of them), so its
+rows differ by noise alone and say nothing about tiles on this card.
+Each row also prints its bound and the time of one PyTorch call that
+computes the same function.  Run::
 
     python -m photon_tpu_torch.tools.probe_tiles [--entries E] [--device cuda|cpu]
 """
@@ -67,12 +69,12 @@ def sweep(kernel, library, name: str, E: int, device) -> dict:
     for h in HEIGHTS:
         if rows % h:
             continue
-        n_blocks = rows // h
+        n_tiles = rows // h
         t = timed(_chain(lambda y, h=h: kernel(y, h)), x0) / CHAIN
         out[h] = t
-        print(f"{name} h={h:<5} blocks={n_blocks:<6} {t*1e3:8.3f} ms  "
+        print(f"{name} h={h:<5} tiles={n_tiles:<6} {t*1e3:8.3f} ms  "
               f"{E/t/1e6:9.1f} Melem/s  {E*4*2/t/1e9:7.2f} GB/s r+w  "
-              f"{t/n_blocks*1e6:8.3f} us/block  bound {bound_ms(8 * E):.3f} ms  "
+              f"{t/n_tiles*1e6:8.3f} us/tile  bound {bound_ms(8 * E):.3f} ms  "
               f"library {t_lib*1e3:.3f} ms")
     return out
 

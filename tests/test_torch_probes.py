@@ -296,6 +296,156 @@ def test_fused_chunk_equals_its_five_stages():
     assert torch.equal(pk.fused_chunk(x, i1, i2, i3, ch), y.reshape(rows, LANES))
 
 
+def _chunk_planes(rng, ch, n_tiles):
+    rows = ch * n_tiles
+    x = rng.random((rows, LANES)).astype(np.float32)
+    i1 = _perm_rows(rng, rows, LANES)
+    i2 = _perm_rows(rng, n_tiles * LANES, ch)
+    i3 = _perm_rows(rng, rows, LANES)
+    return x, i1, i2, i3
+
+
+@pytest.mark.parametrize("ch,n_tiles,out_of_range", [
+    (8, 1, False), (8, 4, True), (64, 3, False), (64, 2, True),
+    (256, 1, False), (256, 4, True),
+], ids=lambda v: str(v))
+def test_fused_chunk_plain_equals_pallas_body(monkeypatch, ch, n_tiles, out_of_range):
+    """PK5's plain version against the Pallas body of
+    tools/probe_blocklocal.py:146-151 in interpret mode, at the chunk heights
+    of the block form.  Out of range, the port takes ``i1 + 128``, ``i2 +
+    ch`` and ``i3 - 128`` and masks them back to the planes the Pallas body
+    takes."""
+    monkeypatch.setattr(ref_blocklocal, "INTERPRET", True)
+    x, i1, i2, i3 = _chunk_planes(np.random.default_rng(ch + n_tiles), ch, n_tiles)
+    rows_spec = pl.BlockSpec((ch, LANES), lambda i: (i, 0))
+    want = ref_blocklocal._pallas(
+        _block_fused_chunk_body,
+        out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype), grid=(n_tiles,),
+        in_specs=[rows_spec, rows_spec, pl.BlockSpec((LANES, ch), lambda i: (i, 0)),
+                  rows_spec],
+        out_specs=rows_spec,
+    )(x, i1, i2, i3)
+    if out_of_range:
+        i1, i2, i3 = i1 + LANES, i2 + ch, i3 - LANES
+    before = pk.fused_chunk.launches
+    got = pk.fused_chunk(*(torch.as_tensor(a) for a in (x, i1, i2, i3)), ch)
+    _same(got, want)
+    assert pk.fused_chunk.launches == before
+
+
+# The form PK5's rule picks at the tool's chunk heights: one block a chunk
+# (several chunks below 64 rows) up to 256 rows; a cluster of ch / 128
+# blocks in two passes, two blocks an SM, up to 2048; 16 blocks of one
+# block an SM at 4096; one thread an element from 8192.
+FUSED_FORMS = {
+    1: ("block", 64, 1), 8: ("block", 8, 1), 32: ("block", 2, 1), 64: ("block", 1, 1),
+    128: ("block", 1, 1), 256: ("block", 1, 1), 512: ("cluster", 4, 2),
+    1024: ("cluster", 8, 2), 2048: ("cluster", 16, 2), 4096: ("cluster", 16, 2),
+    8192: ("global", 0, 0), 16384: ("global", 0, 0),
+}
+
+
+def _form_smem(nc: int, ch: int) -> int:
+    """Shared memory a block of the form PK5's rule picks uses (0: global)."""
+    form, arg, passes = pk.fused_chunk_form(nc, ch)
+    if form == "block":
+        return pk.fused_block_smem(ch, arg)
+    return pk.fused_cluster_smem(ch, arg, passes) if form == "cluster" else 0
+
+
+@pytest.mark.parametrize("ch", list(FUSED_FORMS))
+def test_fused_chunk_form_picks_the_form(ch):
+    for nc in (1, 128):
+        assert pk.fused_chunk_form(nc, ch) == FUSED_FORMS[ch]
+        assert _form_smem(nc, ch) <= pk.SMEM_BLOCK == 232_448
+    form, arg, passes = FUSED_FORMS[ch]
+    if form == "cluster":
+        # Two blocks an SM wherever a cluster of at most 16 blocks allows it.
+        two = pk.fused_cluster_smem(ch, arg, passes) <= pk.SMEM_HALF_SM
+        assert two == (ch <= 2048)
+        assert ch % (arg * pk.TILE_ROWS) == 0 and (ch // arg) % (4 * passes) == 0
+    elif form == "block":
+        assert arg * ch >= pk.GROUP_ROWS
+
+
+def test_fused_chunk_form_limits_and_refusals():
+    """Every power-of-two chunk height up to 2^24 takes a form whose block
+    fits in 232,448 bytes; the block form ends at 256 rows, the cluster form
+    at 4096; a shape no form takes raises."""
+    forms = {}
+    for shift in range(25):
+        ch = 1 << shift
+        form = pk.fused_chunk_form(3, ch)
+        forms.setdefault(form[0], []).append(ch)
+        assert _form_smem(3, ch) <= pk.SMEM_BLOCK
+    assert max(forms["block"]) == 256 and min(forms["cluster"]) == 512
+    assert max(forms["cluster"]) == 4096 and min(forms["global"]) == 8192
+    assert pk.fused_block_smem(256, 1) == 197_120
+    assert pk.fused_cluster_smem(2048, 16, 2) == 98_304
+    assert pk.fused_cluster_smem(4096, 16, 1) > pk.SMEM_BLOCK
+    for nc, ch in [(0, 8), (1, 0), (1, 3), (1, 100), (1, -8), (1, 1 << 25)]:
+        with pytest.raises(ValueError, match="no PK5 form"):
+            pk.fused_chunk_form(nc, ch)
+
+
+def test_fused_chunk_launches_the_form_the_rule_picks(monkeypatch):
+    """On a card tensor PK5 launches the rule's form (caught at the launch
+    here, no card needed), counts it, and never takes its plain version."""
+    seen = []
+    monkeypatch.setattr(pk, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(pk, "_launch", lambda name, argtypes, x, *args: seen.append(
+        (name, args[5:])))
+    monkeypatch.setattr(pk, "fused_chunk_plain", None)  # a call would raise
+    monkeypatch.setattr(pk.fused_chunk, "launches", 0)
+    monkeypatch.setattr(pk.fused_chunk, "form_launches",
+                        {"block": 0, "cluster": 0, "global": 0})
+    for ch, nc in [(8, 4), (2048, 1), (8192, 1)]:
+        rows = ch * nc
+        lanes = torch.zeros(rows, LANES, dtype=torch.int32)
+        pk.fused_chunk(torch.zeros(rows, LANES), lanes,
+                       torch.zeros(nc * LANES, ch, dtype=torch.int32), lanes, ch)
+    assert seen == [("fused_chunk", (4, 8, 1, 8, 1)), ("fused_chunk", (1, 2048, 2, 16, 2)),
+                    ("fused_chunk", (1, 8192, 0, 0, 0))]
+    assert pk.fused_chunk.form_launches == {"block": 1, "cluster": 1, "global": 1}
+    assert pk.fused_chunk.launches == 3
+
+
+@pytest.mark.parametrize("name", ["copy_scale", "fused_chunk"])
+def test_card_wrappers_refuse_misaligned_tensors(monkeypatch, name):
+    """PK3 and PK5 move 16 bytes a lane: a tensor that does not start on a
+    16-byte boundary raises before any launch (no plain fallback)."""
+    monkeypatch.setattr(pk, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(pk, "_launch", lambda *a: pytest.fail("launched"))
+    flat = torch.zeros(64 * LANES + 1)
+    x = flat[1:].view(64, LANES)
+    assert x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if name == "copy_scale":
+            pk.copy_scale(x, h=8)
+        else:
+            lanes = torch.zeros(64, LANES, dtype=torch.int32)
+            pk.fused_chunk(x, lanes, torch.zeros(LANES, 64, dtype=torch.int32), lanes, 64)
+
+
+@pytest.mark.parametrize("rows,h_ref,h", [(1023, 31, 512), (999, 27, 8192), (7, 7, 3)],
+                         ids=lambda v: str(v))
+def test_copy_scale_plain_equals_pallas_body_at_odd_rows(rows, h_ref, h):
+    """PK3's plain version against tools/probe_tiles.py's copy_kernel in
+    interpret mode at odd row counts; the port's tile height need not divide
+    the rows (the kernel's last tile is short)."""
+    x = np.random.default_rng(rows).random((rows, LANES)).astype(np.float32)
+    want = _row_tiled(ref_tiles.copy_kernel, 1, rows, h_ref)(x)
+    _same(pk.copy_scale(torch.as_tensor(x), h=h), want)
+
+
+def test_copy_scale_validates_h():
+    x = torch.zeros(8, LANES)
+    for h in (0, -1, 2 ** 31):
+        with pytest.raises(ValueError, match="h must be"):
+            pk.copy_scale(x, h=h)
+    assert torch.equal(pk.copy_scale(x, h=2 ** 31 - 1), x)
+
+
 def test_compensated_cumsum_matches_reference_scan():
     """Both scans combine the same two-sum pairs in different orders, so
     neither equals the other bit for bit; each one's ``hi + lo`` (in float64)
