@@ -55,12 +55,14 @@ Phases (any failure exits non-zero and prints no result line):
 5. the primitive probes: the seven probe kernels (PK1-PK7,
    ``ops/probe_kernels.py``) against their plain versions and a library
    call, bit for bit, at the probe tools' default shapes (E = 2^25, PK1 at
-   windows of 128 and 2048, PK2 and PK3 at every tile height, PK3 also at
-   262,143 rows; PK5 also at one chunk, ch = 8, 256, 512, 1024, 4096 and
-   8192, and with its planes out of range, each in the form
-   ``fused_chunk_form`` picks), each launch counted; PK5 at the tool's shape and PK3 timed in
-   turns with their library calls, medians and spreads beside their bars
-   (reported, not enforced); then the three probe tools' probe functions
+   windows of 128 and 2048, PK2 masked and unmasked and PK3 at every tile
+   height and at 262,143 rows; PK5 also at one chunk, ch = 8, 256, 512,
+   1024, 4096 and 8192, and with its planes out of range, each in the form
+   ``fused_chunk_form`` picks; PK7 at every k and at 262,143 rows), each
+   launch counted; PK5 at the tool's shape, PK3, PK2 unmasked and PK7 at
+   k = 32 timed in turns with their library calls, medians and spreads and
+   the wrapper's host time per call beside their bars (reported, not
+   enforced); then the three probe tools' probe functions
    (``photon_tpu_torch/tools``) at E = 2^25 and ``probe_permute``'s rows h
    and i at 2^26 (the headline ``benes`` grid), every probe kernel launched;
    then the measured ``auto`` route probe on phase 2's batches of each id
@@ -1292,10 +1294,15 @@ PK5_SHAPES = ((2048, 2048, False), (8, PROBE_E // 128, False),
               (256, PROBE_E // 128, True), (8192, PROBE_E // 128, True))
 # The bars phase 5 reports (it fails on a wrong result, not on a time): PK5
 # at the tool's shape under index_select's median and at most PK5_BAR_MS;
-# PK3 at most PK3_BAR x the median of x * c at every h and row count.
+# PK3 at most PK3_BAR x the median of x * c at every h and row count; PK2
+# unmasked at every h and PK7 at k = 32 at least BOUND_SHARE_BAR of their
+# bound and no slower than the median of their library call (flip,
+# repeat_interleave).
 PK5_BAR_MS = 0.30
 PK3_BAR = 1.02
+BOUND_SHARE_BAR = 0.5
 BAR_ROUNDS = 3
+PK7_KS = (1, 2, 4, 8, 16, 32, 64, 128)  # every k lane_repeat takes
 
 
 def pk5_case(dev, ch: int, rows: int, out_of_range: bool, seed: int):
@@ -1318,14 +1325,24 @@ def pk5_case(dev, ch: int, rows: int, out_of_range: bool, seed: int):
     return (x, i1, i2, i3, ch), lambda: x.view(-1).index_select(0, src).view(rows, L)
 
 
+def pk7_case(dev, k: int, rows: int, seed: int):
+    """PK7's input ``[rows, 128 / k]`` and its library call."""
+    from photon_tpu_torch.ops import probe_kernels as pk
+    from photon_tpu_torch.tools.probe_common import generator
+
+    narrow = torch.rand(rows, pk.LANES // k, generator=generator(dev, seed), device=dev)
+    return (narrow, k), lambda: narrow.repeat_interleave(k, dim=1)
+
+
 def probe_kernel_cases(dev) -> list:
     """PK1-PK7 at the probe tools' default shapes (E = 2^25): per case the
     kernel's name, the site it replaces, a label, the wrapper, its plain
     version, ``make()`` returning the inputs and a library call, the bytes
-    the bound counts and the bar it is held to (None, "pk5", "pk3").  The
-    first case of each kernel is its row in the kernels line; PK2 and PK3
-    also run at every tile height of probe_tiles (PK3 also at 262,143
-    rows), PK5 at ``PK5_SHAPES``."""
+    the bound counts and the bar it is held to (None, "pk5", "pk3",
+    "share").  The first case of each kernel is its row in the kernels
+    line; PK2 (masked and unmasked) and PK3 also run at every tile height
+    of probe_tiles and at 262,143 rows, PK5 at ``PK5_SHAPES``, PK7 at every
+    k and at 262,143 rows."""
     from photon_tpu_torch.ops import probe_kernels as pk
     from photon_tpu_torch.tools.probe_blocklocal import CH
     from photon_tpu_torch.tools.probe_common import generator, row_perms
@@ -1385,17 +1402,41 @@ def probe_kernel_cases(dev) -> list:
         ("lane_repeat", f"{block}:327-328 (body)", "k=32, [E/128,4] -> [E/128,128]",
          pk.lane_repeat, pk.lane_repeat_plain,
          fixed((narrow, 32), lambda: narrow.repeat_interleave(32, dim=1)),
-         4 * E + 4 * E // 32, None),
+         4 * E + 4 * E // 32, "share"),
     ]
+    swap = lambda a, m, h: pk.lane_swap(a, m, h=h)  # noqa: E731
+    swap_plain = lambda a, m, h: pk.lane_swap_plain(a, m, h)  # noqa: E731
     for h in HEIGHTS:
-        cases.append(("lane_swap", None, f"unmasked, h={h}",
-                      lambda a, h: pk.lane_swap(a, h=h),
-                      lambda a, h: pk.lane_swap_plain(a, None, h),
-                      fixed((x, h), lambda: flip(x)), 8 * E, None))
+        cases.append(("lane_swap", None, f"unmasked, h={h}", swap, swap_plain,
+                      fixed((x, None, h), lambda: flip(x)), 8 * E, "share"))
+        if h != 512:
+            cases.append(("lane_swap", None, f"masked, h={h}", swap, swap_plain,
+                          fixed((x, mask, h), lambda: torch.where(mask > 0, flip(x), x)),
+                          12 * E, None))
         for a in (x, ragged):
             cases.append(("copy_scale", None, f"h={h}, {a.shape[0]} rows",
                           lambda a, h: pk.copy_scale(a, h=h), pk.copy_scale_plain,
                           copy_case(a, h), 8 * a.numel(), "pk3"))
+    ragged_mask = mask[: rows - 1]
+    cases += [
+        ("lane_swap", None, f"unmasked, h=512, {rows - 1} rows", swap, swap_plain,
+         fixed((ragged, None, 512), lambda: flip(ragged)), 8 * ragged.numel(), None),
+        ("lane_swap", None, f"masked, h=512, {rows - 1} rows", swap, swap_plain,
+         fixed((ragged, ragged_mask, 512),
+               lambda: torch.where(ragged_mask > 0, flip(ragged), ragged)),
+         12 * ragged.numel(), None),
+    ]
+    for j, k in enumerate(PK7_KS):
+        if k != 32:
+            cases.append(("lane_repeat", None, f"k={k}", pk.lane_repeat,
+                          pk.lane_repeat_plain,
+                          lambda k=k, j=j: pk7_case(dev, k, rows, 70 + j),
+                          4 * E + 4 * E // k, None))
+    short = narrow[: rows - 1]
+    cases.append(("lane_repeat", None, f"k=32, {rows - 1} rows", pk.lane_repeat,
+                  pk.lane_repeat_plain,
+                  fixed((short, 32), lambda: short.repeat_interleave(32, dim=1)),
+                  4 * (rows - 1) * (L + L // 32), None))
     for n, (ch, r, oor) in enumerate(PK5_SHAPES):
         label = f"CH={ch}, {r // ch} chunk{'s' if r > ch else ''}" + (
             f", planes out of range (i1 + 128, i2 + {ch}, i3 - 128)" if oor else "")
@@ -1428,11 +1469,13 @@ def check_probe_kernels(dev) -> dict:
     library call, bit for bit; each kernel's launch counter must move (and
     PK5's count of the form ``fused_chunk_form`` picks).  Every case is
     timed (kernel, plain, library) and bounded; the cases under a bar
-    (PK5 at the tool's shape, PK3) take kernel and library in turns,
-    ``BAR_ROUNDS`` times, and report medians, spreads and the bar.  Returns
+    (PK5 at the tool's shape, PK3, PK2 unmasked, PK7 at k = 32) take kernel
+    and library in turns, ``BAR_ROUNDS`` times, and report medians, spreads,
+    the wrapper's host time per call and the bar.  Returns
     ``{kernel: row}``: the kernel's first case, its others under
     ``other_shapes``."""
     from photon_tpu_torch.ops import probe_kernels as pk
+    from photon_tpu_torch.tools.probe_common import host_us
 
     counters = {fn.__name__: fn for fn in pk.KERNELS}
     saved = {name: fn.launches for name, fn in counters.items()}
@@ -1465,6 +1508,7 @@ def check_probe_kernels(dev) -> dict:
         if bar:
             row.update(interleaved(lambda: fn(*args), library))
             row["plain_ms"] = cuda_ms(lambda: plain(*args))
+            row["host_us"] = host_us(lambda: fn(*args))
         else:
             row.update({"ms": cuda_ms(lambda: fn(*args)),
                         "plain_ms": cuda_ms(lambda: plain(*args)),
@@ -1481,11 +1525,17 @@ def check_probe_kernels(dev) -> dict:
         elif bar == "pk3":
             ratio = row["ms"] / row["library_ms"]
             row["bar"] = {"ratio": ratio, "at_most": PK3_BAR, "met": ratio <= PK3_BAR}
+        elif bar == "share":
+            share = t_bound / row["ms"]
+            row["bar"] = {"share_of_bound": share, "at_least": BOUND_SHARE_BAR,
+                          "not_slower_than_library": row["ms"] <= row["library_ms"],
+                          "met": bool(share >= BOUND_SHARE_BAR
+                                      and row["ms"] <= row["library_ms"])}
         log(f"  {name} [{label}]: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
             f"ms, library {row['library_ms']:.4f} ms, bound {t_bound:.4f} ms ({by})"
             + (f"; medians of {BAR_ROUNDS} turns, spread {row['spread_ms']:.4f} / "
-               f"{row['library_spread_ms']:.4f} ms; bar {json.dumps(row['bar'])}"
-               if bar else ""))
+               f"{row['library_spread_ms']:.4f} ms; wrapper {row['host_us']:.1f} us "
+               f"host a call; bar {json.dumps(row['bar'])}" if bar else ""))
         if replaces is None:  # a further shape of a kernel listed already
             rows[name]["other_shapes"].append(row)
         else:

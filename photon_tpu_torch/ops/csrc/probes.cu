@@ -32,10 +32,13 @@
 //      TPU gather cannot leave its tile.
 // PK2  The Pallas body rolls the lanes by 32 and by 96 and selects by
 //      (lane / 32) % 2: that reverses the four 32-lane blocks of each row,
-//      out[l] = x[(3 - l / 32) * 32 + l % 32] (not l ^ 32).  A 32-lane block
-//      is one warp's width, so each warp copies one contiguous 128-byte
-//      block: a coalesced copy with the block index permuted.  Masked:
-//      out = mask > 0 ? swapped : x.  A block takes h rows of 128 lanes.
+//      out[l] = x[(3 - l / 32) * 32 + l % 32] (not l ^ 32).  Masked: out =
+//      mask > 0 ? swapped : x.  In float4s of a row, output j takes source
+//      j ^ 24.  The unit below (PK3's): a warp loads a row as 32 coalesced
+//      float4s and each lane takes its swapped float4 from lane j ^ 24 by
+//      shuffles, so x (and the mask) are read once, 16 bytes a lane.  h is
+//      validated only, as PK3's (the first design gave each block one tile
+//      of h rows: 32 blocks for 132 SMs at h = 8192, 35% of the bound).
 // PK3  out = x * 1.0000001f over [rows, 128]: 8 bytes an element, 0.080 ms
 //      at E = 2^25.  h, the TPU's tile height, is validated and does not
 //      shape the launch: a block takes 8 rows (4 KB of x), so the grid is
@@ -90,8 +93,11 @@
 //        8192, where 128 / 16 columns of CH rows pass 227 KB).
 // PK6  out[8g + s, l] = x[8g + (idx[8g + s, l] & 7), l]: each warp reads 32
 //      lanes of rows inside one 4 KB group, which L1 holds.
-// PK7  out[r, l] = x[r, l / k] from [rows, 128 / k]: one thread an output
-//      element; the narrow input stays in L1.
+// PK7  out[r, l] = x[r, l / k] from [rows, 128 / k]: almost a pure write
+//      stream.  The same unit of 8 output rows for every k: each output
+//      float4 is built from four 4-byte reads of x (L1 holds the narrow
+//      input) and leaves as one 16-byte store (the first design, one
+//      thread and one 4-byte store an element, reached 44% of the bound).
 //
 // A refused launch (too much shared memory, a cluster the card cannot
 // schedule) returns its CUDA error; the wrapper raises.  Pure data movement
@@ -136,32 +142,71 @@ __global__ void __launch_bounds__(kThreads) window_gather_kernel(
   }
 }
 
-// PK2 (mask may be null) over rows [blockIdx.x * h, +h) of [rows, 128].
-__global__ void __launch_bounds__(kThreads) lane_swap_kernel(
-    const float* __restrict__ x, const float* __restrict__ m,
-    float* __restrict__ out, int64_t rows, int h) {
-  const int64_t e0 = static_cast<int64_t>(blockIdx.x) * h * kLanes;
-  const int64_t e1 = min64(rows, (static_cast<int64_t>(blockIdx.x) + 1) * h) * kLanes;
-  for (int64_t e = e0 + threadIdx.x; e < e1; e += kThreads) {
-    const int l = static_cast<int>(e & (kLanes - 1));
-    const float s = x[(e - l) + ((3 - (l >> 5)) << 5) + (l & 31)];
-    out[e] = (m == nullptr) ? s : (m[e] > 0.0f ? s : x[e]);
-  }
-}
-
-// PK3: block b takes rows [8b, 8b + 8) of [rows, 128] (the last one may be
-// short).  Thread t moves float4s t and t + 128.
+// PK2, PK3 and PK7 share one unit of work: block b takes rows [8b, 8b + 8)
+// of the [rows, 128] output (the last one may be short) and thread t moves
+// its float4s t and t + 128.  A warp holds one row's 32 float4s, and a
+// unit's float4 count is a multiple of 32, so a warp is whole or idle.
 constexpr int kCThreads = 128;
 constexpr int kUnitVecs = 2;
 constexpr int kUnitRows = kCThreads * kUnitVecs * 4 / kLanes;  // 8
+constexpr int kRowVecs = kLanes / 4;                           // 32
 
+// The launch of a unit kernel over `rows` rows: rows / 8 blocks, rounded up.
+bool unit_blocks(int64_t rows, unsigned* blocks) {
+  if (rows <= 0) return false;
+  const int64_t n = (rows + kUnitRows - 1) / kUnitRows;
+  if (n > 0x7fffffff) return false;
+  *blocks = static_cast<unsigned>(n);
+  return true;
+}
+
+// PK2 (mask may be null).  Output float4 j of a row is source float4
+// (3 - j / 8) * 8 + j % 8 = j ^ 24 of the same row, which lane j of the
+// row's warp takes from lane j ^ 24 by shuffles: x is read once, as the
+// warp's own coalesced float4s.  All loads (x, and the mask) are in flight
+// before the first shuffle, select and store.
+__global__ void __launch_bounds__(kCThreads) lane_swap_kernel(
+    const float4* __restrict__ x, const float4* __restrict__ m,
+    float4* __restrict__ out, int64_t rows) {
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kUnitRows;
+  const int n = static_cast<int>(min64(r0 + kUnitRows, rows) - r0) * kRowVecs;
+  const float4* src = x + r0 * kRowVecs;
+  const float4* msk = m == nullptr ? nullptr : m + r0 * kRowVecs;
+  float4* dst = out + r0 * kRowVecs;
+  float4 v[kUnitVecs], mv[kUnitVecs];
+#pragma unroll
+  for (int u = 0; u < kUnitVecs; ++u) {
+    const int f = threadIdx.x + u * kCThreads;
+    if (f < n) {
+      v[u] = __ldg(src + f);
+      if (msk != nullptr) mv[u] = __ldg(msk + f);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnitVecs; ++u) {
+    const int f = threadIdx.x + u * kCThreads;
+    if (f < n) {  // warp-uniform: every lane of the warp shuffles
+      float4 s;
+      s.x = __shfl_xor_sync(0xffffffffu, v[u].x, 24);
+      s.y = __shfl_xor_sync(0xffffffffu, v[u].y, 24);
+      s.z = __shfl_xor_sync(0xffffffffu, v[u].z, 24);
+      s.w = __shfl_xor_sync(0xffffffffu, v[u].w, 24);
+      if (msk != nullptr) {
+        s = make_float4(mv[u].x > 0.0f ? s.x : v[u].x, mv[u].y > 0.0f ? s.y : v[u].y,
+                        mv[u].z > 0.0f ? s.z : v[u].z, mv[u].w > 0.0f ? s.w : v[u].w);
+      }
+      dst[f] = s;
+    }
+  }
+}
+
+// PK3: the unit, each float4 times 1.0000001f.
 __global__ void __launch_bounds__(kCThreads) copy_scale_kernel(
     const float4* __restrict__ x, float4* __restrict__ out, int64_t rows) {
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kUnitRows;
-  const int64_t r1 = min64(r0 + kUnitRows, rows);
-  const int n = static_cast<int>(r1 - r0) * (kLanes / 4);
-  const float4* src = x + r0 * (kLanes / 4);
-  float4* dst = out + r0 * (kLanes / 4);
+  const int n = static_cast<int>(min64(r0 + kUnitRows, rows) - r0) * kRowVecs;
+  const float4* src = x + r0 * kRowVecs;
+  float4* dst = out + r0 * kRowVecs;
   float4 v[kUnitVecs];
 #pragma unroll
   for (int u = 0; u < kUnitVecs; ++u) {
@@ -555,13 +600,36 @@ __global__ void __launch_bounds__(kThreads) sublane_gather_kernel(
   out[e] = x[group + (idx[e] & 7) * kLanes + (e & (kLanes - 1))];
 }
 
-// PK7: one thread per element of out [rows, 128]; x [rows, 128 >> shift].
-__global__ void __launch_bounds__(kThreads) lane_repeat_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int shift,
-    int64_t elems) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= elems) return;
-  out[e] = x[(e / kLanes) * (kLanes >> shift) + ((e & (kLanes - 1)) >> shift)];
+// PK7: the unit of out [rows, 128]; x [rows, 128 >> shift].  Component c
+// of output float4 j in row r is x[r, (4j + c) >> shift]: one value stored
+// four times for k >= 4, pairs at k = 2, a copy at k = 1, through one path.
+// x is 1 / k of the bytes and read by 4-byte loads (L1 serves the repeats);
+// the output leaves as one 16-byte streaming store (__stcs, evict first) a
+// float4 (tools/probe_lane_kernels.py times the plain store beside it).
+__global__ void __launch_bounds__(kCThreads) lane_repeat_kernel(
+    const float* __restrict__ x, float4* __restrict__ out, int shift,
+    int64_t rows) {
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kUnitRows;
+  const int n = static_cast<int>(min64(r0 + kUnitRows, rows) - r0) * kRowVecs;
+  const int width = kLanes >> shift;
+  const float* src = x + r0 * width;
+  float4* dst = out + r0 * kRowVecs;
+  float4 v[kUnitVecs];
+#pragma unroll
+  for (int u = 0; u < kUnitVecs; ++u) {
+    const int f = threadIdx.x + u * kCThreads;
+    if (f < n) {
+      const float* row = src + (f / kRowVecs) * width;
+      const int l = 4 * (f % kRowVecs);
+      v[u] = make_float4(__ldg(row + (l >> shift)), __ldg(row + ((l + 1) >> shift)),
+                         __ldg(row + ((l + 2) >> shift)), __ldg(row + ((l + 3) >> shift)));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnitVecs; ++u) {
+    const int f = threadIdx.x + u * kCThreads;
+    if (f < n) __stcs(dst + f, v[u]);
+  }
 }
 
 }  // namespace
@@ -581,13 +649,16 @@ extern "C" int photon_probe_window_gather(const float* x, const int32_t* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// PK2: x, mask (or null), out [rows, 128]; h rows a block.
+// PK2: x, mask (or null), out [rows, 128] (16-byte aligned); h, the tile
+// height, is only validated.
 extern "C" int photon_probe_lane_swap(const float* x, const float* mask,
                                       float* out, int64_t rows, int h,
                                       void* stream) {
-  if (rows <= 0 || h <= 0) return cudaErrorInvalidValue;
-  lane_swap_kernel<<<blocks_for(rows, h), kThreads, 0, as_stream(stream)>>>(
-      x, mask, out, rows, h);
+  unsigned blocks = 0;
+  if (h <= 0 || !unit_blocks(rows, &blocks)) return cudaErrorInvalidValue;
+  lane_swap_kernel<<<blocks, kCThreads, 0, as_stream(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(mask),
+      reinterpret_cast<float4*>(out), rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -595,10 +666,9 @@ extern "C" int photon_probe_lane_swap(const float* x, const float* mask,
 // validated.
 extern "C" int photon_probe_copy_scale(const float* x, float* out,
                                        int64_t rows, int h, void* stream) {
-  if (rows <= 0 || h <= 0) return cudaErrorInvalidValue;
-  const int64_t blocks = (rows + kUnitRows - 1) / kUnitRows;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  copy_scale_kernel<<<static_cast<unsigned>(blocks), kCThreads, 0, as_stream(stream)>>>(
+  unsigned blocks = 0;
+  if (h <= 0 || !unit_blocks(rows, &blocks)) return cudaErrorInvalidValue;
+  copy_scale_kernel<<<blocks, kCThreads, 0, as_stream(stream)>>>(
       reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), rows);
   return static_cast<int>(cudaGetLastError());
 }
@@ -676,14 +746,15 @@ extern "C" int photon_probe_sublane_gather(const float* x, const int32_t* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// PK7: x [rows, 128 / k] -> out [rows, 128]; k a power of two dividing 128.
+// PK7: x [rows, 128 / k] (float aligned) -> out [rows, 128] (16-byte
+// aligned); k a power of two dividing 128.
 extern "C" int photon_probe_lane_repeat(const float* x, float* out,
                                         int64_t rows, int k, void* stream) {
-  if (rows <= 0 || !pow2(k) || k > kLanes) return cudaErrorInvalidValue;
+  unsigned blocks = 0;
+  if (!pow2(k) || k > kLanes || !unit_blocks(rows, &blocks)) return cudaErrorInvalidValue;
   int shift = 0;
   while ((1 << shift) < k) ++shift;
-  const int64_t elems = rows * kLanes;
-  lane_repeat_kernel<<<blocks_for(elems, kThreads), kThreads, 0,
-                       as_stream(stream)>>>(x, out, shift, elems);
+  lane_repeat_kernel<<<blocks, kCThreads, 0, as_stream(stream)>>>(
+      x, reinterpret_cast<float4*>(out), shift, rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,14 +59,24 @@ def _on_card(*ts: Tensor) -> bool:
     return True
 
 
-def _launch(name: str, argtypes: list, x: Tensor, *args) -> None:
-    """Launch ``photon_probe_<name>(*args, stream)`` on the current stream
-    of ``x``'s device (building the library at the first launch)."""
+def _entry(name: str, argtypes: list):
+    """``photon_probe_<name>`` of the loaded library (built at the first
+    use), its argument types set at its first call only."""
     from photon_tpu_torch.ops import _build
 
     fn = getattr(_build.load("probes"), f"photon_probe_{name}")
-    fn.argtypes = argtypes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, argtypes: list, x: Tensor, *args) -> None:
+    """Launch ``photon_probe_<name>(*args, stream)`` on the current stream
+    of ``x``'s device."""
+    from photon_tpu_torch.ops import _build
+
+    fn = _entry(name, argtypes + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(*args, stream), f"probes.{name}")
 
@@ -81,7 +91,8 @@ def _pow2(v: int) -> bool:
 
 
 def _aligned(*ts: Tensor) -> None:
-    """The float4/int4 kernels (PK3, PK5) read and write 16 bytes a lane."""
+    """The float4/int4 kernels (PK2, PK3, PK5; PK7's output) read and write
+    16 bytes a lane."""
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("the kernel takes 16-byte aligned tensors only")
 
@@ -131,9 +142,10 @@ window_gather.launches = 0
 # -- PK2 ------------------------------------------------------------------------
 
 def lane_swap_plain(x: Tensor, mask: Tensor | None = None, h: int = 512) -> Tensor:
-    """Plain PyTorch PK2 (``h`` only shapes the kernel's grid).  The Pallas
-    swap stage (``pltpu.roll`` by 32 and by 96, selected by ``(lane // 32)
-    % 2``) takes each output lane from the mirrored 32-lane block."""
+    """Plain PyTorch PK2 (``h``, the reference's tile height, changes
+    nothing).  The Pallas swap stage (``pltpu.roll`` by 32 and by 96,
+    selected by ``(lane // 32) % 2``) takes each output lane from the
+    mirrored 32-lane block."""
     lane = torch.arange(LANES, device=x.device)
     swapped = x.index_select(1, (3 - lane // 32) * 32 + lane % 32)
     return swapped if mask is None else torch.where(mask > 0, swapped, x)
@@ -142,11 +154,12 @@ def lane_swap_plain(x: Tensor, mask: Tensor | None = None, h: int = 512) -> Tens
 def lane_swap(x: Tensor, mask: Tensor | None = None, h: int = 512) -> Tensor:
     """PK2: each row of ``x`` (``[rows, 128]`` float32) with its four 32-lane
     blocks reversed, ``out[r, l] = x[r, (3 - l // 32) * 32 + l % 32]``; with
-    ``mask`` (float32, same shape), only where ``mask > 0``, else ``x``.  A
-    block of the kernel takes ``h`` rows."""
+    ``mask`` (float32, same shape), only where ``mask > 0``, else ``x``.
+    ``h``, the tile height of the reference, is validated only: a block
+    takes 8 rows, so the launch is the same at every ``h``."""
     rows = _rows128(x)
-    if h < 1:
-        raise ValueError(f"h must be positive, got {h}")
+    if not 1 <= h < 2 ** 31:
+        raise ValueError(f"h must be a positive int32, got {h}")
     _check(x, torch.float32, "x")
     ts = (x,)
     if mask is not None:
@@ -157,6 +170,7 @@ def lane_swap(x: Tensor, mask: Tensor | None = None, h: int = 512) -> Tensor:
     if not _on_card(*ts):
         return lane_swap_plain(x, mask, h)
     out = torch.empty_like(x)
+    _aligned(*ts, out)
     lane_swap.launches += 1
     _launch("lane_swap",
             [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int],
@@ -293,10 +307,7 @@ def fused_chunk_clusters(ch: int, cl: int, passes: int) -> int:
     (needs the card)."""
     from photon_tpu_torch.ops import _build
 
-    fn = _build.load("probes").photon_probe_fused_chunk_clusters
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    n = fn(ch, cl, passes)
+    n = _entry("fused_chunk_clusters", [ctypes.c_int] * 3)(ch, cl, passes)
     if n < 0:
         _build.check(-n, "probes.fused_chunk_clusters")
     return n
@@ -405,7 +416,9 @@ def lane_repeat_plain(x: Tensor, k: int) -> Tensor:
 
 def lane_repeat(x: Tensor, k: int) -> Tensor:
     """PK7: ``out[r, l] = x[r, l // k]``, ``[rows, 128 / k]`` float32 to
-    ``[rows, 128]``; ``k`` a power of two dividing 128."""
+    ``[rows, 128]``; ``k`` a power of two dividing 128.  The kernel reads
+    ``x`` by 4-byte loads (any float32 view) and stores ``out``, its own
+    allocation, 16 bytes at a time."""
     if not _pow2(k) or k > LANES:
         raise ValueError(f"k {k} must be a power of two dividing {LANES}")
     if x.ndim != 2 or x.shape[1] != LANES // k:
@@ -415,6 +428,7 @@ def lane_repeat(x: Tensor, k: int) -> Tensor:
         return lane_repeat_plain(x, k)
     rows = int(x.shape[0])
     out = torch.empty(rows, LANES, dtype=torch.float32, device=x.device)
+    _aligned(out)
     lane_repeat.launches += 1
     _launch("lane_repeat",
             [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int],

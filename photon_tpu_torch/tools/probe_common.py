@@ -41,6 +41,20 @@ def timed(fn, *args, reps: int = 5) -> float:
     return statistics.median(ts)
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn`` on the card (``time.perf_counter``
+    over ``calls`` calls, no synchronize between them): where it nears the
+    kernel's time, back-to-back launches time the host, not the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def bound_ms(nbytes: float) -> float:
     """The least milliseconds the card could take to move ``nbytes`` through
     device memory."""

@@ -4,12 +4,11 @@ Counterpart of ``tools/probe_tiles.py``.  The reference timed a minimal
 copy-scale kernel and the swap-stage kernel over a sweep of tile heights at
 a fixed total size, to ask whether the TPU's time per element depended on
 the grid step.  Here ``h`` is the height of the tiles of 128 lanes that the
-rows are cut into.  PK2's unmasked lane swap gives each block one tile, so
-its sweep is a sweep of the block count, from ``E / 1024`` blocks down to
-``E / 2^20``: its time rises once there are fewer blocks than SMs.  PK3
-copy-scale (``ops/probe_kernels.py``) only validates ``h``: its launch is
-the same at every ``h`` (blocks of 8 rows, ``rows / 8`` of them), so its
-rows differ by noise alone and say nothing about tiles on this card.
+rows are cut into.  Both kernels here, PK3 copy-scale and PK2's unmasked
+lane swap (``ops/probe_kernels.py``), only validate ``h``: each launch is
+the same at every ``h`` (blocks of 8 rows, ``rows / 8`` of them), so the
+rows of a sweep differ by noise alone and say nothing about tiles on this
+card.
 Each row also prints its bound and the time of one PyTorch call that
 computes the same function.  Run::
 

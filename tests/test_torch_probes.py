@@ -10,6 +10,7 @@ are imported; ``tools/probe_blocklocal.py``'s run through the module's own
 ``_pallas`` with its ``INTERPRET`` flag set.
 """
 
+import functools
 import os
 import re
 import sys
@@ -410,21 +411,63 @@ def test_fused_chunk_launches_the_form_the_rule_picks(monkeypatch):
     assert pk.fused_chunk.launches == 3
 
 
-@pytest.mark.parametrize("name", ["copy_scale", "fused_chunk"])
+@pytest.mark.parametrize("name", ["copy_scale", "fused_chunk", "lane_swap x",
+                                  "lane_swap mask"])
 def test_card_wrappers_refuse_misaligned_tensors(monkeypatch, name):
-    """PK3 and PK5 move 16 bytes a lane: a tensor that does not start on a
-    16-byte boundary raises before any launch (no plain fallback)."""
+    """PK2, PK3 and PK5 move 16 bytes a lane: a tensor that does not start
+    on a 16-byte boundary raises before any launch (no plain fallback)."""
     monkeypatch.setattr(pk, "_on_card", lambda *ts: True)
     monkeypatch.setattr(pk, "_launch", lambda *a: pytest.fail("launched"))
     flat = torch.zeros(64 * LANES + 1)
     x = flat[1:].view(64, LANES)
     assert x.data_ptr() % 16
+    aligned = torch.zeros(64, LANES)
     with pytest.raises(ValueError, match="16-byte aligned"):
         if name == "copy_scale":
             pk.copy_scale(x, h=8)
+        elif name == "lane_swap x":
+            pk.lane_swap(x, aligned, h=8)
+        elif name == "lane_swap mask":
+            pk.lane_swap(aligned, x, h=8)
         else:
             lanes = torch.zeros(64, LANES, dtype=torch.int32)
             pk.fused_chunk(x, lanes, torch.zeros(LANES, 64, dtype=torch.int32), lanes, 64)
+
+
+def test_lane_repeat_takes_an_input_only_float_aligned(monkeypatch):
+    """PK7 reads x by 4-byte loads: a view 4 bytes past a 16-byte boundary
+    launches (caught at the launch here, no card needed); only its own
+    output must be 16-byte aligned."""
+    seen = []
+    monkeypatch.setattr(pk, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(pk, "_launch", lambda name, argtypes, x, *args: seen.append(
+        (name, args)))
+    monkeypatch.setattr(pk, "lane_repeat_plain", None)  # a call would raise
+    monkeypatch.setattr(pk.lane_repeat, "launches", 0)
+    flat = torch.zeros(64 * 4 + 1)
+    x = flat[1:].view(64, 4)
+    assert x.data_ptr() % 16 == 4
+    out = pk.lane_repeat(x, 32)
+    assert out.shape == (64, LANES) and out.data_ptr() % 16 == 0
+    assert seen == [("lane_repeat", (x.data_ptr(), out.data_ptr(), 64, 32))]
+    assert pk.lane_repeat.launches == 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_lane_repeat_plain_equals_pallas_body_at_every_k(monkeypatch, k):
+    """PK7's plain version against tools/probe_blocklocal.py:327-328 (the
+    body, with k passed in) in interpret mode, at every k the wrapper
+    takes."""
+    monkeypatch.setattr(ref_blocklocal, "INTERPRET", True)
+    rows, h = 96, 32
+    x = np.random.default_rng(k).random((rows, LANES // k)).astype(np.float32)
+    want = ref_blocklocal._pallas(
+        functools.partial(_block_repeat_body, k=k),
+        out_shape=jax.ShapeDtypeStruct((rows, LANES), jnp.float32), grid=(rows // h,),
+        in_specs=[pl.BlockSpec((h, LANES // k), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((h, LANES), lambda i: (i, 0)),
+    )(x)
+    _same(pk.lane_repeat(torch.as_tensor(x), k), want)
 
 
 @pytest.mark.parametrize("rows,h_ref,h", [(1023, 31, 512), (999, 27, 8192), (7, 7, 3)],
@@ -436,6 +479,36 @@ def test_copy_scale_plain_equals_pallas_body_at_odd_rows(rows, h_ref, h):
     x = np.random.default_rng(rows).random((rows, LANES)).astype(np.float32)
     want = _row_tiled(ref_tiles.copy_kernel, 1, rows, h_ref)(x)
     _same(pk.copy_scale(torch.as_tensor(x), h=h), want)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("rows,h_ref,h", [(1023, 31, 512), (999, 27, 8192), (7, 7, 3)],
+                         ids=lambda v: str(v))
+def test_lane_swap_plain_equals_pallas_body_at_odd_rows(rows, h_ref, h, masked):
+    """PK2's plain version against the swap bodies of tools/probe_tiles.py
+    (swap_kernel, unmasked) and tools/probe_permute.py:151-158 (masked) in
+    interpret mode at odd row counts; the port's tile height need not divide
+    the rows (the kernel's last unit is short)."""
+    rng = np.random.default_rng(rows + masked)
+    x = rng.random((rows, LANES)).astype(np.float32)
+    if masked:
+        m = (rng.random((rows, LANES)) < 0.5).astype(np.float32)
+        want = _row_tiled(_permute_swap_body, 2, rows, h_ref)(x, m)
+        got = pk.lane_swap(torch.as_tensor(x), torch.as_tensor(m), h=h)
+    else:
+        want = _row_tiled(ref_tiles.swap_kernel, 1, rows, h_ref)(x)
+        got = pk.lane_swap(torch.as_tensor(x), h=h)
+    _same(got, want)
+
+
+def test_lane_swap_validates_h():
+    x = torch.zeros(8, LANES)
+    for h in (0, -1, 2 ** 31):
+        with pytest.raises(ValueError, match="h must be"):
+            pk.lane_swap(x, h=h)
+        with pytest.raises(ValueError, match="h must be"):
+            pk.lane_swap(x, x, h=h)
+    assert torch.equal(pk.lane_swap(x, h=2 ** 31 - 1), x)
 
 
 def test_copy_scale_validates_h():
