@@ -68,11 +68,31 @@ Phases (any failure exits non-zero and prints no result line):
    then the measured ``auto`` route probe on phase 2's batches of each id
    draw: each candidate's gate error and median seconds and the choice, no
    candidate excluded, and a 10-iteration L-BFGS fit under ``auto`` held to
-   phase 3's fit on the chosen route.
+   phase 3's fit on the chosen route;
+6. GAME: BASELINE.json config 4 (a fixed effect over 18 genre indicators +
+   intercept, a per-user random effect over the same 19 columns, logistic)
+   at ``bench.py``'s scale for it (``make_movielens_like`` with
+   MovieLens-1M's 6040 users and 3700 items, ~300K ratings), written to
+   Avro with the port's writer and trained by the port's ``train_game``
+   with ``bench.py``'s arguments (two descent iterations, a 0.2 validation
+   split) on the card under ``fused``, ``pallas`` and ``auto`` and with
+   ``--backend cpu``, each run with every launch count set to 0 just
+   before it; each card run's validation metrics held to the host run's
+   within 1e-4 and its coefficients within rtol = atol = 1e-3; K1 must
+   launch on the ``fused`` run and K2 on the ``pallas`` run, no probe
+   kernel on any; the Avro write and read seconds, seconds per descent
+   iteration, rows/s, per-coordinate solver records (L-BFGS evaluations;
+   per size bin entities, capacity, route, Newton iterations and host
+   reads) and the residual updates and host syncs per iteration; then the
+   random-effect path's torch ops (lane value and gradient, the float64
+   Hessian scatter, the batched Cholesky step, the whole Newton fit) per
+   bin and the score table's update and offsets pass, each beside its
+   bytes bound.
 
 The line before the last is a JSON object with one entry per kernel (the
-probe kernels' ``launches`` count the probe tools' run; phase 3 checks that
-the training main path launches none of them); the last line is ``{"ok": true, "device":
+probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
+that the training paths launch none of them; K1's and K2's
+``game_launches`` count phase 6's runs); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -1715,6 +1735,258 @@ def run_cli() -> dict:
     return aucs
 
 
+# Phase 6: BASELINE.json config 4 at bench.py's "big" scale (bench.py:402-423):
+# MovieLens-1M's user and item counts, ~300K ratings.
+GAME_FIXTURE = dict(n_users=6040, n_items=3700, mean_ratings=50)
+GAME_DESCENT_ITERATIONS = 2
+# (name, PHOTON_SPARSE_GRAD, --backend) of each train_game run; None: auto.
+GAME_RUNS = (("fused", "fused", "gpu"), ("pallas", "pallas", "gpu"),
+             ("auto", None, "gpu"), ("cpu", None, "cpu"))
+# Card against host: the validation metrics under the reference's
+# device-vs-host residual bound (tests/test_residuals.py:260-265), the
+# coefficients under its mesh-vs-single-device bound (tests/test_game.py:
+# 377-385).
+GAME_METRIC_ATOL = 1e-4
+GAME_COEF_TOL = 1e-3
+
+
+def game_cli_args(avro: str, out: str, backend: str) -> list:
+    return [
+        "--input", avro, "--feature-bags", "global=global,per_user=per_user",
+        "--id-columns", "userId,itemId",
+        "--coordinate", "fixed:type=fixed,shard=global,max_iters=30",
+        "--coordinate", "per_user:type=random,shard=per_user,entity=userId,max_iters=20",
+        "--descent-iterations", str(GAME_DESCENT_ITERATIONS),
+        "--validation-split", "0.2", "--output-dir", out, "--backend", backend,
+    ]
+
+
+def game_op_timings(avro: str, dev) -> dict:
+    """The random-effect path's torch ops and the score-table update on the
+    card, at the training split's own bins: per bin the lane objective's
+    value and gradient, its Hessian (a float64 scatter), one batched
+    Cholesky step and the whole Newton fit, each beside the time its bytes
+    take at the card's memory rate; then one residual-engine update and one
+    offsets pass over the table."""
+    from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
+    from photon_tpu_torch.core.optimizers import OptimizerConfig
+    from photon_tpu_torch.core.optimizers.newton import newton_step
+    from photon_tpu_torch.core.problem import ProblemConfig
+    from photon_tpu_torch.data.game_io import read_game_avro
+    from photon_tpu_torch.game.batched_solve import LaneObjective, run_newton_fit
+    from photon_tpu_torch.game.coordinate import (
+        RandomEffectCoordinateConfig,
+        RandomEffectDeviceData,
+    )
+    from photon_tpu_torch.game.data import split_game_dataset
+    from photon_tpu_torch.game.residuals import ResidualEngine
+
+    t0 = time.monotonic()
+    data, _ = read_game_avro(avro, {"global": "global", "per_user": "per_user"},
+                             ["userId", "itemId"])
+    read_s = time.monotonic() - t0
+    train, _ = split_game_dataset(data, 0.2)
+    reg = RegularizationContext("l2", 1.0)
+    problem = ProblemConfig(regularization=reg,
+                            optimizer_config=OptimizerConfig(max_iterations=20))
+    dd = RandomEffectDeviceData(
+        train, RandomEffectCoordinateConfig("per_user", "userId", problem), dev)
+    lane = LaneObjective.of(GlmObjective.create("logistic_regression", reg))
+    rows = []
+    for i, stats in enumerate(dd.bin_stats):
+        batch = dd.batch_for(i, torch.zeros_like(dd.device_buckets[i]["weight"]))
+        bsz, r, k = batch.ids.shape
+        d = dd.dim
+        w = torch.zeros(bsz, d, device=dev)
+        h = lane.hessian_matrix(w, batch)
+        _, g = lane.value_and_grad(w, batch)
+        inputs = batch.ids.numel() * 8 + bsz * r * 12 + bsz * d * 4
+        row = {
+            "bin": i, "entities": stats["live_entities"], "capacity": r, "k": k,
+            "value_and_grad_ms": cuda_ms(lambda: lane.value_and_grad(w, batch)),
+            "value_and_grad_bound_ms": (inputs + bsz * (d + 1) * 4) / HBM_BYTES_PER_S * 1e3,
+            "hessian_ms": cuda_ms(lambda: lane.hessian_matrix(w, batch)),
+            "hessian_bound_ms": (inputs + bsz * d * d * 4) / HBM_BYTES_PER_S * 1e3,
+            "cholesky_step_ms": cuda_ms(lambda: newton_step(h, g)),
+            "newton_fit_ms": cuda_ms(lambda: run_newton_fit(
+                lane, batch, w, cfg=problem.optimizer_config, variance="none"),
+                reps=2, warmup=1),
+        }
+        rows.append(row)
+        log(f"    bin {i}: {stats['live_entities']} entities x {r} rows x k={k}: "
+            f"value_and_grad {row['value_and_grad_ms']:.3f} ms (bytes bound "
+            f"{row['value_and_grad_bound_ms']:.4f}), hessian {row['hessian_ms']:.3f} ms "
+            f"(bound {row['hessian_bound_ms']:.4f}), cholesky step "
+            f"{row['cholesky_step_ms']:.3f} ms, whole Newton fit "
+            f"{row['newton_fit_ms']:.2f} ms")
+    n = train.num_examples
+    engine = ResidualEngine(train.offset, ["fixed", "per_user"], dev)
+    scores = torch.randn(n, device=dev)
+    table = {
+        "rows": n,
+        "update_ms": cuda_ms(lambda: engine.update("fixed", scores)),
+        "offsets_ms": cuda_ms(lambda: engine.offsets_for("per_user")),
+        # update: read the row and the [2, n] table, write the row, total, comp.
+        "update_bound_ms": (n * 4 * 6) / HBM_BYTES_PER_S * 1e3,
+        "offsets_bound_ms": (n * 4 * 5) / HBM_BYTES_PER_S * 1e3,
+    }
+    engine.drain_guard_flags()
+    log(f"    residual engine over {n:,} rows: update {table['update_ms']:.3f} ms "
+        f"(bound {table['update_bound_ms']:.4f}), offsets {table['offsets_ms']:.3f} "
+        f"ms (bound {table['offsets_bound_ms']:.4f})")
+    return {"avro_read_s": read_s, "bins": rows, "residuals": table}
+
+
+def run_game(dev) -> dict:
+    """Phase 6: the port's ``train_game`` on config 4, on the card under
+    ``fused``, ``pallas`` and ``auto`` and on the host, each run with every
+    launch count set to 0 just before it and read just after; card and host
+    held to each other; then the random-effect path's torch ops timed."""
+    from photon_tpu_torch.data.fixtures import make_movielens_like
+    from photon_tpu_torch.data.game_io import write_game_avro
+    from photon_tpu_torch.drivers import train_game
+    from photon_tpu_torch.game.model_io import load_game_model
+    from photon_tpu_torch.ops import probe_kernels as pk
+    from photon_tpu_torch.ops import sparse_grad_select as sel
+    from photon_tpu_torch.ops import vperm as vp
+    from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad, row_scatter
+    from photon_tpu_torch.ops.slab_reduce import (
+        aligned_gather_products,
+        position_partial_sums,
+    )
+
+    counters = {"fused_sparse": fused_value_and_grad, "row_scatter": row_scatter,
+                "position_reduce": position_partial_sums,
+                "vperm_chunk": vp.chunk_pass, "vperm_lane": vp.lane_pass,
+                "vperm_chunk_expand": vp.chunk_expand_pass,
+                "slab_gather": aligned_gather_products}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_game_")
+    out = {"runs": {}}
+    try:
+        t0 = time.monotonic()
+        data, maps = make_movielens_like(**GAME_FIXTURE)
+        out["generate_s"] = time.monotonic() - t0
+        avro = os.path.join(tmp, "movielens.avro")
+        t0 = time.monotonic()
+        write_game_avro(avro, data, maps)
+        out["avro_write_s"] = time.monotonic() - t0
+        n_rows = data.num_examples
+        users = len(np.unique(data.id_columns["userId"]))
+        out.update(rows=n_rows, users=users, avro_bytes=os.path.getsize(avro))
+        log(f"  config 4: {n_rows:,} ratings, {users} users, "
+            f"{len(np.unique(data.id_columns['itemId']))} items; Avro write "
+            f"{out['avro_write_s']:.2f} s ({out['avro_bytes'] / 2**20:.1f} MiB)")
+        del data
+        for name, route, backend in GAME_RUNS:
+            env_before = os.environ.get("PHOTON_SPARSE_GRAD")
+            if route is None:
+                os.environ.pop("PHOTON_SPARSE_GRAD", None)
+            else:
+                os.environ["PHOTON_SPARSE_GRAD"] = route
+            probes_before = set(sel.PROBE_RECORD)
+            for c in (*counters.values(), *pk.KERNELS):
+                c.launches = 0
+            run_dir = os.path.join(tmp, name)
+            try:
+                t0 = time.monotonic()
+                summary = train_game.run(train_game.build_parser().parse_args(
+                    game_cli_args(avro, run_dir, backend)))
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            finally:
+                if env_before is None:
+                    os.environ.pop("PHOTON_SPARSE_GRAD", None)
+                else:
+                    os.environ["PHOTON_SPARSE_GRAD"] = env_before
+            counts = {k: c.launches for k, c in counters.items()}
+            probes = {c.__name__: c.launches for c in pk.KERNELS}
+            if any(probes.values()):
+                raise AssertionError(f"GAME {name}: probe kernels launched: {probes}")
+            model, _ = load_game_model(os.path.join(run_dir, "best_model"), device="cpu")
+            fit_s = sum(v for k, v in summary["phase_times"].items()
+                        if k.startswith("fit-"))
+            history = summary["sweep"][0]["history"]
+            iteration_s = [h["seconds"] for h in history]
+            run = {
+                "backend": backend, "route": route or "auto", "wall_s": wall,
+                "phase_times": summary["phase_times"],
+                "epoch_s": wall / GAME_DESCENT_ITERATIONS,
+                "descent_iteration_s": iteration_s,
+                # The fit phase outside its descent iterations: the device
+                # data (bucketing, size bins, layouts) and the uploads.
+                "fit_setup_s": fit_s - sum(iteration_s),
+                "fit_s_per_descent_iteration": fit_s / GAME_DESCENT_ITERATIONS,
+                "rows_per_s": GAME_DESCENT_ITERATIONS * n_rows / wall,
+                "launches": {k: v for k, v in counts.items() if v},
+                "history": history,
+                "best_metrics": summary["best_metrics"], "device": summary["device"],
+            }
+            probe = [sel.PROBE_RECORD[key] for key in sel.PROBE_RECORD
+                     if key not in probes_before]
+            if probe:
+                run["auto_probe"] = probe
+            out["runs"][name] = (run, model)
+            log(f"  train_game {name} ({backend}, route {route or 'auto'}): "
+                f"{wall:.2f} s ({run['epoch_s']:.3f} s per descent iteration as "
+                f"bench.py counts it, fit {run['fit_s_per_descent_iteration']:.3f} s "
+                f"per descent iteration: set-up {run['fit_setup_s']:.3f} s, iterations "
+                f"{[round(t, 4) for t in iteration_s]} s; {run['rows_per_s']:,.0f} "
+                f"rows/s), phases "
+                f"{ {k: round(v, 3) for k, v in summary['phase_times'].items()} }, "
+                f"metrics {summary['best_metrics']}, launches {run['launches']}")
+            for p in probe:
+                log(f"    auto probe: choice {p.get('choice')}, "
+                    f"{json.dumps(p, default=str)}")
+            for h in run["history"]:
+                fixed, per_user = h["solver"]["fixed"], h["solver"]["per_user"]
+                ms_each = 1e3 * fixed["seconds"] / max(fixed["evaluations"], 1)
+                log(f"    iteration {h['iteration']}: {h['seconds']:.3f} s; fixed effect "
+                    f"{fixed['iterations']} "
+                    f"L-BFGS iterations, {fixed['evaluations']} evaluations, "
+                    f"{ms_each:.3f} ms each, {fixed['host_reads']} host reads; "
+                    f"residual updates {h['residual_updates']}, descent host syncs "
+                    f"{h['host_syncs']}; metrics {h['metrics']}")
+                for b in per_user["bins"]:
+                    log(f"      per_user bin {b['bin']}: {b['entities']} entities, "
+                        f"capacity {b['capacity']}, route {b['route']}, "
+                        f"{b['newton_iterations']} Newton iterations, "
+                        f"{b['host_reads']} host reads, {1e3 * b['seconds']:.2f} ms")
+        cpu_run, cpu_model = out["runs"]["cpu"]
+        for name in ("fused", "pallas", "auto"):
+            run, model = out["runs"][name]
+            for h, hc in zip(run["history"], cpu_run["history"]):
+                for metric, ref in hc["metrics"].items():
+                    diff = abs(h["metrics"][metric] - ref)
+                    if diff > GAME_METRIC_ATOL:
+                        raise AssertionError(
+                            f"GAME {name}: {metric} at iteration {h['iteration']} "
+                            f"differs from the host run by {diff:.3e}")
+            pairs = (
+                ("fixed", model.coordinate("fixed").coefficients.means,
+                 cpu_model.coordinate("fixed").coefficients.means),
+                ("per_user", model.coordinate("per_user").table,
+                 cpu_model.coordinate("per_user").table),
+            )
+            errs = {}
+            for coord, got, want in pairs:
+                if not torch.allclose(got, want, rtol=GAME_COEF_TOL, atol=GAME_COEF_TOL):
+                    raise AssertionError(f"GAME {name}: {coord} coefficients differ "
+                                         "from the host run")
+                errs[coord] = float((got - want).abs().max())
+            run["coefficient_max_abs_diff_vs_cpu"] = errs
+            log(f"  {name} vs cpu: metrics within {GAME_METRIC_ATOL:g}, coefficients "
+                f"max |diff| {errs} (tolerance rtol = atol = {GAME_COEF_TOL:g})")
+        for name, kernel in (("fused", "fused_sparse"), ("pallas", "position_reduce")):
+            if not out["runs"][name][0]["launches"].get(kernel):
+                raise AssertionError(f"GAME {name}: {kernel} never launched")
+        log("  the random-effect path's torch ops and the score table:")
+        out["ops"] = game_op_timings(avro, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["runs"] = {name: run for name, (run, _) in out["runs"].items()}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1772,6 +2044,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 5 took {time.monotonic() - t5:.1f} s")
 
+    t6 = time.monotonic()
+    log("phase 6: GAME, config 4 (fixed + per-user random effect) through train_game")
+    game = run_game(dev)
+    game["seconds"] = time.monotonic() - t6
+    log(f"  phase 6 took {game['seconds']:.1f} s")
+
     timings = main_path["timings"]["uniform"]
     zipf = main_path["timings"]["zipf"]
     grad_row = timings["position_reduce[grad]"]
@@ -1786,6 +2064,8 @@ def main() -> int:
             **{key: timings["fused_sparse"][key] for key in
                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "zipf": zipf["fused_sparse"], "n_hot": timings["fused_sparse"]["n_hot"],
+            "game_launches": {name: run["launches"].get("fused_sparse", 0)
+                              for name, run in game["runs"].items()},
             "card": card,
         },
         {
@@ -1812,6 +2092,8 @@ def main() -> int:
             "forward": timings["position_reduce[forward]"],
             "zipf": {"grad": zipf["position_reduce[grad]"],
                      "forward": zipf["position_reduce[forward]"]},
+            "game_launches": {name: run["launches"].get("position_reduce", 0)
+                              for name, run in game["runs"].items()},
         },
     ]
     for name, replaces in (("vperm_chunk", "photon_tpu/ops/vperm.py:309"),
@@ -1865,6 +2147,8 @@ def main() -> int:
     log(f"auto route probe: {json.dumps(auto, default=str)}")
     log(f"main path runs: {json.dumps(main_path['runs'])}")
     log(f"TRON runs: {json.dumps(main_path['tron'])}")
+    log(f"GAME runs: {json.dumps({k: {f: v for f, v in r.items() if f != 'history'} for k, r in game['runs'].items()}, default=str)}")
+    log(f"GAME ops: {json.dumps(game['ops'])}")
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

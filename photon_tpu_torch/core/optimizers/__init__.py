@@ -1,5 +1,6 @@
-"""Optimizers of the port: L-BFGS, TRON and Newton-CG (OWL-QN and the
-batched Newton solvers wait in ROADMAP.md queue 1, item 3)."""
+"""Optimizers of the port: L-BFGS, TRON and Newton-CG, and the damped
+Newton batched over lanes that solves GAME's random-effect entities
+(``newton``).  OWL-QN waits in ROADMAP.md queue 1, item 3."""
 
 from photon_tpu_torch.core.optimizers.base import (
     ConvergenceReason,

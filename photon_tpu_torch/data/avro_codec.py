@@ -1,15 +1,18 @@
 """Minimal pure-Python Avro binary codec (subset).
 
 A copy of ``photon_tpu/data/avro_codec.py`` trimmed to what model files
-need, so the port reads and writes the same Avro model files as the JAX
-package without importing it.  Written from the public Avro 1.x format
+and GAME training data need, so the port reads and writes the same Avro
+files as the JAX package without importing it.  Written from the public Avro 1.x format
 spec:
 
 - primitives: null, boolean, int/long (zigzag varint), float, double,
   string, bytes
 - complex: record, array, map, union, enum
 - Object Container Files (magic ``Obj\\x01``, metadata map with schema
-  JSON, null codec, sync-marker-delimited blocks)
+  JSON, null codec, sync-marker-delimited blocks), read whole
+  (:func:`read_container`) or record by record (:func:`open_container`,
+  :func:`iter_records`, :func:`iter_container`) for the GAME training
+  reader
 """
 
 from __future__ import annotations
@@ -260,7 +263,9 @@ def read_datum(buf: BinaryIO, schema: Any, named: _Named | None = None) -> Any:
 # --------------------------------------------------------------------------
 # Object Container Files
 # --------------------------------------------------------------------------
-def write_container(path: str, schema: dict, records: list, sync: bytes | None = None) -> None:
+def write_container(path: str, schema: dict, records, sync: bytes | None = None) -> None:
+    """Write ``records`` (any iterable, consumed once) as one block of an
+    Object Container File with the null codec."""
     sync = sync or os.urandom(16)
     with open(path, "wb") as f:
         f.write(MAGIC)
@@ -276,52 +281,95 @@ def write_container(path: str, schema: dict, records: list, sync: bytes | None =
         write_long(meta_buf, 0)
         f.write(meta_buf.getvalue())
         f.write(sync)
-        if records:
-            named = _Named()
-            _register_named(schema, named)
-            block = io.BytesIO()
-            for rec in records:
-                write_datum(block, rec, schema, named)
+        named = _Named()
+        _register_named(schema, named)
+        block = io.BytesIO()
+        count = 0
+        for rec in records:
+            write_datum(block, rec, schema, named)
+            count += 1
+        if count:
             payload = block.getvalue()
             hdr = io.BytesIO()
-            write_long(hdr, len(records))
+            write_long(hdr, count)
             write_long(hdr, len(payload))
             f.write(hdr.getvalue())
             f.write(payload)
             f.write(sync)
 
 
+def read_header_meta(f, path: str) -> tuple[dict, dict, bytes]:
+    """Parse the container header; returns (schema, metadata map, sync).
+    Leaves ``f`` positioned at the first data block."""
+    if f.read(4) != MAGIC:
+        raise ValueError(f"{path}: not an Avro container file")
+    meta = {}
+    while True:
+        n = read_long(f)
+        if n == 0:
+            break
+        if n < 0:
+            read_long(f)
+            n = -n
+        for _ in range(n):
+            k = read_string(f)
+            meta[k] = read_bytes(f)
+    schema = json.loads(meta["avro.schema"].decode())
+    sync = f.read(16)
+    if len(sync) != 16:
+        raise ValueError(f"{path}: truncated container header (sync marker)")
+    return schema, meta, sync
+
+
+def _read_header(f, path: str) -> tuple[dict, _Named, bytes]:
+    """Parse the container header; returns (schema, named registry, sync)."""
+    schema, meta, sync = read_header_meta(f, path)
+    codec = meta.get("avro.codec", b"null")
+    if codec != b"null":
+        raise ValueError(f"{path}: codec {codec!r} is not supported (null only)")
+    named = _Named()
+    _register_named(schema, named)
+    return schema, named, sync
+
+
+def open_container(path: str):
+    """Open a container and parse its header at once; returns ``(open file,
+    schema, named registry, sync)``.  The caller closes the file; pair it
+    with :func:`iter_records`."""
+    f = open(path, "rb")
+    try:
+        schema, named, sync = _read_header(f, path)
+    except BaseException:
+        f.close()
+        raise
+    return f, schema, named, sync
+
+
+def iter_records(f, schema: dict, named: _Named, sync: bytes, path: str):
+    """Yield records one at a time from an :func:`open_container` result
+    (a container positioned just past its header)."""
+    while True:
+        try:
+            count = read_long(f)
+        except EOFError:
+            break
+        read_long(f)  # byte size (unused, codec is null)
+        for _ in range(count):
+            yield read_datum(f, schema, named)
+        if f.read(16) != sync:
+            raise ValueError(f"{path}: sync marker mismatch")
+
+
+def iter_container(path: str):
+    """Yield records from an Avro container file one at a time, keeping
+    none: host memory stays bounded by the caller's own accumulators."""
+    f, schema, named, sync = open_container(path)
+    with f:
+        yield from iter_records(f, schema, named, sync, path)
+
+
 def read_container(path: str) -> tuple[dict, list]:
     """(schema, records) of an Object Container File with the null codec."""
     with open(path, "rb") as f:
-        if f.read(4) != MAGIC:
-            raise ValueError(f"{path}: not an Avro container file")
-        meta = {}
-        while True:
-            n = read_long(f)
-            if n == 0:
-                break
-            if n < 0:
-                read_long(f)
-                n = -n
-            for _ in range(n):
-                k = read_string(f)
-                meta[k] = read_bytes(f)
-        schema = json.loads(meta["avro.schema"].decode())
-        sync = f.read(16)
-        if len(sync) != 16:
-            raise ValueError(f"{path}: truncated container header (sync marker)")
-        named = _Named()
-        _register_named(schema, named)
-        records = []
-        while True:
-            try:
-                count = read_long(f)
-            except EOFError:
-                break
-            read_long(f)  # byte size (unused, codec is null)
-            for _ in range(count):
-                records.append(read_datum(f, schema, named))
-            if f.read(16) != sync:
-                raise ValueError(f"{path}: sync marker mismatch")
-        return schema, records
+        schema, named, sync = _read_header(f, path)
+        return schema, list(iter_records(f, schema, named, sync, path))

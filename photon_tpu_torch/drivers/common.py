@@ -40,6 +40,9 @@ class RunLogger:
     def info(self, msg: str, *args) -> None:
         self._logger.info(msg, *args)
 
+    def warning(self, msg: str, *args) -> None:
+        self._logger.warning(msg, *args)
+
     @contextlib.contextmanager
     def timed(self, phase: str) -> Iterator[None]:
         t0 = time.monotonic()
