@@ -14,11 +14,13 @@ Phases (any failure exits non-zero and prints no result line):
    path's shapes: the fused value+gradient (four losses, ragged row count,
    uniform and zipf ids, zero-weight rows; the hot-set cases of
    ``FUSED_CASES``: zipf exponents 1.1, 1.3 and 2.0, one id in every slot,
-   more hot candidates than slots, d = 64, k = 48; a hot set gone stale;
+   more hot candidates than slots, d = 64, k = 48, phase 6's fixed-effect
+   batch shape (n = 239,534, k = 8, d = 19, every id hot); a hot set gone
+   stale;
    two calls in one form bit for bit on the hot ids), the row scatter of
    the ``fused`` route's Hv (``ROW_SCATTER_CASES``: both draws, a constant
    r), the slab position-reduce (gradient and forward layouts, uniform and
-   zipf ids, padded geometry),
+   zipf ids, padded geometry, phase 6's fixed-effect batch shape),
    and the three permutation passes of the ``xchg`` route (K4 chunk, K5
    lane, K6 chunk-expand) over the main path's own routes, each launch bit
    for bit: the route of each id draw (balanced: K6 + K4, and K4 in the
@@ -85,9 +87,9 @@ Phases (any failure exits non-zero and prints no result line):
    per size bin entities, capacity, route, Newton iterations and host
    reads) and the residual updates and host syncs per iteration; then the
    random-effect path's torch ops (lane value and gradient, the float64
-   Hessian scatter, the batched Cholesky step, the whole Newton fit) per
-   bin and the score table's update and offsets pass, each beside its
-   bytes bound.
+   Hessian scatter, the batched Cholesky step, one line-search block of
+   values, the whole Newton fit) per bin, on the first run's dataset, and
+   the score table's update and offsets pass, each beside its bytes bound.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
@@ -233,11 +235,16 @@ def gate_report(name, got, ref, rtol, mag=None) -> float:
     return float(err.max())
 
 
+# The GAME fixed effect's batch (rows, nonzeros per row, d) in phase 6.
+GAME_FIXED_SHAPE = (239_534, 8, 19)
+
 # K1's cases in phase 2: (loss, ids draw, rows, nonzeros per row, d).  The
 # draws beyond the main path's two: zipf exponents 1.1 and 2.0; one id in
 # every non-pad slot; 1536 features of one share each, more hot candidates
 # than the kernel's slots; d = 64, every feature hot; k = 48, the kernels'
-# loop for rows of more than 32 entries.
+# loop for rows of more than 32 entries; the GAME fixed effect's batch in
+# phase 6 (the training split's 239,534 rows, k = 8 with pads, d = 19,
+# every feature hot).
 FUSED_CASES = (
     *[(loss, "uniform", N, K, D) for loss in
       ("logistic", "squared", "poisson", "smoothed_hinge")],
@@ -245,6 +252,7 @@ FUSED_CASES = (
     ("logistic", "zipf1.1", N, K, D), ("logistic", "zipf2.0", N, K, D),
     ("logistic", "one_id", N, K, D), ("logistic", "candidates", N, K, D),
     ("poisson", "all_hot", N, K, 64), ("logistic", "zipf1.3", 1 << 16, 48, D),
+    ("logistic", "all_hot", *GAME_FIXED_SHAPE),
 )
 
 
@@ -319,14 +327,13 @@ def check_fused_kernel(dev) -> dict:
     is not read yet), the second the form that size picks; the hot ids bit
     for bit between the second call and a third.  The hot set's size is
     held to the draw where it is known: 0 on uniform ids, every slot with more candidates, every
-    feature at d = 64.  Then a hot set gone stale (ids changed behind the
+    feature where every feature is hot (d = 64 and the GAME batch's d = 19).  Then a hot set gone stale (ids changed behind the
     version counter) both ways between zipf and uniform ids, and the bad-id
     checks."""
     from photon_tpu_torch.core.losses import get_loss
     from photon_tpu_torch.ops import fused_sparse as fs
 
     worst = 0.0
-    expect_hot = {"uniform": 0, "candidates": fs.HOT_SLOTS, "all_hot": 64}
     ragged = None
     for i, (loss_name, draw, n, k, d) in enumerate(FUSED_CASES):
         rng = np.random.default_rng(100 + i)
@@ -340,6 +347,7 @@ def check_fused_kernel(dev) -> dict:
         for call, got in (("first call", first), ("second call", second)):
             worst = max(worst, gate_fused(f"{tag} {call}", loss, args, got))
         hot_ids_equal(tag, hot, second[1], third[1])
+        expect_hot = {"uniform": 0, "candidates": fs.HOT_SLOTS, "all_hot": d}
         if expect_hot.get(draw, hot.n_hot) != hot.n_hot or (draw != "uniform" and not hot.n_hot):
             raise AssertionError(f"{tag}: unexpected hot set size {hot.n_hot}")
         if (loss_name, draw, n) == ("logistic", "uniform", N - 77):
@@ -453,6 +461,14 @@ def check_position_kernel(dev) -> dict:
         vals = rng.standard_normal((N, K)).astype(np.float32)
         layouts[("grad", dist)] = (build_aligned_layout(ids, vals, D), N)
         layouts[("forward", dist)] = (build_row_aligned_layout(ids, vals), D)
+    # The GAME fixed effect's batch (phase 6's pallas run): every id hot.
+    n_g, k_g, d_g = GAME_FIXED_SHAPE
+    ids = rng.integers(0, d_g, size=(n_g, k_g), dtype=np.int32)
+    vals = rng.standard_normal((n_g, k_g)).astype(np.float32)
+    pad = np.arange(k_g)[None, :] >= rng.integers(1, k_g + 1, size=n_g)[:, None]
+    ids[pad], vals[pad] = 0, 0.0
+    game_layouts = {("grad", "game"): (build_aligned_layout(ids, vals, d_g), n_g),
+                    ("forward", "game"): (build_row_aligned_layout(ids, vals), d_g)}
     # Padded geometry: each direction's two layouts padded to the common
     # (slabs, tiles) target, as stacked per-shard layouts are.
     for direction in ("grad", "forward"):
@@ -464,6 +480,7 @@ def check_position_kernel(dev) -> dict:
             layouts[(direction, dist + "+padded")] = (
                 pad_aligned_layout(lay, s_max + 2, t_max + 2), payload
             )
+    layouts.update(game_layouts)
     worst = 0.0
     for (direction, dist), (lay, payload) in layouts.items():
         al = device_layout(lay, dev)
@@ -1761,18 +1778,19 @@ def game_cli_args(avro: str, out: str, backend: str) -> list:
     ]
 
 
-def game_op_timings(avro: str, dev) -> dict:
+def game_op_timings(data, dev) -> dict:
     """The random-effect path's torch ops and the score-table update on the
-    card, at the training split's own bins: per bin the lane objective's
+    card, at the training split's own bins (of ``data``, the dataset the
+    first run read from the Avro file): per bin the lane objective's
     value and gradient, its Hessian (a float64 scatter), one batched
-    Cholesky step and the whole Newton fit, each beside the time its bytes
+    Cholesky step, one line-search block of values and the whole Newton
+    fit, each beside the time its bytes
     take at the card's memory rate; then one residual-engine update and one
     offsets pass over the table."""
     from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
     from photon_tpu_torch.core.optimizers import OptimizerConfig
     from photon_tpu_torch.core.optimizers.newton import newton_step
     from photon_tpu_torch.core.problem import ProblemConfig
-    from photon_tpu_torch.data.game_io import read_game_avro
     from photon_tpu_torch.game.batched_solve import LaneObjective, run_newton_fit
     from photon_tpu_torch.game.coordinate import (
         RandomEffectCoordinateConfig,
@@ -1781,10 +1799,6 @@ def game_op_timings(avro: str, dev) -> dict:
     from photon_tpu_torch.game.data import split_game_dataset
     from photon_tpu_torch.game.residuals import ResidualEngine
 
-    t0 = time.monotonic()
-    data, _ = read_game_avro(avro, {"global": "global", "per_user": "per_user"},
-                             ["userId", "itemId"])
-    read_s = time.monotonic() - t0
     train, _ = split_game_dataset(data, 0.2)
     reg = RegularizationContext("l2", 1.0)
     problem = ProblemConfig(regularization=reg,
@@ -1800,6 +1814,7 @@ def game_op_timings(avro: str, dev) -> dict:
         w = torch.zeros(bsz, d, device=dev)
         h = lane.hessian_matrix(w, batch)
         _, g = lane.value_and_grad(w, batch)
+        ts = torch.ones(bsz, 9, device=dev)
         inputs = batch.ids.numel() * 8 + bsz * r * 12 + bsz * d * 4
         row = {
             "bin": i, "entities": stats["live_entities"], "capacity": r, "k": k,
@@ -1808,6 +1823,9 @@ def game_op_timings(avro: str, dev) -> dict:
             "hessian_ms": cuda_ms(lambda: lane.hessian_matrix(w, batch)),
             "hessian_bound_ms": (inputs + bsz * d * d * 4) / HBM_BYTES_PER_S * 1e3,
             "cholesky_step_ms": cuda_ms(lambda: newton_step(h, g)),
+            # The line search's first block: t = 0 and 8 step sizes.
+            "line_values_ms": cuda_ms(lambda: lane.line_values(w, g, ts, batch)),
+            "line_values_bound_ms": (inputs + bsz * (2 * d + 9) * 4) / HBM_BYTES_PER_S * 1e3,
             "newton_fit_ms": cuda_ms(lambda: run_newton_fit(
                 lane, batch, w, cfg=problem.optimizer_config, variance="none"),
                 reps=2, warmup=1),
@@ -1817,7 +1835,9 @@ def game_op_timings(avro: str, dev) -> dict:
             f"value_and_grad {row['value_and_grad_ms']:.3f} ms (bytes bound "
             f"{row['value_and_grad_bound_ms']:.4f}), hessian {row['hessian_ms']:.3f} ms "
             f"(bound {row['hessian_bound_ms']:.4f}), cholesky step "
-            f"{row['cholesky_step_ms']:.3f} ms, whole Newton fit "
+            f"{row['cholesky_step_ms']:.3f} ms, line-search block "
+            f"{row['line_values_ms']:.3f} ms (bound {row['line_values_bound_ms']:.4f}), "
+            f"whole Newton fit "
             f"{row['newton_fit_ms']:.2f} ms")
     n = train.num_examples
     engine = ResidualEngine(train.offset, ["fixed", "per_user"], dev)
@@ -1834,7 +1854,7 @@ def game_op_timings(avro: str, dev) -> dict:
     log(f"    residual engine over {n:,} rows: update {table['update_ms']:.3f} ms "
         f"(bound {table['update_bound_ms']:.4f}), offsets {table['offsets_ms']:.3f} "
         f"ms (bound {table['offsets_bound_ms']:.4f})")
-    return {"avro_read_s": read_s, "bins": rows, "residuals": table}
+    return {"bins": rows, "residuals": table}
 
 
 def run_game(dev) -> dict:
@@ -1877,6 +1897,18 @@ def run_game(dev) -> dict:
             f"{len(np.unique(data.id_columns['itemId']))} items; Avro write "
             f"{out['avro_write_s']:.2f} s ({out['avro_bytes'] / 2**20:.1f} MiB)")
         del data
+        # The first run's dataset, as read from the Avro file, is kept for the
+        # torch-op timings below.
+        read = []
+        load = train_game._load_game_data
+
+        def load_and_keep(*args, **kwargs):
+            loaded = load(*args, **kwargs)
+            if not read:
+                read.append(loaded[0])
+            return loaded
+
+        train_game._load_game_data = load_and_keep
         for name, route, backend in GAME_RUNS:
             env_before = os.environ.get("PHOTON_SPARSE_GRAD")
             if route is None:
@@ -1898,6 +1930,7 @@ def run_game(dev) -> dict:
                     os.environ.pop("PHOTON_SPARSE_GRAD", None)
                 else:
                     os.environ["PHOTON_SPARSE_GRAD"] = env_before
+                train_game._load_game_data = load
             counts = {k: c.launches for k, c in counters.items()}
             probes = {c.__name__: c.launches for c in pk.KERNELS}
             if any(probes.values()):
@@ -1927,7 +1960,9 @@ def run_game(dev) -> dict:
                 run["auto_probe"] = probe
             out["runs"][name] = (run, model)
             log(f"  train_game {name} ({backend}, route {route or 'auto'}): "
-                f"{wall:.2f} s ({run['epoch_s']:.3f} s per descent iteration as "
+                f"{wall:.2f} s, of them the Avro read (load-data) "
+                f"{summary['phase_times']['load-data']:.2f} s "
+                f"({run['epoch_s']:.3f} s per descent iteration as "
                 f"bench.py counts it, fit {run['fit_s_per_descent_iteration']:.3f} s "
                 f"per descent iteration: set-up {run['fit_setup_s']:.3f} s, iterations "
                 f"{[round(t, 4) for t in iteration_s]} s; {run['rows_per_s']:,.0f} "
@@ -1976,11 +2011,18 @@ def run_game(dev) -> dict:
             run["coefficient_max_abs_diff_vs_cpu"] = errs
             log(f"  {name} vs cpu: metrics within {GAME_METRIC_ATOL:g}, coefficients "
                 f"max |diff| {errs} (tolerance rtol = atol = {GAME_COEF_TOL:g})")
+        # Phase 2 held K1 and K2 at the fixed effect's batch shape: the auto
+        # run's probe saw it.
+        seen = [(p["rows"], p["nnz_per_row"], p["dim"])
+                for p in out["runs"]["auto"][0].get("auto_probe", [])]
+        if seen != [GAME_FIXED_SHAPE]:
+            raise AssertionError(f"GAME: the fixed effect's batch {seen} is not phase "
+                                 f"2's GAME_FIXED_SHAPE {GAME_FIXED_SHAPE}")
         for name, kernel in (("fused", "fused_sparse"), ("pallas", "position_reduce")):
             if not out["runs"][name][0]["launches"].get(kernel):
                 raise AssertionError(f"GAME {name}: {kernel} never launched")
         log("  the random-effect path's torch ops and the score table:")
-        out["ops"] = game_op_timings(avro, dev)
+        out["ops"] = game_op_timings(read[0], dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["runs"] = {name: run for name, (run, _) in out["runs"].items()}

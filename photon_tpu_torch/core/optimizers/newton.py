@@ -13,9 +13,13 @@ contract under ``vmap``.  Per iteration and lane:
   one batched Cholesky factor and solve gives the Newton step;
 - a failed factorization, a non-finite step or a non-descent step falls
   back to steepest descent with ``t0 = 1 / max(|g|, 1)``;
-- the Armijo backtracking of :mod:`lbfgs` (``_ARMIJO_C1``, halving up to
-  ``max_line_search`` times) runs per lane, lanes that pass at once
-  waiting for the rest;
+- the Armijo backtracking of :mod:`lbfgs` (``_ARMIJO_C1``; the step
+  sizes ``t0 * 2^-j``, ``j = 0 .. max_line_search``) runs per lane: each
+  lane takes its first step size that passes, so lanes that pass at once
+  wait for the rest.  The step sizes are tried in blocks of
+  ``_LINE_SEARCH_BLOCK``, all of a block's values in one ``values`` call
+  (for GLM lanes one pass over the bin), then one ``fun`` call at each
+  lane's choice;
 - the stopping rules, reasons and history are the base module's
   (:func:`check_convergence_lanes` is :func:`base.check_convergence`
   per lane, in float32).
@@ -25,9 +29,11 @@ factors, the step is small beside the iterate and it leaves a finite
 point, carry the iterate past the float32
 value-stall basin (~1e-4 wide) to within ~1e-6 of the optimum.
 
-Host reads: one per iteration in the common case — a packed read of "any
-lane halving" and "any lane still active" — plus one per halving round and
-one after the rounds.  :attr:`BatchedResult.host_reads` counts them.
+Host reads: one per iteration — a packed read of "any lane still
+searching" and "any lane still active" after the first block — plus one
+per further block, which only a lane that needs more than
+``_LINE_SEARCH_BLOCK - 1`` halvings costs.  :attr:`BatchedResult.host_reads`
+counts them.
 """
 
 from __future__ import annotations
@@ -45,6 +51,9 @@ Tensor = torch.Tensor
 # Cholesky defined on flat directions, far below any curvature that moves
 # the solution at the 1e-5 parity tolerance.
 _RIDGE = 1e-9
+
+# Armijo step sizes tried per host read: the full step and seven halvings.
+_LINE_SEARCH_BLOCK = 8
 
 
 class BatchedResult(NamedTuple):
@@ -99,12 +108,20 @@ def newton(
     w0: Tensor,
     config: OptimizerConfig = OptimizerConfig(),
     hess: Callable[[Tensor], Tensor] | None = None,
+    values: Callable[[Tensor, Tensor, Tensor], Tensor] | None = None,
 ) -> BatchedResult:
     """Minimize each lane of ``fun`` (``[B, d] -> ([B], [B, d])``) from
     ``w0`` with damped Newton steps; ``hess(w) -> [B, d, d]`` is the dense
-    Hessian (for GLM lanes, ``LaneObjective.hessian_matrix``)."""
+    Hessian (for GLM lanes, ``LaneObjective.hessian_matrix``) and
+    ``values(w, step, ts) -> [B, T]`` the objective at ``w + ts[:, j] *
+    step`` for each column ``j`` of ``ts`` ``[B, T]`` (for GLM lanes,
+    ``LaneObjective.line_values``), by default one ``fun`` call a column."""
     if hess is None:
         raise ValueError("the batched Newton solver needs hess(w) -> [B, d, d]")
+    if values is None:
+        def values(w: Tensor, step: Tensor, ts: Tensor) -> Tensor:
+            return torch.stack(
+                [fun(w + ts[:, j, None] * step)[0] for j in range(ts.shape[1])], 1)
     dev = w0.device
     n_hist = config.max_iterations + 1
     f, g = fun(w0)
@@ -122,12 +139,14 @@ def newton(
     it = torch.zeros(bsz, dtype=torch.int32, device=dev)
     lanes = torch.arange(bsz, device=dev)
 
-    def update(t, f_new, g_new, ls_ok):
+    def update(t, f_new, g_new, ls_ok, f_try):
         """The iteration's masked state update (``w, f, g, it, active,
         reason`` and the history slot), as the reference's ``tree_where``
-        over its loop body: lanes that were inactive keep everything."""
+        over its loop body: lanes that were inactive keep everything.  The
+        function-value test holds ``f_try``, the line search's value at the
+        chosen step, to ``level``, its value at t = 0."""
         gnorm_new = torch.linalg.vector_norm(g_new, dim=-1)
-        converged, why = check_convergence_lanes(f_new, f, gnorm_new, gnorm0, config)
+        converged, why = check_convergence_lanes(f_try, level, gnorm_new, gnorm0, config)
         stop_ls = ~ls_ok
         why = torch.where(stop_ls, ConvergenceReason.OBJECTIVE_NOT_IMPROVING, why)
         it_new = it + 1
@@ -145,11 +164,7 @@ def newton(
             keep, it_new.clamp_max(n_hist - 1).long(),
         )
 
-    def trial(t):
-        f_t, g_t = fun(w + t[:, None] * step)
-        ok = (f_t <= f + (_ARMIJO_C1 * t) * dir_deriv) & torch.isfinite(f_t)
-        return f_t, g_t, ok
-
+    n_steps = config.max_line_search + 1  # t0 and its halvings
     any_active = bool(active.any())
     reads, loops = 1, 0
     while any_active:
@@ -160,34 +175,38 @@ def newton(
         gg = torch.sum(g * g, dim=-1)
         step = torch.where(bad[:, None], -g, step)
         dir_deriv = torch.where(bad, -gg, dir_deriv)
-        t = torch.where(
+        t0 = torch.where(
             bad, 1.0 / torch.clamp_min(torch.sqrt(gg), 1.0), torch.ones_like(gg)
         )
-        f_new, g_new, ls_ok = trial(t)
-        # Armijo backtracking per lane; an inactive lane does not search.
-        searching = active & ~ls_ok
-        new = update(t, f_new, g_new, ls_ok)
-        # One packed read: does any lane halve, and is any lane still
-        # active if none does?
-        need_halving, any_active = torch.stack(
-            [searching.any(), new[4].any()]).tolist()
-        reads += 1
-        if need_halving:
-            halvings = 0
-            while True:  # halve at least once, at most max_line_search times
-                t = torch.where(searching, t * 0.5, t)
-                f_h, g_h, ok_h = trial(t)
-                f_new = torch.where(searching, f_h, f_new)
-                g_new = torch.where(searching[:, None], g_h, g_new)
-                ls_ok = torch.where(searching, ok_h, ls_ok)
-                halvings += 1
-                searching = searching & ~ls_ok & (halvings < config.max_line_search)
-                reads += 1
-                if not bool(searching.any()):
-                    break
-            new = update(t, f_new, g_new, ls_ok)
-            any_active = bool(new[4].any())
+        # Armijo backtracking per lane, a block of step sizes per read; an
+        # inactive lane does not search.  The first block also takes the
+        # value at t = 0: the Armijo and function-value tests hold the step
+        # sizes' values to it, so both sides of each come from the same
+        # ``values`` arithmetic and a step of no change passes at a minimum.
+        t, f_try, searching = t0, f, active
+        ls_ok = torch.zeros_like(active)
+        for j0 in range(0, n_steps, _LINE_SEARCH_BLOCK):
+            js = torch.arange(j0, min(j0 + _LINE_SEARCH_BLOCK, n_steps), device=dev)
+            ts = t0[:, None] * torch.pow(0.5, js.to(t0.dtype))[None, :]
+            if j0 == 0:
+                f_c = values(w, step, torch.cat([torch.zeros_like(t0)[:, None], ts], 1))
+                level, f_c = f_c[:, 0], f_c[:, 1:]
+            else:
+                f_c = values(w, step, ts)
+            ok = (f_c <= level[:, None] + (_ARMIJO_C1 * ts) * dir_deriv[:, None]) \
+                & torch.isfinite(f_c)
+            found = ok.any(dim=1)
+            first = torch.where(found, ok.int().argmax(dim=1), len(js) - 1)[:, None]
+            t = torch.where(searching, ts.gather(1, first)[:, 0], t)
+            f_try = torch.where(searching, f_c.gather(1, first)[:, 0], f_try)
+            ls_ok = ls_ok | (searching & found)
+            searching = searching & ~found
+            f_new, g_new = fun(w + t[:, None] * step)
+            new = update(t, f_new, g_new, ls_ok, f_try)
+            more, any_active = torch.stack([searching.any(), new[4].any()]).tolist()
             reads += 1
+            if not more:
+                break
         w, f, g, it, active, reason, keep, slot = new
         hv[lanes, slot] = torch.where(keep, f, hv[lanes, slot])
         hg[lanes, slot] = torch.where(

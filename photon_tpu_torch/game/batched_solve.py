@@ -6,13 +6,13 @@ Counterpart of ``photon_tpu/game/batched_solve.py``:
   buckets into a few padded size bins (``game.data.plan_size_bins`` /
   ``merge_buckets``), one batched solve each.  ``PHOTON_SOLVE_BINNING=off``
   keeps one bin per bucket.
-- **Solver route** — :func:`solver_route` picks a bin's solver as the
-  reference does: ``newton`` (the batched damped Newton of
-  ``core/optimizers/newton.py``, one ``[B, d, d]`` Cholesky per iteration)
-  for smooth problems up to ``PHOTON_NEWTON_MAX_DIM`` (64), ``newton_cg``
-  up to ``PHOTON_NEWTON_CG_MAX_DIM`` or when asked for, else ``vmapped``.
-  The port carries the ``newton`` route; the other two raise (ROADMAP.md
-  queue 1, item 5) rather than swap in another solver.
+- **Solver route** — :func:`solver_route` gives a bin the ``newton`` route
+  (the batched damped Newton of ``core/optimizers/newton.py``, one
+  ``[B, d, d]`` Cholesky per iteration) for smooth problems up to
+  ``PHOTON_NEWTON_MAX_DIM`` (64), the reference's rule for that route.
+  Everything else the reference sends to ``newton_cg`` or ``vmapped``
+  (an explicit ``newton_cg`` request, L1, larger dims) raises: those routes
+  wait in ROADMAP.md queue 1, item 5, and no other solver is swapped in.
 - **The lane objective** — :class:`LaneObjective` is the counterpart of
   ``jax.vmap`` over ``GlmObjective``: value, gradient, Hessian and Hessian
   diagonal of ``B`` independent GLMs, one per entity, over a bin's padded
@@ -20,10 +20,8 @@ Counterpart of ``photon_tpu/game/batched_solve.py``:
   carry weight 0).  Scatter sums accumulate in float64 and round once.
 
 Knobs (environment): ``PHOTON_SOLVE_BINNING`` (``on``/``off``),
-``PHOTON_SOLVE_MAX_BINS`` (4), ``PHOTON_SOLVE_BIN_WASTE`` (2.0),
-``PHOTON_SOLVE_NEWTON`` (``on``/``off``), ``PHOTON_NEWTON_MAX_DIM`` (64),
-``PHOTON_SOLVE_NEWTON_CG`` (``on``/``off``), ``PHOTON_NEWTON_CG_MAX_DIM``
-(1024) — the reference's names and defaults.
+``PHOTON_SOLVE_MAX_BINS`` (4), ``PHOTON_SOLVE_BIN_WASTE`` (2.0) and
+``PHOTON_NEWTON_MAX_DIM`` (64) — the reference's names and defaults.
 """
 
 from __future__ import annotations
@@ -43,24 +41,10 @@ from photon_tpu_torch.models.glm import Coefficients
 
 Tensor = torch.Tensor
 
-_QUEUE = "ROADMAP.md queue 1, item 5"
-PORTED_ROUTES = ("newton",)
-
-
-def _on(name: str) -> bool:
-    return os.environ.get(name, "on").strip().lower() not in ("off", "0", "false")
-
 
 def binning_enabled() -> bool:
-    return _on("PHOTON_SOLVE_BINNING")
-
-
-def newton_enabled() -> bool:
-    return _on("PHOTON_SOLVE_NEWTON")
-
-
-def newton_cg_enabled() -> bool:
-    return _on("PHOTON_SOLVE_NEWTON_CG")
+    value = os.environ.get("PHOTON_SOLVE_BINNING", "on").strip().lower()
+    return value not in ("off", "0", "false")
 
 
 def max_bins() -> int:
@@ -75,10 +59,6 @@ def newton_max_dim() -> int:
     return int(os.environ.get("PHOTON_NEWTON_MAX_DIM", "64"))
 
 
-def newton_cg_max_dim() -> int:
-    return int(os.environ.get("PHOTON_NEWTON_CG_MAX_DIM", "1024"))
-
-
 def bin_layout(buckets: tuple) -> list:
     """Bucket-index groups of the operative bin policy: the planned size
     bins, or one bucket per bin when binning is off."""
@@ -89,41 +69,26 @@ def bin_layout(buckets: tuple) -> list:
     return plan_size_bins(buckets, max_bins=max_bins(), waste_cap=bin_waste_cap())
 
 
-def solver_route(problem, solve_dim: int, row_split: bool = False) -> str:
-    """Which solver a bin runs (the reference's rule): ``row_split`` under
-    row-split placement, ``newton_cg`` when asked for, ``newton`` for
-    smooth problems up to :func:`newton_max_dim`, ``newton_cg`` for smooth
-    ones up to :func:`newton_cg_max_dim`, else ``vmapped``."""
-    if row_split:
-        return "row_split"
+def solver_route(problem, solve_dim: int) -> str:
+    """``"newton"`` for a smooth problem (no L1) of dim up to
+    :func:`newton_max_dim`, as the reference routes it; anything else
+    raises, since the reference's ``newton_cg`` and ``vmapped`` routes
+    (the batched Newton-CG and the per-lane L-BFGS/OWL-QN/TRON) are not
+    ported."""
     optimizer = problem.optimizer.lower()
     smooth = (problem.regularization.l1_weight == 0
               and optimizer not in ("owlqn", "owl-qn"))
-    if optimizer in ("newton_cg", "newton-cg"):
-        return "newton_cg"
-    if smooth and newton_enabled() and solve_dim <= newton_max_dim():
+    if smooth and optimizer not in ("newton_cg", "newton-cg") \
+            and solve_dim <= newton_max_dim():
         return "newton"
-    if smooth and newton_cg_enabled() and newton_max_dim() < solve_dim <= newton_cg_max_dim():
-        return "newton_cg"
-    return "vmapped"
-
-
-def require_ported_route(route: str) -> str:
-    """``route`` if the port carries it; the others raise, naming where
-    they wait (the batched Newton-CG, the per-lane L-BFGS/OWL-QN/TRON of
-    ``vmapped`` bins, and row-split placement with the mesh)."""
-    if route == "row_split":
-        raise NotImplementedError(
-            "row-split entity placement needs a device mesh, which waits in "
-            "ROADMAP.md queue 1, item 10"
-        )
-    if route not in PORTED_ROUTES:
-        raise NotImplementedError(
-            f"the {route!r} entity-solve route is not ported yet; it waits in "
-            f"{_QUEUE} (the port solves random-effect bins with the batched "
-            f"Newton route: smooth problems of dim <= {newton_max_dim()})"
-        )
-    return route
+    raise NotImplementedError(
+        f"entity solves with optimizer {problem.optimizer!r}, "
+        f"l1 weight {problem.regularization.l1_weight:g} and dim {solve_dim} "
+        "take the reference's newton_cg or vmapped route, which is not ported "
+        "yet; it waits in ROADMAP.md queue 1, item 5 (the port solves "
+        f"random-effect bins with the batched Newton route: smooth problems of "
+        f"dim <= {newton_max_dim()})"
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +118,28 @@ class LaneObjective:
         bsz, rows, k = batch.ids.shape
         wx = torch.gather(w, 1, batch.ids.reshape(bsz, rows * k).long())
         return (wx.view(bsz, rows, k) * batch.vals).sum(-1) + batch.offset
+
+    def line_values(self, w: Tensor, step: Tensor, ts: Tensor, batch) -> Tensor:
+        """``[B, T]``: lane ``b``'s objective at ``w_b + ts[b, j] * step_b``
+        for each of its ``T`` step sizes, in one pass over the bin.  Each
+        point is formed as the solver moves to it and its margins gathered
+        as :meth:`margins` gathers them, so the line search holds the very
+        point it accepts."""
+        wt = w[:, None] + ts[..., None] * step[:, None]
+        bsz, n_pts, _ = wt.shape
+        if isinstance(batch, DenseBatch):
+            z = torch.bmm(wt, batch.x.transpose(1, 2))
+        else:
+            _, rows, k = batch.ids.shape
+            ids = batch.ids.reshape(bsz, 1, rows * k).long().expand(-1, n_pts, -1)
+            z = (torch.gather(wt, 2, ids).view(bsz, n_pts, rows, k)
+                 * batch.vals[:, None]).sum(-1)
+        z = z + batch.offset[:, None]
+        v = torch.sum(batch.weight[:, None] * self.loss.value(z, batch.label[:, None]),
+                      dim=-1)
+        if self.l2_weight != 0.0:
+            v = v + 0.5 * self.l2_weight * torch.sum(wt * wt, dim=-1)
+        return v
 
     def _scatter(self, batch, per_row: Tensor, dim: int) -> Tensor:
         """``out[b, f] = sum_r per_row[b, r] * x_brf`` (``[B, d]``): a
@@ -233,6 +220,7 @@ def run_newton_fit(objective: LaneObjective, batch, w0: Tensor, *,
     result = newton(
         lambda w: objective.value_and_grad(w, batch), w0, cfg,
         hess=lambda w: objective.hessian_matrix(w, batch),
+        values=lambda w, step, ts: objective.line_values(w, step, ts, batch),
     )
     return Coefficients(
         means=result.w,

@@ -43,7 +43,6 @@ from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.game.batched_solve import (
     LaneObjective,
     record_bin_telemetry,
-    require_ported_route,
     run_newton_fit,
     solver_route,
 )
@@ -400,7 +399,7 @@ class RandomEffectCoordinate:
         # Every bin's route is resolved now, so a route the port does not
         # carry raises before any work.
         self.routes = [
-            require_ported_route(solver_route(config.problem, dev["solve_dim"]))
+            solver_route(config.problem, dev["solve_dim"])
             for dev in self.device_data.device_buckets
         ]
         self.telemetry = None

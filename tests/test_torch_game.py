@@ -354,8 +354,10 @@ def test_unported_library_paths_raise():
          "item 2"),
         (lambda: batched_solve.LaneObjective.of(GlmObjective.create(
             "logistic", RegularizationContext("elastic_net", 1.0))), "item 3"),
-        (lambda: batched_solve.require_ported_route("vmapped"), "item 5"),
-        (lambda: batched_solve.require_ported_route("row_split"), "item 10"),
+        (lambda: batched_solve.solver_route(
+            ProblemConfig(optimizer="newton_cg"), 19), "item 5"),
+        (lambda: coordinate.RandomEffectCoordinateConfig("r", "r", row_split=True),
+         "item 10"),
     ]
     for make, item in cases:
         with pytest.raises(NotImplementedError, match=item):
