@@ -8,19 +8,23 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit, torch/CUDA versions; build the CUDA
-   kernels from ``photon_tpu_torch/ops/csrc`` and the host router from
-   ``photon_tpu_torch/native/src`` and time both builds;
+   kernels from ``photon_tpu_torch/ops/csrc`` and the host library (the
+   router, the LIBSVM parser and the Avro decoder) from
+   ``photon_tpu_torch/native/src`` and time both builds; a host library
+   that does not build fails the run;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shapes: the fused value+gradient (four losses, ragged row count,
    uniform and zipf ids, zero-weight rows; the hot-set cases of
    ``FUSED_CASES``: zipf exponents 1.1, 1.3 and 2.0, one id in every slot,
    more hot candidates than slots, d = 64, k = 48, phase 6's fixed-effect
-   batch shape (n = 239,534, k = 8, d = 19, every id hot); a hot set gone
-   stale;
+   batch shape (n = 239,534, k = 8, d = 19, every id hot), phase 7's
+   config-2 batch (squared loss, n = 40,000 dense rows of k = 1024, d =
+   1024, all 1024 features hot); a hot set gone stale;
    two calls in one form bit for bit on the hot ids), the row scatter of
    the ``fused`` route's Hv (``ROW_SCATTER_CASES``: both draws, a constant
    r), the slab position-reduce (gradient and forward layouts, uniform and
-   zipf ids, padded geometry, phase 6's fixed-effect batch shape),
+   zipf ids, padded geometry, phase 6's fixed-effect batch shape and
+   phase 7's config-2 batch),
    and the three permutation passes of the ``xchg`` route (K4 chunk, K5
    lane, K6 chunk-expand) over the main path's own routes, each launch bit
    for bit: the route of each id draw (balanced: K6 + K4, and K4 in the
@@ -75,7 +79,10 @@ Phases (any failure exits non-zero and prints no result line):
    intercept, a per-user random effect over the same 19 columns, logistic)
    at ``bench.py``'s scale for it (``make_movielens_like`` with
    MovieLens-1M's 6040 users and 3700 items, ~300K ratings), written to
-   Avro with the port's writer and trained by the port's ``train_game``
+   Avro with the port's writer, read once by the native decoder and once
+   by the Python reader (each timed, the two held equal bit for bit), and
+   trained by the port's ``train_game`` (each run reading through the
+   native decoder)
    with ``bench.py``'s arguments (two descent iterations, a 0.2 validation
    split) on the card under ``fused``, ``pallas`` and ``auto`` and with
    ``--backend cpu``, each run with every launch count set to 0 just
@@ -89,12 +96,23 @@ Phases (any failure exits non-zero and prints no result line):
    random-effect path's torch ops (lane value and gradient, the float64
    Hessian scatter, the batched Cholesky step, one line-search block of
    values, the whole Newton fit) per bin, on the first run's dataset, and
-   the score table's update and offsets pass, each beside its bytes bound.
+   the score table's update and offsets pass, each beside its bytes bound;
+7. BASELINE.json config 2 (``bench.py:360-370``): ``make_glm_data``
+   linear regression, seed 0, d = 1024 (1023 Gaussian features and the
+   intercept), 40,000 training rows and a 20% validation split written as
+   LIBSVM and parsed natively, trained through the train CLI's entry point
+   (OWL-QN, elastic net, weight 1.0, 100 iterations) on the card under
+   ``fused`` (K1 must launch) and under ``pallas`` with standardization (K2
+   must launch, K1 must not), then on 8,000 rows on the card and the host,
+   the card held to the host (validation RMSE 1e-4 relative, coefficients
+   rtol = atol = 1e-3); then the score CLI on the validation file with the
+   card's model on the card and the host (scores within 1e-4 of each other,
+   RMSE the train summary's to 1e-6).
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
 that the training paths launch none of them; K1's and K2's
-``game_launches`` count phase 6's runs); the last line is ``{"ok": true, "device":
+``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -237,6 +255,14 @@ def gate_report(name, got, ref, rtol, mag=None) -> float:
 
 # The GAME fixed effect's batch (rows, nonzeros per row, d) in phase 6.
 GAME_FIXED_SHAPE = (239_534, 8, 19)
+# Phase 7, BASELINE.json config 2 (bench.py:360-370): d = 1024 (1023 dense
+# Gaussian features and the intercept, so k = 1024), training rows cut from
+# bench.py's 200,000 to a fifth for the time limit, a 20% validation split;
+# the host runs (and the card runs held to them) on fewer rows.
+CONFIG2_ROWS = 40_000
+CONFIG2_HOST_ROWS = 8_000
+CONFIG2_D = 1024
+CONFIG2_SHAPE = (CONFIG2_ROWS, CONFIG2_D, CONFIG2_D)
 
 # K1's cases in phase 2: (loss, ids draw, rows, nonzeros per row, d).  The
 # draws beyond the main path's two: zipf exponents 1.1 and 2.0; one id in
@@ -244,7 +270,8 @@ GAME_FIXED_SHAPE = (239_534, 8, 19)
 # than the kernel's slots; d = 64, every feature hot; k = 48, the kernels'
 # loop for rows of more than 32 entries; the GAME fixed effect's batch in
 # phase 6 (the training split's 239,534 rows, k = 8 with pads, d = 19,
-# every feature hot).
+# every feature hot); phase 7's config-2 batch (squared loss, every row ids
+# 0..1022 and the intercept 1023, no pads: all 1024 features hot).
 FUSED_CASES = (
     *[(loss, "uniform", N, K, D) for loss in
       ("logistic", "squared", "poisson", "smoothed_hinge")],
@@ -253,6 +280,7 @@ FUSED_CASES = (
     ("logistic", "one_id", N, K, D), ("logistic", "candidates", N, K, D),
     ("poisson", "all_hot", N, K, 64), ("logistic", "zipf1.3", 1 << 16, 48, D),
     ("logistic", "all_hot", *GAME_FIXED_SHAPE),
+    ("squared", "dense", *CONFIG2_SHAPE),
 )
 
 
@@ -266,17 +294,23 @@ def fused_case_ids(rng, n: int, k: int, d: int, draw: str) -> np.ndarray:
         return rng.integers(1, 1537, size=(n, k), dtype=np.int32)
     if draw == "all_hot":
         return rng.integers(0, d, size=(n, k), dtype=np.int32)
+    if draw == "dense":
+        return np.tile(np.arange(k, dtype=np.int32), (n, 1))
     return make_ids(rng, n, k, d, draw)
 
 
 def fused_inputs(rng, loss_name: str, n: int, k: int, d: int, draw: str, dev) -> list:
     """(w, ids, vals, label, offset, weight) on the card: padded row tails
-    (id 0, val 0), labels for the loss, 10% zero-weight rows."""
+    (id 0, val 0; a dense draw has none and the intercept's value 1 in its
+    last slot), labels for the loss, 10% zero-weight rows."""
     ids = fused_case_ids(rng, n, k, d, draw)
     vals = rng.standard_normal((n, k)).astype(np.float32)
-    cut = rng.integers(1, k + 1, size=n)  # padded row tails
-    pad = np.arange(k)[None, :] >= cut[:, None]
-    ids[pad], vals[pad] = 0, 0.0
+    if draw == "dense":
+        vals[:, -1] = 1.0
+    else:
+        cut = rng.integers(1, k + 1, size=n)  # padded row tails
+        pad = np.arange(k)[None, :] >= cut[:, None]
+        ids[pad], vals[pad] = 0, 0.0
     if loss_name == "poisson":
         label = rng.poisson(1.5, size=n).astype(np.float32)
     elif loss_name == "squared":
@@ -347,7 +381,7 @@ def check_fused_kernel(dev) -> dict:
         for call, got in (("first call", first), ("second call", second)):
             worst = max(worst, gate_fused(f"{tag} {call}", loss, args, got))
         hot_ids_equal(tag, hot, second[1], third[1])
-        expect_hot = {"uniform": 0, "candidates": fs.HOT_SLOTS, "all_hot": d}
+        expect_hot = {"uniform": 0, "candidates": fs.HOT_SLOTS, "all_hot": d, "dense": d}
         if expect_hot.get(draw, hot.n_hot) != hot.n_hot or (draw != "uniform" and not hot.n_hot):
             raise AssertionError(f"{tag}: unexpected hot set size {hot.n_hot}")
         if (loss_name, draw, n) == ("logistic", "uniform", N - 77):
@@ -469,6 +503,18 @@ def check_position_kernel(dev) -> dict:
     ids[pad], vals[pad] = 0, 0.0
     game_layouts = {("grad", "game"): (build_aligned_layout(ids, vals, d_g), n_g),
                     ("forward", "game"): (build_row_aligned_layout(ids, vals), d_g)}
+    # Phase 7's config-2 batch: dense rows of ids 0..1023, the intercept's
+    # value 1 last.
+    n_c, k_c, d_c = CONFIG2_SHAPE
+    ids = np.tile(np.arange(k_c, dtype=np.int32), (n_c, 1))
+    vals = rng.standard_normal((n_c, k_c)).astype(np.float32)
+    vals[:, -1] = 1.0
+    config2 = (ids, vals)
+    t0 = time.monotonic()
+    game_layouts[("grad", "config2")] = (build_aligned_layout(ids, vals, d_c), n_c)
+    game_layouts[("forward", "config2")] = (build_row_aligned_layout(ids, vals), d_c)
+    log(f"  config-2 layouts (n={n_c:,}, k={k_c}, d={d_c}) built in "
+        f"{time.monotonic() - t0:.1f} s")
     # Padded geometry: each direction's two layouts padded to the common
     # (slabs, tiles) target, as stacked per-shard layouts are.
     for direction in ("grad", "forward"):
@@ -502,12 +548,31 @@ def check_position_kernel(dev) -> dict:
             tail = got.view(-1)[real * SLAB_POSITIONS:]
             if not bool(torch.all(tail == 0)):
                 raise AssertionError("pad slabs must come out written as zeros")
-    return {"max_abs_err": worst}
+        if dist == "config2":
+            config2 += (al,)
+    return {"max_abs_err": worst, "config2": config2}
 
 
-def kernel_timings(batch, al, al_t, dev) -> dict:
-    """Kernel, plain and library times and bounds at the main path's
-    shapes (``batch`` and its layouts ``al``/``al_t``)."""
+def config2_kernel_timings(arrays, dev) -> dict:
+    """K1 (squared loss) and K2 (its gradient and forward layouts) timed at
+    phase 7's config-2 shape, beside their plain versions and bounds; the
+    batch and layouts are phase 2's (``arrays``: ids, vals, the gradient
+    and forward device layouts)."""
+    from photon_tpu_torch.data.batch import SparseBatch
+
+    ids, vals, al, al_t = arrays
+    n, d = ids.shape[0], CONFIG2_D
+    put = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    batch = SparseBatch(ids=put(ids), vals=put(vals), label=torch.randn(n, device=dev),
+                        offset=torch.zeros(n, device=dev), weight=torch.ones(n, device=dev))
+    log(f"  at config 2's shape (n={n:,}, k={ids.shape[1]}, d={d}, squared loss):")
+    return kernel_timings(batch, al, al_t, dev, d=d, loss_name="squared")
+
+
+def kernel_timings(batch, al, al_t, dev, d: int = D, loss_name: str = "logistic") -> dict:
+    """Kernel, plain and library times and bounds at the shapes of ``batch``
+    (``d`` coefficients) and its layouts ``al``/``al_t``: the main path's,
+    or phase 7's config-2 batch."""
     from photon_tpu_torch.core.losses import get_loss
     from photon_tpu_torch.data.batch import scatter_sum
     from photon_tpu_torch.ops.fused_sparse import (
@@ -525,15 +590,15 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
     )
 
     out = {}
-    loss = get_loss("logistic")
-    w = torch.randn(D, device=dev) * 0.01
+    loss = get_loss(loss_name)
+    w = torch.randn(d, device=dev) * 0.01
     args = (loss, w, batch.ids, batch.vals, batch.label, batch.offset, batch.weight)
     n, k = batch.ids.shape
     nnz = int((batch.vals != 0).sum())
-    t_bound, by = bound(8 * n * k + 12 * n + 8 * D + 4, 4 * nnz + 20 * n)
+    t_bound, by = bound(8 * n * k + 12 * n + 8 * d + 4, 4 * nnz + 20 * n)
     saved = fused_value_and_grad.launches, row_scatter.launches
     fused_value_and_grad(*args)  # the hot set and its size, outside the timing
-    n_hot = hot_set(batch.ids, batch.vals, D).n_hot
+    n_hot = hot_set(batch.ids, batch.vals, d).n_hot
     out["fused_sparse"] = {
         "ms": cuda_ms(lambda: fused_value_and_grad(*args)),
         "plain_ms": cuda_ms(lambda: fused_value_and_grad_plain(*args)),
@@ -544,15 +609,15 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
     # and in float64.  The float32 one is the card's rate of random L2
     # atomics on uniform ids (one atomic an entry).
     r = torch.randn(n, device=dev)
-    rs_args = (r, batch.ids, batch.vals, D)
+    rs_args = (r, batch.ids, batch.vals, d)
     idx = batch.ids.view(-1).long()
     prod = (r[:, None] * batch.vals).view(-1)
     prod64 = prod.double()
-    out32 = torch.zeros(D, device=dev)
-    out64 = torch.zeros(D, dtype=torch.float64, device=dev)
+    out32 = torch.zeros(d, device=dev)
+    out64 = torch.zeros(d, dtype=torch.float64, device=dev)
     # ids and vals read once, r read once, the float32 result written once;
     # one multiply and one add an entry.
-    t_bound, by = bound(8 * n * k + 4 * n + 4 * D, 2 * nnz)
+    t_bound, by = bound(8 * n * k + 4 * n + 4 * d, 2 * nnz)
     lib32 = cuda_ms(lambda: out32.zero_().index_add_(0, idx, prod))
     out["row_scatter"] = {
         "ms": cuda_ms(lambda: row_scatter(*rs_args)),
@@ -564,7 +629,7 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
     }
     fused_value_and_grad.launches, row_scatter.launches = saved
     saved = position_partial_sums.launches
-    for direction, lay, payload in (("grad", al, N), ("forward", al_t, D)):
+    for direction, lay, payload in (("grad", al, n), ("forward", al_t, d)):
         per = torch.randn(payload, device=dev)
         pv = per.index_select(0, lay.rows.view(-1)).view(lay.rows.shape) * lay.vals
         n_tiles = int(lay.slab_of_tile.shape[0])
@@ -577,7 +642,7 @@ def kernel_timings(batch, al, al_t, dev) -> dict:
         e_pad = pv.numel()
         t_bound, by = bound(8 * e_pad + 4 * n_tiles + 4 * lay.n_slabs * 1024, e_pad)
         partial = position_partial_sums(lay.slab_of_tile, pv, lay.lo, lay.n_slabs)
-        out_dim = D if direction == "grad" else N
+        out_dim = d if direction == "grad" else n
         out[f"position_reduce[{direction}]"] = {
             # The route's other two stages, torch ops around the kernel: the
             # pv gather and the epilogue into out_dim key sums.
@@ -1857,11 +1922,51 @@ def game_op_timings(data, dev) -> dict:
     return {"bins": rows, "residuals": table}
 
 
+def game_reads(avro: str) -> dict:
+    """The Avro file read by the native decoder and by the Python reader
+    (``PHOTON_TPU_NO_NATIVE_AVRO=1``), each timed; the two held equal bit
+    for bit: labels, offsets, weights, ids, values, entity ids, index maps."""
+    from photon_tpu_torch.data import game_io
+
+    bags = {"global": "global", "per_user": "per_user"}
+    cols = ["userId", "itemId"]
+    reads = {}
+    for name, flag in (("native", None), ("python", "1")):
+        before = os.environ.pop("PHOTON_TPU_NO_NATIVE_AVRO", None)
+        if flag is not None:
+            os.environ["PHOTON_TPU_NO_NATIVE_AVRO"] = flag
+        try:
+            t0 = time.monotonic()
+            data, maps = game_io.read_game_avro(avro, bags, cols)
+            seconds = time.monotonic() - t0
+        finally:
+            os.environ.pop("PHOTON_TPU_NO_NATIVE_AVRO", None)
+            if before is not None:
+                os.environ["PHOTON_TPU_NO_NATIVE_AVRO"] = before
+        if game_io.last_reader != name:
+            raise AssertionError(f"GAME: the {name} read ran the {game_io.last_reader} reader")
+        reads[name] = (data, maps, seconds)
+    (nat, nat_maps, _), (py, py_maps, _) = reads["native"], reads["python"]
+    same = all(np.array_equal(getattr(nat, f), getattr(py, f))
+               for f in ("label", "offset", "weight"))
+    same &= all(np.array_equal(nat.id_columns[c], py.id_columns[c]) for c in cols)
+    for shard in bags:
+        same &= np.array_equal(nat.shard(shard).ids, py.shard(shard).ids)
+        same &= np.array_equal(nat.shard(shard).vals, py.shard(shard).vals)
+        same &= list(nat_maps[shard].keys()) == list(py_maps[shard].keys())
+    log(f"  Avro read: native {reads['native'][2]:.2f} s, Python {reads['python'][2]:.2f} s; "
+        f"the two bit for bit {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("GAME: the native and Python Avro reads differ")
+    return {"native_s": reads["native"][2], "python_s": reads["python"][2]}
+
+
 def run_game(dev) -> dict:
     """Phase 6: the port's ``train_game`` on config 4, on the card under
     ``fused``, ``pallas`` and ``auto`` and on the host, each run with every
     launch count set to 0 just before it and read just after; card and host
     held to each other; then the random-effect path's torch ops timed."""
+    from photon_tpu_torch.data import game_io
     from photon_tpu_torch.data.fixtures import make_movielens_like
     from photon_tpu_torch.data.game_io import write_game_avro
     from photon_tpu_torch.drivers import train_game
@@ -1897,6 +2002,7 @@ def run_game(dev) -> dict:
             f"{len(np.unique(data.id_columns['itemId']))} items; Avro write "
             f"{out['avro_write_s']:.2f} s ({out['avro_bytes'] / 2**20:.1f} MiB)")
         del data
+        out["avro_read_s"] = game_reads(avro)
         # The first run's dataset, as read from the Avro file, is kept for the
         # torch-op timings below.
         read = []
@@ -1935,6 +2041,9 @@ def run_game(dev) -> dict:
             probes = {c.__name__: c.launches for c in pk.KERNELS}
             if any(probes.values()):
                 raise AssertionError(f"GAME {name}: probe kernels launched: {probes}")
+            if game_io.last_reader != "native":
+                raise AssertionError(f"GAME {name}: the Avro file was read by the "
+                                     f"{game_io.last_reader} reader")
             model, _ = load_game_model(os.path.join(run_dir, "best_model"), device="cpu")
             fit_s = sum(v for k, v in summary["phase_times"].items()
                         if k.startswith("fit-"))
@@ -1960,7 +2069,7 @@ def run_game(dev) -> dict:
                 run["auto_probe"] = probe
             out["runs"][name] = (run, model)
             log(f"  train_game {name} ({backend}, route {route or 'auto'}): "
-                f"{wall:.2f} s, of them the Avro read (load-data) "
+                f"{wall:.2f} s, of them the native Avro read (load-data) "
                 f"{summary['phase_times']['load-data']:.2f} s "
                 f"({run['epoch_s']:.3f} s per descent iteration as "
                 f"bench.py counts it, fit {run['fit_s_per_descent_iteration']:.3f} s "
@@ -2029,6 +2138,218 @@ def run_game(dev) -> dict:
     return out
 
 
+# Phase 7: (name, PHOTON_SPARSE_GRAD, --backend, --normalization, files).
+# The card's timed runs on the full files; the host runs, and the card runs
+# held to them, on the host files.
+CONFIG2_RUNS = (
+    ("card_fused", "fused", "gpu", "none", "full"),
+    ("card_pallas_norm", "pallas", "gpu", "standardization", "full"),
+    ("card_fused_host_rows", "fused", "gpu", "none", "host"),
+    ("card_pallas_norm_host_rows", "pallas", "gpu", "standardization", "host"),
+    ("cpu_fused_host_rows", "fused", "cpu", "none", "host"),
+    ("cpu_pallas_norm_host_rows", "pallas", "cpu", "standardization", "host"),
+)
+# Card against host: the validation RMSE within 1e-4 relative, the
+# coefficients within rtol = atol = 1e-3 (phase 6's bounds); the card's and
+# the host's scores within 1e-4, their RMSE the train summary's to 1e-6.
+CONFIG2_RMSE_RTOL = 1e-4
+CONFIG2_COEF_TOL = 1e-3
+CONFIG2_SCORE_ATOL = 1e-4
+CONFIG2_SCORE_RMSE_RTOL = 1e-6
+
+
+def config2_args(files: dict, out: str, backend: str, normalization: str) -> list:
+    """The train CLI's arguments for config 2, as bench.py passes them."""
+    return [
+        "--input", files["train"], "--validation-input", files["val"],
+        "--task", "linear_regression", "--optimizer", "owlqn",
+        "--reg-type", "elastic_net", "--reg-weights", "1.0",
+        "--max-iterations", "100", "--normalization", normalization,
+        "--output-dir", out, "--backend", backend,
+    ]
+
+
+def run_config2() -> dict:
+    """Phase 7: BASELINE.json config 2 (linear regression, elastic net,
+    OWL-QN) through the train CLI's entry point, on the card under
+    ``fused`` and under ``pallas`` with standardization, and on the host;
+    then the scoring CLI on the validation file, on the card and the host.
+    Every launch count is set to 0 just before each run and read just
+    after: K1 must launch on the ``fused`` card runs, K2 and not K1 on the
+    normalized ``pallas`` ones."""
+    from photon_tpu_torch.data.synthetic import make_glm_data, write_libsvm
+    from photon_tpu_torch.drivers import score, train
+    from photon_tpu_torch.native import libsvm_native
+    from photon_tpu_torch.ops import probe_kernels as pk
+    from photon_tpu_torch.ops import vperm as vp
+    from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad, row_scatter
+    from photon_tpu_torch.ops.slab_reduce import (
+        aligned_gather_products,
+        position_partial_sums,
+    )
+
+    counters = {"fused_sparse": fused_value_and_grad, "row_scatter": row_scatter,
+                "position_reduce": position_partial_sums,
+                "vperm_chunk": vp.chunk_pass, "vperm_lane": vp.lane_pass,
+                "vperm_chunk_expand": vp.chunk_expand_pass,
+                "slab_gather": aligned_gather_products}
+    n, d = CONFIG2_ROWS, CONFIG2_D
+    n_val, n_host = n // 5, CONFIG2_HOST_ROWS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_config2_")
+    out = {"rows": n, "validation_rows": n_val, "host_rows": n_host, "dim": d,
+           "runs": {}}
+    try:
+        t0 = time.monotonic()
+        batch, _ = make_glm_data(n + n_val, d, task="linear_regression", seed=0,
+                                 device="cpu")
+        x, y = batch.x.numpy()[:, :-1], batch.label.numpy()
+        out["generate_s"] = time.monotonic() - t0
+        files = {"full": {}, "host": {}}
+        t0 = time.monotonic()
+        for kind, rows in (("train", slice(0, n)), ("val", slice(n, n + n_val))):
+            files["full"][kind] = os.path.join(tmp, f"{kind}.libsvm")
+            write_libsvm(files["full"][kind], x[rows], y[rows])
+        out["write_s"] = time.monotonic() - t0
+        for kind, rows in (("train", slice(0, n_host)),
+                           ("val", slice(n, n + n_host // 5))):
+            files["host"][kind] = os.path.join(tmp, f"{kind}_host.libsvm")
+            write_libsvm(files["host"][kind], x[rows], y[rows])
+        out["train_file_bytes"] = os.path.getsize(files["full"]["train"])
+        del batch, x, y
+        t0 = time.monotonic()
+        csr = libsvm_native.parse_file_csr(files["full"]["train"])
+        out["parse_s"] = time.monotonic() - t0
+        if csr is None or csr[2].size != n * (d - 1):
+            raise AssertionError("config 2: the native LIBSVM parse did not run")
+        del csr
+        log(f"  config 2: {n:,} + {n_val:,} rows x {d - 1} features + intercept; LIBSVM "
+            f"write {out['write_s']:.2f} s ({out['train_file_bytes'] / 2**20:.0f} MiB "
+            f"training file), native parse {out['parse_s']:.2f} s")
+        models = {}
+        for name, route, backend, norm, which in CONFIG2_RUNS:
+            run_dir = os.path.join(tmp, name)
+            env_before = os.environ.get("PHOTON_SPARSE_GRAD")
+            os.environ["PHOTON_SPARSE_GRAD"] = route
+            for c in (*counters.values(), *pk.KERNELS):
+                c.launches = 0
+            try:
+                t0 = time.monotonic()
+                summary = train.run(train.build_parser().parse_args(
+                    config2_args(files[which], run_dir, backend, norm)))
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            finally:
+                if env_before is None:
+                    os.environ.pop("PHOTON_SPARSE_GRAD", None)
+                else:
+                    os.environ["PHOTON_SPARSE_GRAD"] = env_before
+            counts = {k: c.launches for k, c in counters.items() if c.launches}
+            probes = {c.__name__: c.launches for c in pk.KERNELS if c.launches}
+            entry = summary["sweep"][0]
+            fit_s = entry["wall_time_s"]
+            run = {
+                "backend": backend, "route": route, "normalization": norm,
+                "rows": n if which == "full" else n_host, "wall_s": wall,
+                "phase_times": summary["phase_times"], "reader": summary["input_reader"],
+                "iterations": entry["iterations"], "evaluations": entry["evaluations"],
+                "host_reads": entry["host_reads"], "reason": entry["convergence_reason"],
+                "fit_s": fit_s, "steps_per_s": entry["iterations"] / fit_s,
+                "s_per_evaluation": fit_s / entry["evaluations"],
+                "final_value": entry["final_value"], "metrics": entry["metrics"],
+                "zero_coefficients": entry["zero_coefficients"], "launches": counts,
+                "device": summary["device"],
+            }
+            out["runs"][name] = run
+            log(f"  train {name} (--backend {backend}, route {route}, normalization "
+                f"{norm}, {run['rows']:,} rows): {wall:.2f} s; {run['iterations']} OWL-QN "
+                f"iterations ({run['reason']}), {run['evaluations']} evaluations, "
+                f"{run['host_reads']} host reads, fit {fit_s:.3f} s = "
+                f"{run['steps_per_s']:.2f} steps/s, {1e3 * run['s_per_evaluation']:.3f} "
+                f"ms per evaluation; {run['zero_coefficients']} exact-zero "
+                f"coefficients; validation {run['metrics']}; launches {counts}; "
+                f"{run['reader']} parser; phases "
+                f"{ {k: round(v, 3) for k, v in summary['phase_times'].items()} }")
+            if probes:
+                raise AssertionError(f"config 2 {name}: probe kernels launched: {probes}")
+            if run["reader"] != "native":
+                raise AssertionError(f"config 2 {name}: the {run['reader']} parser ran")
+            if backend == "gpu":
+                k1, k2 = counts.get("fused_sparse", 0), counts.get("position_reduce", 0)
+                if route == "fused" and not k1:
+                    raise AssertionError(f"config 2 {name}: K1 never launched")
+                if route == "pallas" and (not k2 or k1):
+                    raise AssertionError(f"config 2 {name}: K2 {k2} and K1 {k1} launches")
+            models[name] = run_dir
+        for card, host in (("card_fused_host_rows", "cpu_fused_host_rows"),
+                           ("card_pallas_norm_host_rows", "cpu_pallas_norm_host_rows")):
+            got, want = out["runs"][card], out["runs"][host]
+            rel = abs(got["metrics"]["RMSE"] - want["metrics"]["RMSE"]) / want["metrics"]["RMSE"]
+            w_card = config2_means(models[card])
+            w_host = config2_means(models[host])
+            coef = float(np.abs(w_card - w_host).max())
+            ok = rel <= CONFIG2_RMSE_RTOL and np.allclose(
+                w_card, w_host, rtol=CONFIG2_COEF_TOL, atol=CONFIG2_COEF_TOL)
+            got["vs_host"] = {"rmse_rel_diff": rel, "coefficient_max_abs_diff": coef}
+            log(f"  {card} vs {host}: RMSE relative diff {rel:.2e} (tolerance "
+                f"{CONFIG2_RMSE_RTOL:g}), coefficients max |diff| {coef:.2e} (rtol = atol = "
+                f"{CONFIG2_COEF_TOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"config 2: {card} disagrees with {host}")
+        out["score"] = score_config2(files["full"]["val"], models["card_fused"],
+                                     out["runs"]["card_fused"], counters, tmp, score)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def config2_means(run_dir: str) -> np.ndarray:
+    """A run's saved model's means, in feature-index order."""
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.data.model_io import load_glm_model
+
+    imap = IndexMap.load(os.path.join(run_dir, "feature_index.json"))
+    model = load_glm_model(os.path.join(run_dir, "best_model.avro"), imap, device="cpu")
+    return model.coefficients.means.numpy()
+
+
+def score_config2(val: str, model_dir: str, train_run: dict, counters: dict,
+                  tmp: str, score) -> dict:
+    """The scoring CLI's entry point on the validation file with the card
+    ``fused`` run's model, on the card and on the host: the scores within
+    CONFIG2_SCORE_ATOL of each other, each RMSE the train summary's."""
+    out = {}
+    scores = {}
+    for backend in ("gpu", "cpu"):
+        for c in counters.values():
+            c.launches = 0
+        score_dir = os.path.join(tmp, f"score_{backend}")
+        t0 = time.monotonic()
+        res = score.run(score.build_parser().parse_args([
+            "--input", val, "--model", os.path.join(model_dir, "best_model.avro"),
+            "--evaluators", "RMSE", "--output-dir", score_dir, "--backend", backend]))
+        wall = time.monotonic() - t0
+        scores[backend] = np.loadtxt(os.path.join(score_dir, "scores.txt"))
+        rmse = res["metrics"]["RMSE"]
+        rel = abs(rmse - train_run["metrics"]["RMSE"]) / train_run["metrics"]["RMSE"]
+        out[backend] = {"wall_s": wall, "rows": res["num_scored"], "rmse": rmse,
+                        "rmse_rel_diff_vs_train": rel, "reader": res["input_reader"],
+                        "phase_times": res["phase_times"],
+                        "launches": {k: c.launches for k, c in counters.items()
+                                     if c.launches}}
+        log(f"  score --backend {backend}: {res['num_scored']:,} rows in {wall:.2f} s, "
+            f"RMSE {rmse:.7f} (train summary {train_run['metrics']['RMSE']:.7f}, "
+            f"relative diff {rel:.2e}, tolerance {CONFIG2_SCORE_RMSE_RTOL:g}), "
+            f"{res['input_reader']} parser")
+        if rel > CONFIG2_SCORE_RMSE_RTOL or res["input_reader"] != "native":
+            raise AssertionError(f"config 2 score ({backend}) disagrees with training")
+    diff = float(np.abs(scores["gpu"] - scores["cpu"]).max())
+    out["score_max_abs_diff"] = diff
+    log(f"  scores card vs host: max |diff| {diff:.2e} (tolerance {CONFIG2_SCORE_ATOL:g})")
+    if not diff <= CONFIG2_SCORE_ATOL:
+        raise AssertionError("config 2: card and host scores differ")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2053,14 +2374,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
     if native_build.get_lib() is None:
-        raise RuntimeError(f"the host router did not build: {native_build.build_error()}")
-    log(f"  built the host router ({native_build.lib_path()}) in "
+        raise RuntimeError(f"the host library did not build: {native_build.build_error()}")
+    log(f"  built the host library ({[os.path.basename(p) for p in native_build.sources()]}: "
+        f"the router, the LIBSVM parser, the Avro decoder; {native_build.lib_path()}) in "
         f"{native_build.build_seconds:.2f} s")
 
     log("phase 2: kernels against their plain versions")
     k1 = check_fused_kernel(dev)
     krs = check_row_scatter(dev)
     k2 = check_position_kernel(dev)
+    k_config2 = config2_kernel_timings(k2.pop("config2"), dev)
     log(f"  the main path's layouts and exchange routes, n={N}, k={K}, d={D}:")
     prepared = prepare_batches(dev)
     kv = check_vperm_kernels(prepared, dev)
@@ -2092,6 +2415,13 @@ def main() -> int:
     game["seconds"] = time.monotonic() - t6
     log(f"  phase 6 took {game['seconds']:.1f} s")
 
+    t7 = time.monotonic()
+    log("phase 7: BASELINE.json config 2 (linear elastic net, OWL-QN) through the "
+        "train and score CLIs")
+    config2 = run_config2()
+    config2["seconds"] = time.monotonic() - t7
+    log(f"  phase 7 took {config2['seconds']:.1f} s")
+
     timings = main_path["timings"]["uniform"]
     zipf = main_path["timings"]["zipf"]
     grad_row = timings["position_reduce[grad]"]
@@ -2108,6 +2438,9 @@ def main() -> int:
             "zipf": zipf["fused_sparse"], "n_hot": timings["fused_sparse"]["n_hot"],
             "game_launches": {name: run["launches"].get("fused_sparse", 0)
                               for name, run in game["runs"].items()},
+            "config2_launches": {name: run["launches"].get("fused_sparse", 0)
+                                 for name, run in config2["runs"].items()},
+            "config2": k_config2["fused_sparse"],
             "card": card,
         },
         {
@@ -2136,6 +2469,10 @@ def main() -> int:
                      "forward": zipf["position_reduce[forward]"]},
             "game_launches": {name: run["launches"].get("position_reduce", 0)
                               for name, run in game["runs"].items()},
+            "config2_launches": {name: run["launches"].get("position_reduce", 0)
+                                 for name, run in config2["runs"].items()},
+            "config2": {"grad": k_config2["position_reduce[grad]"],
+                        "forward": k_config2["position_reduce[forward]"]},
         },
     ]
     for name, replaces in (("vperm_chunk", "photon_tpu/ops/vperm.py:309"),
@@ -2191,6 +2528,8 @@ def main() -> int:
     log(f"TRON runs: {json.dumps(main_path['tron'])}")
     log(f"GAME runs: {json.dumps({k: {f: v for f, v in r.items() if f != 'history'} for k, r in game['runs'].items()}, default=str)}")
     log(f"GAME ops: {json.dumps(game['ops'])}")
+    log(f"GAME Avro reads: {json.dumps(game['avro_read_s'])}")
+    log(f"config 2: {json.dumps(config2, default=str)}")
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

@@ -1,8 +1,8 @@
 """GLM objective: weighted loss plus L2, with its gradient and its
-second-order terms.
+second-order terms, optionally under feature normalization.
 
-Counterpart of ``photon_tpu/core/objective.py`` for unnormalized objectives.
-``value_and_grad`` dispatches a sparse batch to one of the routes of
+Counterpart of ``photon_tpu/core/objective.py``.  ``value_and_grad``
+dispatches a sparse batch to one of the routes of
 ``ops/sparse_grad_select.py`` — the fused kernel, the slab position-reduce
 (with or without the static exchange or the Clos exchange of ``benes``), or
 the torch-op ``fm`` / ``autodiff`` reductions — and adds the L2 term
@@ -10,8 +10,15 @@ analytically.  No route differentiates through a kernel: each returns the
 value and the gradient explicitly, and the Hessian-vector product is the
 exact GLM form ``X^T (D(w) * (X v)) + l2 v`` with ``D = weight * d2`` at
 the margins, its two matvecs through the route's forward and reduce.  L1
-never enters the smooth objective.  Normalized objectives wait with
-``core/normalization.py`` (ROADMAP.md queue 1, item 2).
+never enters the smooth objective.
+
+Under a :class:`~photon_tpu_torch.core.normalization.NormalizationContext`
+the matvecs become those of the normalized features ``F (x - s)``: the
+forward ``X (F u) - (s F) . u``, the reduce ``F (X^T r - s sum(r))``, so a
+sparse batch stays sparse.  The fused kernel computes unnormalized margins
+only, so a normalized objective on the ``fused`` route takes the plain
+``autodiff`` reductions, as the reference gates its fused kernel on
+``normalization is None``.
 """
 
 from __future__ import annotations
@@ -22,13 +29,13 @@ from typing import Optional
 import torch
 
 from photon_tpu_torch.core.losses import PointwiseLoss, get_loss
+from photon_tpu_torch.core.normalization import NormalizationContext
 from photon_tpu_torch.data.batch import (
     Batch,
     DenseBatch,
     FeatureMajorAux,
     SparseBatch,
     gather_dot,
-    margins,
     scatter_sum,
 )
 
@@ -76,7 +83,9 @@ NO_REG = RegularizationContext()
 
 @dataclasses.dataclass(frozen=True)
 class GlmObjective:
-    """``sum_i weight_i * loss(margin_i, y_i) + (l2/2) ||w||^2``.
+    """``sum_i weight_i * loss(margin_i, y_i) + (l2/2) ||w||^2``, with the
+    margins of the normalized features when ``normalization`` is set (the
+    coefficients then live in the normalized space).
 
     ``l1_weight`` is carried for OWL-QN but never enters the smooth value
     or gradient.
@@ -85,24 +94,27 @@ class GlmObjective:
     loss: PointwiseLoss
     l2_weight: float = 0.0
     l1_weight: float = 0.0
+    normalization: Optional[NormalizationContext] = None
 
     @classmethod
     def create(
         cls, loss: str | PointwiseLoss, reg: RegularizationContext = NO_REG,
-        normalization=None,
+        normalization: Optional[NormalizationContext] = None,
     ) -> "GlmObjective":
-        if normalization is not None:
-            raise NotImplementedError(
-                "normalized objectives wait with core/normalization.py in "
-                "ROADMAP.md queue 1, item 2"
-            )
         if isinstance(loss, str):
             loss = get_loss(loss)
-        return cls(loss=loss, l2_weight=reg.l2_weight, l1_weight=reg.l1_weight)
+        return cls(loss=loss, l2_weight=reg.l2_weight, l1_weight=reg.l1_weight,
+                   normalization=normalization)
 
     # -- value -----------------------------------------------------------------
+    def _margins(self, w: Tensor, batch: Batch) -> Tensor:
+        """Margins through the row-major gather (or ``x @ w``)."""
+        xu, _ = self._normalized(*_plain_matvecs(batch, w.shape[0]),
+                                 w.shape[0], w.device)
+        return xu(w) + batch.offset
+
     def data_value(self, w: Tensor, batch: Batch) -> Tensor:
-        z = margins(w, batch)
+        z = self._margins(w, batch)
         return torch.sum(batch.weight * self.loss.value(z, batch.label))
 
     def value(self, w: Tensor, batch: Batch) -> Tensor:
@@ -114,14 +126,16 @@ class GlmObjective:
     # -- route dispatch --------------------------------------------------------
     def _sparse_kernel(self, batch: Batch, dim: int) -> Optional[str]:
         """The route for this batch and ``dim`` coefficients (``None`` for a
-        dense batch); in ``auto`` measured on the batch's device."""
+        dense batch); in ``auto`` measured on the batch's device.  Under
+        normalization ``fused`` becomes ``autodiff``: the kernel's margins
+        are unnormalized."""
         if not isinstance(batch, SparseBatch):
             return None
         from photon_tpu_torch.ops.sparse_grad_select import select_kernel
 
         n, k = batch.ids.shape
         has_xchg = batch.xchg is not None and batch.al is not None
-        return select_kernel(
+        kernel = select_kernel(
             n * k, dim, n,
             has_fm=batch.fm is not None, has_aligned=batch.al is not None,
             has_benes=batch.benes is not None and batch.al is not None,
@@ -132,6 +146,9 @@ class GlmObjective:
             xchg_baked=has_xchg and batch.xchg.vals_dest is not None,
             device=batch.ids.device,
         )
+        if kernel == "fused" and self.normalization is not None:
+            return "autodiff"
+        return kernel
 
     def _xu_product(self, kernel: str, u: Tensor, batch: SparseBatch) -> Tensor:
         """Per-row ``X u`` (no offset), the one forward of margins and of
@@ -150,7 +167,8 @@ class GlmObjective:
         return gather_dot(u, batch.ids, batch.vals)
 
     def _margins_for_kernel(self, kernel: str, w: Tensor, batch: SparseBatch) -> Tensor:
-        return self._xu_product(kernel, w, batch) + batch.offset
+        xu, _ = self._matvecs(kernel, batch, w.shape[0])
+        return xu(w) + batch.offset
 
     def _segment_grad(
         self, kernel: str, per_row: Tensor, batch: SparseBatch, dim: int
@@ -178,16 +196,53 @@ class GlmObjective:
         scatter = row_scatter if kernel == "fused" else row_scatter_plain
         return scatter(per_row, batch.ids, batch.vals, dim)
 
+    def _normalized(self, xu, xtu, dim: int, device):
+        """The matvecs of the normalized features ``F (x - s)`` built on the
+        raw ones: ``u -> X (F u) - (s F) . u`` and ``r -> F (X^T r - s sum(r))``
+        (the reference's margin identity and gradient algebra)."""
+        norm = self.normalization
+        if norm is None:
+            return xu, xtu
+        f = norm.factors_or_ones(dim, device)
+        s = norm.shifts
+
+        def nxu(u: Tensor) -> Tensor:
+            u_eff = u * f
+            out = xu(u_eff)
+            return out if s is None else out - torch.dot(s, u_eff)
+
+        def nxtu(r: Tensor) -> Tensor:
+            g = xtu(r)
+            if s is not None:
+                g = g - s * torch.sum(r)
+            return g * f
+
+        return nxu, nxtu
+
+    def _matvecs(self, kernel: Optional[str], batch: Batch, dim: int):
+        """``(u -> X u, r -> X^T r)`` on the batch's route, normalized when
+        the objective is.  ``fused`` and ``autodiff`` take the row-major
+        gather and the row scatter, as the JAX package does for a batch
+        without a static layout: K1 fuses value and gradient only, and
+        ``fused`` scatters through the row scatter kernel."""
+        if kernel is None:
+            xu, xtu = _plain_matvecs(batch, dim)
+        else:
+            xu = lambda u: self._xu_product(kernel, u, batch)  # noqa: E731
+            xtu = lambda r: self._segment_grad(kernel, r, batch, dim)  # noqa: E731
+        return self._normalized(xu, xtu, dim, batch.label.device)
+
     def _fast_data_value_and_grad(
-        self, w: Tensor, batch: SparseBatch, kernel: str
+        self, w: Tensor, batch: Batch, kernel: Optional[str]
     ) -> tuple[Tensor, Tensor]:
-        """Data term (no regularization) of value and gradient via a route
-        that reduces through a layout (``pallas``, ``xchg``, ``fm``,
-        ``autodiff``)."""
-        z = self._margins_for_kernel(kernel, w, batch)
+        """Data term (no regularization) of value and gradient through the
+        route's matvecs (``pallas``, ``xchg``, ``benes``, ``fm``,
+        ``autodiff``; ``None`` for a dense batch)."""
+        xu, xtu = self._matvecs(kernel, batch, w.shape[0])
+        z = xu(w) + batch.offset
         v = torch.sum(batch.weight * self.loss.value(z, batch.label))
         dz = batch.weight * self.loss.d1(z, batch.label)
-        return v, self._segment_grad(kernel, dz, batch, w.shape[0])
+        return v, xtu(dz)
 
     def value_and_grad(self, w: Tensor, batch: Batch) -> tuple[Tensor, Tensor]:
         kernel = self._sparse_kernel(batch, w.shape[0])
@@ -198,12 +253,8 @@ class GlmObjective:
                 self.loss, w, batch.ids, batch.vals,
                 batch.label, batch.offset, batch.weight,
             )
-        elif kernel is not None:
-            v, g = self._fast_data_value_and_grad(w, batch, kernel)
         else:
-            z = margins(w, batch)
-            v = torch.sum(batch.weight * self.loss.value(z, batch.label))
-            g = batch.x.T @ (batch.weight * self.loss.d1(z, batch.label))
+            v, g = self._fast_data_value_and_grad(w, batch, kernel)
         if self.l2_weight != 0.0:
             v = v + 0.5 * self.l2_weight * torch.dot(w, w)
             g = g + self.l2_weight * w
@@ -213,48 +264,23 @@ class GlmObjective:
         return self.value_and_grad(w, batch)[1]
 
     # -- second order ----------------------------------------------------------
-    def _curvature(self, kernel: Optional[str], w: Tensor, batch: Batch) -> Tensor:
+    def _curvature(self, xu, w: Tensor, batch: Batch) -> Tensor:
         """Per-row curvature ``D(w) = weight * d2(margins)``."""
-        z = (margins(w, batch) if kernel is None
-             else self._margins_for_kernel(kernel, w, batch))
-        return batch.weight * self.loss.d2(z, batch.label)
-
-    def _matvecs(self, kernel: Optional[str], batch: Batch, dim: int):
-        """``(u -> X u, r -> X^T r)`` on the batch's route.  ``fused`` and
-        ``autodiff`` take the row-major gather and the row scatter, as the
-        JAX package does for a batch without a static layout: K1 fuses
-        value and gradient only, and ``fused`` scatters through the row
-        scatter kernel."""
-        if kernel is None:
-            return (lambda u: batch.x @ u), (lambda r: batch.x.T @ r)
-        return (
-            lambda u: self._xu_product(kernel, u, batch),
-            lambda r: self._segment_grad(kernel, r, batch, dim),
-        )
-
-    def _fast_data_hessian_vector(
-        self, w: Tensor, v: Tensor, batch: Batch, kernel: Optional[str]
-    ) -> Tensor:
-        """Data term of ``H v = X^T diag(weight * d2) X v``: exact for GLMs
-        (margins are linear in w); both matvecs through the route."""
-        xu, xtu = self._matvecs(kernel, batch, w.shape[0])
-        return xtu(self._curvature(kernel, w, batch) * xu(v))
+        return batch.weight * self.loss.d2(xu(w) + batch.offset, batch.label)
 
     def hessian_vector(self, w: Tensor, v: Tensor, batch: Batch) -> Tensor:
         """One exact Hessian-vector product ``H(w) v``."""
-        hv = self._fast_data_hessian_vector(
-            w, v, batch, self._sparse_kernel(batch, w.shape[0]))
-        if self.l2_weight != 0.0:
-            hv = hv + self.l2_weight * v
-        return hv
+        return self.hvp_operator(w, batch)(v)
 
     def hvp_operator(self, w: Tensor, batch: Batch):
         """The curvature operator at ``w``: ``D(w)`` is computed once (one
         margin pass) and the returned ``v -> X^T (D * (X v)) + l2 v`` costs
-        two matvecs per product — the inner loop of TRON and Newton-CG."""
-        kernel = self._sparse_kernel(batch, w.shape[0])
-        xu, xtu = self._matvecs(kernel, batch, w.shape[0])
-        d2w = self._curvature(kernel, w, batch)
+        two matvecs per product — the inner loop of TRON and Newton-CG.
+        Under normalization both matvecs are the normalized ones, which
+        equals the reference's jvp of the normalized gradient."""
+        xu, xtu = self._matvecs(self._sparse_kernel(batch, w.shape[0]), batch,
+                                w.shape[0])
+        d2w = self._curvature(xu, w, batch)
         l2 = self.l2_weight
 
         def hv(v: Tensor) -> Tensor:
@@ -268,23 +294,40 @@ class GlmObjective:
         should hold :meth:`hvp_operator` instead."""
         return self.hvp_operator(w, batch)(v)
 
+    def _row_sums(self, per_row: Tensor, batch: Batch, dim: int,
+                  square: bool) -> Tensor:
+        """``sum_i per_row_i * x_ij`` (``x_ij^2`` with ``square``) per
+        feature, without densifying a sparse batch."""
+        if isinstance(batch, DenseBatch):
+            x = batch.x * batch.x if square else batch.x
+            return x.T @ per_row
+        vals = batch.vals * batch.vals if square else batch.vals
+        return scatter_sum(batch.ids.reshape(-1),
+                           (per_row[:, None] * vals).reshape(-1), dim)
+
     def hessian_diagonal(self, w: Tensor, batch: Batch) -> Tensor:
         """``diag(H) = sum_i weight_i * d2_i * x_ij^2 + l2``, the SIMPLE
-        variance's input and Newton-CG's Jacobi preconditioner."""
-        d2w = self.loss.d2(margins(w, batch), batch.label) * batch.weight
-        if isinstance(batch, DenseBatch):
-            diag = (batch.x * batch.x).T @ d2w
-        else:
-            diag = scatter_sum(
-                batch.ids.reshape(-1),
-                (d2w[:, None] * batch.vals * batch.vals).reshape(-1), w.shape[0],
-            )
+        variance's input and Newton-CG's Jacobi preconditioner.  Under
+        normalization ``f_j^2 (A_j - 2 s_j B_j + s_j^2 C)`` with ``A`` the
+        raw diagonal, ``B = X^T d2w`` and ``C = sum d2w``."""
+        d = w.shape[0]
+        d2w = self.loss.d2(self._margins(w, batch), batch.label) * batch.weight
+        diag = self._row_sums(d2w, batch, d, square=True)
+        norm = self.normalization
+        if norm is not None:
+            if norm.shifts is not None:
+                s = norm.shifts
+                b = self._row_sums(d2w, batch, d, square=False)
+                diag = diag - 2.0 * s * b + s * s * torch.sum(d2w)
+            f = norm.factors_or_ones(d, w.device)
+            diag = diag * f * f
         return diag + self.l2_weight
 
     def hessian_matrix(self, w: Tensor, batch: Batch) -> Tensor:
         """The full Hessian ``X^T diag(weight * d2) X + l2 I`` (``[d, d]``;
-        the FULL variance's input up to its dense limit)."""
-        d2w = self.loss.d2(margins(w, batch), batch.label) * batch.weight
+        the FULL variance's input up to its dense limit).  Under
+        normalization ``F (A - B s^T - s B^T + C s s^T) F``."""
+        d2w = self.loss.d2(self._margins(w, batch), batch.label) * batch.weight
         d = w.shape[0]
         if isinstance(batch, DenseBatch):
             h = batch.x.T @ (d2w[:, None] * batch.x)
@@ -293,4 +336,24 @@ class GlmObjective:
             ids = batch.ids.long()
             flat = (ids[:, :, None] * d + ids[:, None, :]).reshape(-1)
             h = scatter_sum(flat, c.reshape(-1), d * d).view(d, d)
+        norm = self.normalization
+        if norm is not None:
+            if norm.shifts is not None:
+                s = norm.shifts
+                b = self._row_sums(d2w, batch, d, square=False)
+                h = (h - b[:, None] * s[None, :] - s[:, None] * b[None, :]
+                     + torch.sum(d2w) * s[:, None] * s[None, :])
+            f = norm.factors_or_ones(d, w.device)
+            h = h * f[:, None] * f[None, :]
         return h + self.l2_weight * torch.eye(d, dtype=w.dtype, device=w.device)
+
+
+def _plain_matvecs(batch: Batch, dim: int):
+    """``(u -> X u, r -> X^T r)`` without a static layout: the dense
+    products, or the row-major gather and the plain row scatter."""
+    if isinstance(batch, DenseBatch):
+        return (lambda u: batch.x @ u), (lambda r: batch.x.T @ r)
+    from photon_tpu_torch.ops.fused_sparse import row_scatter_plain
+
+    return ((lambda u: gather_dot(u, batch.ids, batch.vals)),
+            (lambda r: row_scatter_plain(r, batch.ids, batch.vals, dim)))

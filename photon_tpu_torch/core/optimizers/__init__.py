@@ -1,6 +1,6 @@
-"""Optimizers of the port: L-BFGS, TRON and Newton-CG, and the damped
-Newton batched over lanes that solves GAME's random-effect entities
-(``newton``).  OWL-QN waits in ROADMAP.md queue 1, item 3."""
+"""Optimizers of the port: L-BFGS, OWL-QN (L1 and the elastic net), TRON
+and Newton-CG, and the damped Newton batched over lanes that solves GAME's
+random-effect entities (``newton``)."""
 
 from photon_tpu_torch.core.optimizers.base import (
     ConvergenceReason,
@@ -10,6 +10,7 @@ from photon_tpu_torch.core.optimizers.base import (
 )
 from photon_tpu_torch.core.optimizers.lbfgs import lbfgs
 from photon_tpu_torch.core.optimizers.newton_cg import newton_cg
+from photon_tpu_torch.core.optimizers.owlqn import owlqn
 from photon_tpu_torch.core.optimizers.tron import tron
 
 __all__ = [
@@ -19,5 +20,6 @@ __all__ = [
     "OptimizerResult",
     "lbfgs",
     "newton_cg",
+    "owlqn",
     "tron",
 ]

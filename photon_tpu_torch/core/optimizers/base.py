@@ -60,7 +60,8 @@ class OptimizerResult(NamedTuple):
     in ``history_valid`` are unused).  ``cg_iterations`` is the total inner
     CG work of the solvers that have an inner loop (TRON, Newton-CG), None
     elsewhere; ``host_reads`` counts the device-to-host reads the loop
-    made to take its decisions."""
+    made to take its decisions; ``evaluations`` the calls of ``fun`` (L-BFGS
+    and OWL-QN count them)."""
 
     w: torch.Tensor
     value: float
@@ -73,6 +74,7 @@ class OptimizerResult(NamedTuple):
     history_valid: np.ndarray
     cg_iterations: Optional[int] = None
     host_reads: Optional[int] = None
+    evaluations: Optional[int] = None
 
 
 class OptimizationStatesTracker:

@@ -86,7 +86,7 @@ def lbfgs(
     w = w0
     f, g = fun(w)
     f_h, gnorm0 = torch.stack([f, torch.linalg.vector_norm(g)]).tolist()
-    reads = 1
+    reads = evaluations = 1
     gnorm_h = gnorm0
     hv[0], hg[0], hvalid[0] = f_h, gnorm0, True
     hist = _History(config.history_length, w0)
@@ -127,6 +127,7 @@ def lbfgs(
             w_t, f_t, g_t, s, y, packed = trial(t)
             halvings += 1
         reads += 1 + halvings
+        evaluations += 1 + halvings
         f_new, ok, sy, yy, gnorm_new = packed
         ok = bool(ok)
         if ok and sy > _PAIR_EPS:  # cautious update: positive curvature only
@@ -163,11 +164,12 @@ def lbfgs(
             torch.linalg.vector_norm(g_p),
         ]).tolist()
         reads += 1
+        evaluations += 1
         if np.isfinite(f_ph) and g_finite and gnorm_p <= gnorm_h:
             w, f, g, f_h, gnorm_h = w_p, f_p, g_p, f_ph, gnorm_p
     return OptimizerResult(
         w=w, value=f_h, grad_norm=gnorm_h, iterations=it,
         converged=reason_is_converged(reason), reason=reason,
         history_value=hv, history_grad_norm=hg, history_valid=hvalid,
-        host_reads=reads,
+        host_reads=reads, evaluations=evaluations,
     )

@@ -1,10 +1,13 @@
 """Optimization problem: objective + optimizer + variances, bound together.
 
-Counterpart of ``photon_tpu/core/problem.py`` for the L-BFGS, TRON and
-Newton-CG fits and the SIMPLE and FULL coefficient variances.  OWL-QN (and
-with it L1 and the elastic net) raises ``NotImplementedError``: it waits in
-ROADMAP.md queue 1, item 3.  The reference's jitted solver cache has no
-counterpart: every fit runs eagerly.
+Counterpart of ``photon_tpu/core/problem.py`` for the L-BFGS, OWL-QN, TRON
+and Newton-CG fits and the SIMPLE and FULL coefficient variances.  L1 and
+the elastic net need OWL-QN, as in the reference.  Under a normalized
+objective the optimizer works in the normalized space; ``run`` returns the
+coefficients and variances in the original space (the conversion the
+reference's driver and fixed-effect coordinate make) and the optimizer's
+result, whose ``w`` stays in the normalized space for warm starts.  The
+reference's jitted solver cache has no counterpart: every fit runs eagerly.
 """
 
 from __future__ import annotations
@@ -20,23 +23,20 @@ from photon_tpu_torch.core.optimizers import (
     OptimizerResult,
     lbfgs,
     newton_cg,
+    owlqn,
     tron,
 )
 from photon_tpu_torch.data.batch import Batch
 from photon_tpu_torch.models.glm import Coefficients
 
-_QUEUE = "ROADMAP.md queue 1, item 3 (optimizers)"
-OPTIMIZERS = ("lbfgs", "tron", "newton_cg")
+OPTIMIZERS = ("lbfgs", "owlqn", "tron", "newton_cg")
 VARIANCE_TYPES = ("none", "simple", "full")
 
 
 def _optimizer_name(name: str) -> str:
     name = name.lower()
-    name = {"l-bfgs": "lbfgs", "newton-cg": "newton_cg"}.get(name, name)
-    if name in ("owlqn", "owl-qn"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet; it waits in {_QUEUE}"
-        )
+    name = {"l-bfgs": "lbfgs", "owl-qn": "owlqn",
+            "newton-cg": "newton_cg"}.get(name, name)
     if name not in OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}; available: {', '.join(OPTIMIZERS)}")
     return name
@@ -53,15 +53,15 @@ class ProblemConfig:
     variance_computation: str = "none"
 
     def __post_init__(self):
-        _optimizer_name(self.optimizer)
+        optimizer = _optimizer_name(self.optimizer)
         if self.variance_computation not in VARIANCE_TYPES:
             raise ValueError(
                 f"unknown variance computation {self.variance_computation!r}"
             )
-        if self.regularization.l1_weight > 0:
+        if self.regularization.l1_weight > 0 and optimizer != "owlqn":
             raise ValueError(
-                "L1/elastic-net regularization requires the OWL-QN optimizer, "
-                f"which waits in {_QUEUE}"
+                "L1/elastic-net regularization requires the OWL-QN optimizer "
+                "(the reference enforces the same pairing)"
             )
 
 
@@ -78,7 +78,9 @@ def _run_fit(objective: GlmObjective, batch: Batch, w0: torch.Tensor,
     def fun(w):
         return objective.value_and_grad(w, batch)
 
-    if optimizer == "tron":
+    if optimizer == "owlqn":
+        result = owlqn(fun, w0, cfg, l1_weight=objective.l1_weight)
+    elif optimizer == "tron":
         result = tron(fun, w0, cfg, hvp_at=hvp_at_for(objective, batch))
     elif optimizer == "newton_cg":
         result = newton_cg(
@@ -87,8 +89,13 @@ def _run_fit(objective: GlmObjective, batch: Batch, w0: torch.Tensor,
         )
     else:
         result = lbfgs(fun, w0, cfg)
-    variances = _compute_variances(objective, variance, result.w, batch)
-    return Coefficients(means=result.w, variances=variances), result
+    means = result.w
+    variances = _compute_variances(objective, variance, means, batch)
+    norm = objective.normalization
+    if norm is not None:
+        means = norm.model_to_original_space(means)
+        variances = norm.variances_to_original_space(variances)
+    return Coefficients(means=means, variances=variances), result
 
 
 def _compute_variances(objective: GlmObjective, kind: str, w: torch.Tensor,
@@ -118,7 +125,8 @@ def _compute_variances(objective: GlmObjective, kind: str, w: torch.Tensor,
 
 class GlmOptimizationProblem:
     """Runs one GLM fit: ``run(batch, w0) -> (Coefficients, OptimizerResult)``
-    on the batch's device."""
+    on the batch's device.  ``w0`` and ``result.w`` are in the optimizer's
+    (normalized) space, the coefficients in the original one."""
 
     def __init__(self, objective: GlmObjective, config: ProblemConfig):
         self.objective = objective

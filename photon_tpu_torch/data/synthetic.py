@@ -1,14 +1,85 @@
-"""Seeded synthetic GAME data for tests, drivers and the on-card smoke run.
+"""Seeded synthetic GLM and GAME data for tests, drivers and the on-card
+smoke run.
 
-A numpy copy of ``make_game_data`` and ``make_game_dataset`` from
-``photon_tpu/data/synthetic.py``: with the same arguments they return the
-reference's arrays bit for bit (``tests/test_torch_game.py``).  They feed
-the GAME driver's ``synthetic-game:`` input.
+A numpy copy of ``make_glm_data``, ``write_libsvm``, ``make_game_data`` and
+``make_game_dataset`` from ``photon_tpu/data/synthetic.py``: with the same
+arguments they return the reference's arrays bit for bit and write its bytes
+(``tests/test_torch_game.py``, ``tests/test_torch_native_io.py``).  They
+feed the drivers' ``synthetic:`` and ``synthetic-game:`` inputs.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def make_glm_data(
+    n: int,
+    dim: int,
+    task: str = "logistic_regression",
+    seed: int = 0,
+    noise: float = 0.1,
+    intercept: bool = True,
+    density: float = 1.0,
+    weight_seed: int | None = None,
+    device=None,
+):
+    """Synthetic GLM data with known true weights: ``(DenseBatch, w_true)``
+    on ``device`` (``cuda`` by default).
+
+    With ``intercept=True`` the final feature column is constant 1.
+    ``weight_seed`` fixes the true weights independently of ``seed`` so a
+    training and a validation draw can share a model."""
+    from photon_tpu_torch.data.batch import dense_batch
+
+    rng = np.random.default_rng(seed)
+    d_raw = dim - 1 if intercept else dim
+    x = rng.normal(size=(n, d_raw)).astype(np.float32)
+    if density < 1.0:
+        x *= rng.random((n, d_raw)) < density
+    if intercept:
+        x = np.concatenate([x, np.ones((n, 1), np.float32)], axis=1)
+    w_rng = rng if weight_seed is None else np.random.default_rng(weight_seed)
+    w_true = (w_rng.normal(size=dim) * 0.5).astype(np.float32)
+    z = x @ w_true
+    if task == "logistic_regression":
+        p = 1.0 / (1.0 + np.exp(-z))
+        y = (rng.random(n) < p).astype(np.float32)
+    elif task == "linear_regression":
+        y = (z + noise * rng.normal(size=n)).astype(np.float32)
+    elif task == "poisson_regression":
+        y = rng.poisson(np.exp(np.clip(z, -8, 8))).astype(np.float32)
+    elif task == "smoothed_hinge_loss_linear_svm":
+        y = (z + noise * rng.normal(size=n) > 0).astype(np.float32)
+    else:
+        raise KeyError(f"unknown task {task!r}")
+    return dense_batch(x, y, device=device), w_true
+
+
+def write_libsvm(path: str, batch_x: np.ndarray, labels: np.ndarray) -> None:
+    """Write a dense matrix as LIBSVM text (1-based ids, zeros skipped),
+    byte for byte as the reference's writer does: a label in {-1, 0, 1} as
+    an integer, any other as numpy prints it, each value ``%.6g``.  A row's
+    values are formatted by one ``%`` over its tuple (a dense row reuses
+    one format string), not one f-string per entry."""
+    x = np.asarray(batch_x)
+    dense_fmt = None
+    with open(path, "w") as f:
+        for i in range(x.shape[0]):
+            row = x[i]
+            label = labels[i]
+            head = f"{int(label) if label in (0, 1, -1) else label}"
+            nz = np.flatnonzero(row)
+            if not len(nz):
+                f.write(head + "\n")
+                continue
+            if len(nz) == x.shape[1]:
+                if dense_fmt is None:
+                    dense_fmt = " ".join(f"{j + 1}:%.6g" for j in range(x.shape[1]))
+                fmt = dense_fmt
+            else:
+                fmt = " ".join(f"{j + 1}:%.6g" for j in nz.tolist())
+            f.write(head + " " + fmt % tuple(row[nz].tolist()) + "\n")
 
 
 def make_game_data(

@@ -1,9 +1,13 @@
 """Shared driver plumbing: device choice, data loading, sweep selection.
 
 Counterpart of the parts of ``photon_tpu/drivers/common.py`` that the GLM
-training driver's resident path uses.  ``--backend gpu`` (the default) runs
-on the card and fails where there is none; ``--backend cpu`` runs on the
-host.
+drivers' resident paths use.  ``--backend gpu`` (the default) runs on the
+card and fails where there is none; ``--backend cpu`` runs on the host.
+Inputs: a LIBSVM file (the native parser when the host library builds),
+an Avro file or directory of ``TrainingExampleAvro`` records (the native
+columnar decoder, ``data/game_io.py``), or
+``synthetic:<task>:<n>:<dim>[:seed[:weight_seed]]`` (a dense batch from
+``data/synthetic.make_glm_data``).
 """
 
 from __future__ import annotations
@@ -63,22 +67,71 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
 
 def add_data_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--input", required=True,
-                        help="training data: a LIBSVM file (Avro and "
-                        "synthetic inputs wait in ROADMAP.md queue 1)")
+                        help="a LIBSVM file, an Avro file or directory, or "
+                        "synthetic:<task>:<n>:<dim>[:seed[:weight_seed]]")
     parser.add_argument("--validation-input", default=None,
-                        help="validation data (LIBSVM)")
+                        help="validation data, in any --input form")
     parser.add_argument("--intercept", action=argparse.BooleanOptionalAction,
                         default=True)
+    parser.add_argument("--avro-feature-field", default="features",
+                        help="the Avro record field holding the feature bag")
 
 
 def device_for_backend(backend: str):
     return resolve_device("cuda" if backend == "gpu" else "cpu")
 
 
-def load_dataset(spec: str, intercept: bool, task: str, device):
-    """``(batch, dim, index_map)`` from a LIBSVM file; {-1, +1} labels map
-    to {0, 1} for binary tasks only."""
+def _is_avro_input(spec: str) -> bool:
+    from photon_tpu_torch.data.game_io import is_avro_dir
+
+    return spec.endswith(".avro") or is_avro_dir(spec)
+
+
+def input_reader(spec: str) -> str:
+    """Which reader loaded ``spec`` last: ``native`` or ``python`` for a
+    LIBSVM or Avro file, ``synthetic`` for a generated batch."""
+    if spec.startswith("synthetic:"):
+        return "synthetic"
+    if _is_avro_input(spec):
+        from photon_tpu_torch.data import game_io
+
+        return game_io.last_reader
+    from photon_tpu_torch.data import libsvm
+
+    return libsvm.last_reader
+
+
+def load_dataset(spec: str, intercept: bool, task: str, device,
+                 avro_field: str = "features", index_map=None):
+    """``(batch, dim, index_map)`` from an ``--input`` spec; {-1, +1}
+    LIBSVM labels map to {0, 1} for binary tasks only.  Avro records give
+    their ``avro_field`` bag as one feature shard; pass ``index_map`` to
+    index them as a training run did (features absent from it are
+    dropped)."""
     from photon_tpu_torch.data.index_map import IndexMap, feature_key
+
+    if _is_avro_input(spec):
+        from photon_tpu_torch.data.game_io import read_game_avro
+        from photon_tpu_torch.game.model import shard_to_batch
+
+        maps = None if index_map is None else {"global": index_map}
+        data, out_maps = read_game_avro(spec, {"global": avro_field}, [],
+                                        index_maps=maps, intercept=intercept)
+        shard = data.shards["global"]
+        batch = shard_to_batch(shard, data.label, data.offset, data.weight,
+                               device=device)
+        return batch, shard.dim, out_maps["global"]
+    if spec.startswith("synthetic:"):
+        from photon_tpu_torch.data.synthetic import make_glm_data
+
+        parts = spec.split(":")
+        task, n, dim = parts[1], int(parts[2]), int(parts[3])
+        seed = int(parts[4]) if len(parts) > 4 else 0
+        weight_seed = int(parts[5]) if len(parts) > 5 else None
+        batch, _ = make_glm_data(n, dim, task=task, seed=seed, intercept=intercept,
+                                 weight_seed=weight_seed, device=device)
+        keys = [feature_key(f"f{i}") for i in range(dim - (1 if intercept else 0))]
+        return batch, dim, IndexMap.build(keys, intercept=intercept)
     from photon_tpu_torch.data.libsvm import load_sparse_batch
 
     if not os.path.exists(spec):
@@ -92,10 +145,23 @@ def load_dataset(spec: str, intercept: bool, task: str, device):
 
 
 def load_validation(spec: Optional[str], train_dim: int, intercept: bool,
-                    task: str, device):
-    """Validation data padded to the training dimension."""
+                    task: str, device, avro_field: str = "features",
+                    index_map=None):
+    """Validation or scoring data at the training dimension (a LIBSVM file
+    whose largest id is below it is padded)."""
     if spec is None:
         return None
+    if _is_avro_input(spec) or spec.startswith("synthetic:"):
+        if _is_avro_input(spec) and index_map is None:
+            raise ValueError(
+                "Avro validation input needs the training index map "
+                "(features must share the training run's indexing)"
+            )
+        batch, dim, _ = load_dataset(spec, intercept, task, device,
+                                     avro_field=avro_field, index_map=index_map)
+        if dim != train_dim:
+            raise ValueError(f"validation dim {dim} != train dim {train_dim}")
+        return batch
     from photon_tpu_torch.data.libsvm import load_sparse_batch
 
     feature_dim = train_dim - (1 if intercept else 0)
@@ -141,6 +207,13 @@ def select_and_save_sweep(sweep: list, evaluators, has_validation: bool,
             os.path.join(args.output_dir, f"best_model.{ext}"),
             best["model"], index_map, fmt=args.model_format,
         )
+        if getattr(args, "save_all_models", False):
+            for entry in sweep:
+                save_glm_model(
+                    os.path.join(args.output_dir,
+                                 f"model_lambda_{entry['lambda']:g}.{ext}"),
+                    entry["model"], index_map, fmt=args.model_format,
+                )
         summary = {
             "task": args.task,
             "best_lambda": best["lambda"],

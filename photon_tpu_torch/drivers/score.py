@@ -1,0 +1,113 @@
+"""GLM scoring driver: load a saved model, score a dataset, write the scores.
+
+Counterpart of ``photon_tpu/drivers/score.py``: read the model (keyed by
+name and term) through the port's ``data/model_io.py``, join it onto the
+feature index written at training time, score LIBSVM, Avro or
+``synthetic:`` input on the card (or ``--backend cpu``), write
+``scores.txt`` and, with ``--evaluators``, the metrics to
+``metrics.json``.
+
+Usage:
+    python -m photon_tpu_torch.drivers.score \\
+        --input val.libsvm --model out/best_model.avro \\
+        --evaluators RMSE --output-dir scored --backend gpu
+
+``--stream`` (part files one at a time) waits with ROADMAP.md queue 1,
+item 9.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from photon_tpu_torch.drivers import common
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        "photon_tpu_torch.drivers.score", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    common.add_common_args(p)
+    common.add_data_args(p)
+    p.add_argument("--model", required=True, help="saved model file (avro/json)")
+    p.add_argument("--index-map", default=None,
+                   help="feature index map JSON written at training time; "
+                   "defaults to feature_index.json next to the model")
+    p.add_argument("--evaluators", default=None)
+    p.add_argument("--predict-mean", action="store_true",
+                   help="write mean predictions (sigmoid/exp link) instead of "
+                   "raw scores")
+    p.add_argument("--stream", action="store_true",
+                   help="not ported: score part files one at a time "
+                   "(ROADMAP.md queue 1, item 9)")
+    return p
+
+
+def run(args: argparse.Namespace) -> dict:
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.data.model_io import load_glm_model
+
+    if args.stream:
+        raise NotImplementedError(
+            "score --stream waits with streamed scoring in ROADMAP.md queue 1, item 9"
+        )
+    device = common.device_for_backend(args.backend)
+    logger = common.RunLogger("photon_tpu_torch.score")
+    os.makedirs(args.output_dir, exist_ok=True)
+    imap_path = args.index_map or os.path.join(
+        os.path.dirname(args.model), "feature_index.json"
+    )
+    index_map = IndexMap.load(imap_path)
+    model = load_glm_model(args.model, index_map, device=device)
+    dim = int(model.coefficients.means.shape[0])
+    logger.info("model: %s dim=%d on %s", model.task_type, dim, device)
+    # Whether the model has an intercept is recorded in the index map, not
+    # the flag: trusting the flag would shift every feature id of a model
+    # trained with --no-intercept.
+    intercept = index_map.intercept_id is not None
+    if intercept != args.intercept:
+        logger.warning("index map says intercept=%s; overriding --intercept flag",
+                       intercept)
+    evaluators = (common.build_flat_evaluators(args.evaluators)
+                  if args.evaluators else None)
+    with logger.timed("load-data"):
+        batch = common.load_validation(
+            args.input, dim, intercept, model.task_type, device,
+            avro_field=args.avro_feature_field, index_map=index_map,
+        )
+    with logger.timed("score"):
+        raw = model.compute_score(batch)
+        out = model.loss.mean(raw) if args.predict_mean else raw
+        scores = out.cpu().numpy()
+    if args.predict_mean and model.task_type == "poisson_regression":
+        from photon_tpu_torch.core.losses import _POISSON_MAX_EXPONENT
+
+        n_capped = int((raw > _POISSON_MAX_EXPONENT).sum())
+        if n_capped:
+            logger.info("%d scoring margins exceed the Poisson exp cap (%g); their "
+                        "predicted means are clamped to e^cap",
+                        n_capped, _POISSON_MAX_EXPONENT)
+    np.savetxt(os.path.join(args.output_dir, "scores.txt"), scores, fmt="%.8g")
+    metrics = {}
+    if evaluators is not None:
+        with logger.timed("evaluate"):
+            metrics = evaluators.evaluate(raw, batch.label, batch.weight)
+        logger.info("metrics %s", metrics)
+        with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
+            json.dump(metrics, f, indent=1)
+    return {"num_scored": int(scores.shape[0]), "metrics": metrics,
+            "input_reader": common.input_reader(args.input),
+            "phase_times": logger.phase_times}
+
+
+def main(argv=None) -> None:
+    run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

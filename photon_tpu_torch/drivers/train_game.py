@@ -18,9 +18,11 @@ validation data, and write the best GAME model and
 Coordinate specs are ``name:key=value,...`` (or one ``@file.json``); keys:
 ``type`` (fixed|random), ``shard``, ``entity`` (random), ``optimizer``
 (lbfgs|tron; random-effect bins solve by batched Newton), ``reg_type``
-(none|l2), ``reg_weights`` (a ``+``-joined sweep), ``max_iters``,
+(none|l2; l1 and elastic_net, with ``alpha``, fit the fixed effect with
+OWL-QN), ``reg_weights`` (a ``+``-joined sweep), ``max_iters``,
 ``tolerance``, ``variance`` (none|simple|full), ``active_row_cap``
-(random), ``seed``.  The sweep is the cross product of every coordinate's
+(random), ``downsample`` and ``downsampler`` (fixed: default|binary, by
+default the task's), ``seed``.  The sweep is the cross product of every coordinate's
 ``reg_weights``.  ``--backend gpu`` (the default) runs on the card and
 fails without one; ``--backend cpu`` runs on the host.
 
@@ -28,8 +30,8 @@ Flags of the reference that the port does not carry yet raise, naming
 their ROADMAP.md queue 1 item: streaming (9), checkpoints and fault flags
 (6), tuning and multi-process runs (10), ``--dtype`` other than float32
 (9), warm start and locked coordinates (5), and the coordinate keys
-``type=factored_random``, ``projection`` (5), ``row_split`` (10),
-``downsample`` (4) and L1 regularization (3).
+``type=factored_random``, ``projection`` (5), ``row_split`` (10) and L1
+regularization of a random effect (5).
 """
 
 from __future__ import annotations
@@ -177,8 +179,10 @@ def _coord_bool(value) -> bool:
     raise ValueError(f"coordinate-spec boolean must be true/false/1/0/yes/no, got {value!r}")
 
 
-def _coord_config(kv: dict, lam: float):
-    """One coordinate's config with regularization weight ``lam``."""
+def _coord_config(kv: dict, lam: float, task: str):
+    """One coordinate's config with regularization weight ``lam``; the
+    fixed effect's ``downsampler`` defaults to the task's (binary for the
+    logistic and hinge tasks, uniform otherwise)."""
     from photon_tpu_torch.core.objective import RegularizationContext
     from photon_tpu_torch.core.optimizers import OptimizerConfig
     from photon_tpu_torch.core.problem import ProblemConfig
@@ -190,7 +194,7 @@ def _coord_config(kv: dict, lam: float):
     reg_type = kv.get("reg_type", "l2")
     optimizer = kv.get("optimizer", "lbfgs")
     if reg_type in ("l1", "elastic_net"):
-        optimizer = "owlqn"  # raises in ProblemConfig, naming item 3
+        optimizer = "owlqn"
     problem = ProblemConfig(
         optimizer=optimizer,
         regularization=RegularizationContext(reg_type, lam, float(kv.get("alpha", 0.5))),
@@ -203,10 +207,15 @@ def _coord_config(kv: dict, lam: float):
     if kv.get("type", "fixed") == "fixed":
         if _coord_bool(kv.get("row_split", False)):
             raise ValueError("row_split applies to random coordinates only")
+        downsampler = kv.get("downsampler") or "auto"
+        if downsampler == "auto":
+            from photon_tpu_torch.core.losses import BINARY_TASKS
+
+            downsampler = "binary" if task.lower() in BINARY_TASKS else "default"
         return FixedEffectCoordinateConfig(
             shard_name=kv["shard"], problem=problem,
             downsampling_rate=float(kv.get("downsample", 1.0)),
-            seed=int(kv.get("seed", 0)),
+            downsampler=downsampler, seed=int(kv.get("seed", 0)),
         )
     cap = kv.get("active_row_cap")
     pdim = kv.get("projected_dim")
@@ -224,13 +233,13 @@ def _combo_label(specs, combo) -> str:
     return ",".join(f"{name}={lam:g}" for (name, _), lam in zip(specs, combo))
 
 
-def _build_sweep(specs) -> list:
+def _build_sweep(specs, task: str) -> list:
     """Cross product of per-coordinate reg weights -> (label, coords)."""
     weight_lists = [[float(w) for w in str(kv.get("reg_weights", "1.0")).split("+")]
                     for _, kv in specs]
     return [
         (_combo_label(specs, combo),
-         {name: _coord_config(kv, lam) for (name, kv), lam in zip(specs, combo)})
+         {name: _coord_config(kv, lam, task) for (name, kv), lam in zip(specs, combo)})
         for combo in itertools.product(*weight_lists)
     ]
 
@@ -298,7 +307,7 @@ def run(args: argparse.Namespace) -> dict:
     logger = common.RunLogger("photon_tpu_torch.train_game")
     os.makedirs(args.output_dir, exist_ok=True)
     specs = _coordinate_specs(args)
-    sweep = _build_sweep(specs)
+    sweep = _build_sweep(specs, args.task)
 
     prebuilt_maps = None
     if args.index_maps:

@@ -106,8 +106,8 @@ class LaneObjective:
     def of(cls, objective: GlmObjective) -> "LaneObjective":
         if objective.l1_weight:
             raise NotImplementedError(
-                "L1 entity solves need OWL-QN, which waits in ROADMAP.md "
-                "queue 1, item 3"
+                "L1 entity solves need the lane-axis OWL-QN, which waits in "
+                "ROADMAP.md queue 1, item 5"
             )
         return cls(objective.loss, objective.l2_weight)
 

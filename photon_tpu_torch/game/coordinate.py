@@ -20,10 +20,16 @@ loop's: its convergence statistics stay in a device accumulator
 (:class:`DeferredSolveStats`) that the descent loop reads once per outer
 iteration.
 
+The fixed effect may train on a weight-corrected down-sample of its rows
+(``data/sampling.py``) and under a feature normalization: it fits in the
+normalized space and stores its model in the original one, and a warm
+start re-enters the normalized space.  Random-effect coordinates refuse a
+normalization, as the reference's do.
+
 Not carried (each raises, naming its ROADMAP.md queue 1 item): the mesh and
 row-split placement (item 10), projections, factored random effects,
-onboarding and warm starts from a foreign vocabulary (item 5), the
-fixed effect's downsampling (item 4) and normalization (item 2).
+onboarding and warm starts from a foreign vocabulary, and L1 entity
+solves (item 5).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from photon_tpu_torch.core.normalization import NormalizationContext
 from photon_tpu_torch.core.objective import GlmObjective
 from photon_tpu_torch.core.optimizers import OptimizationStatesTracker
 from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
@@ -49,6 +56,7 @@ from photon_tpu_torch.game.batched_solve import (
 from photon_tpu_torch.game.data import (
     GameDataset,
     RandomEffectDataset,
+    _gather_shard_rows,
     build_random_effect_dataset,
     keys_match,
     merge_buckets,
@@ -127,13 +135,6 @@ class FixedEffectCoordinateConfig:
     downsampler: str = "default"
     seed: int = 0
 
-    def __post_init__(self):
-        if self.downsampling_rate < 1.0:
-            raise NotImplementedError(
-                "fixed-effect downsampling waits with data/sampling.py in "
-                "ROADMAP.md queue 1, item 4"
-            )
-
     @property
     def data_key(self):
         return ("fixed", self.shard_name, self.downsampling_rate,
@@ -184,15 +185,27 @@ class FixedEffectDeviceData:
     """The fixed-effect training batch on the device, with the static
     layouts its route may reduce over: the attach and its aligned-layout
     gate are the reference's (``coordinate.py:664-676``), so the measured
-    ``auto`` sees the same candidates."""
+    ``auto`` sees the same candidates.  With a downsampling rate below 1 the
+    batch holds the sampler's rows (``train_rows``) at their corrected
+    weights, as the reference's (``coordinate.py:624-631``)."""
 
     def __init__(self, data: GameDataset, config: FixedEffectCoordinateConfig,
                  device=None, build_fm: bool = True):
         self.device = resolve_device(device)
         shard = data.shard(config.shard_name)
         self.dim = shard.dim
-        self.batch = shard_to_batch(shard, data.label, data.offset, data.weight,
-                                    device=self.device)
+        label, offset, weight = data.label, data.offset, data.weight
+        self.train_rows: Optional[np.ndarray] = None
+        self._train_rows_dev: Optional[Tensor] = None
+        if config.downsampling_rate < 1.0:
+            from photon_tpu_torch.data.sampling import get_down_sampler
+
+            sampler = get_down_sampler(config.downsampler, config.downsampling_rate)
+            keep, weight = sampler.down_sample(label, weight, seed=config.seed)
+            self.train_rows = keep
+            shard = _gather_shard_rows(shard, keep)
+            label, offset = label[keep], offset[keep]
+        self.batch = shard_to_batch(shard, label, offset, weight, device=self.device)
         self.score_feats: Optional[tuple] = None
         if build_fm and isinstance(self.batch, SparseBatch):
             from photon_tpu_torch.data.batch import attach_feature_major
@@ -206,11 +219,19 @@ class FixedEffectDeviceData:
             )
 
     def offsets_to_device(self, offsets) -> Tensor:
-        """The residual engine's device vector as it is, or a host vector
-        (``--residuals host``) uploaded."""
-        if isinstance(offsets, Tensor):
-            return offsets.to(self.device)
-        return torch.as_tensor(np.asarray(offsets, np.float32), device=self.device)
+        """The residual engine's device vector, or a host vector
+        (``--residuals host``) uploaded; at the sampled rows when the batch
+        is a down-sample."""
+        if not isinstance(offsets, Tensor):
+            if self.train_rows is not None:
+                offsets = offsets[self.train_rows]
+            return torch.as_tensor(np.asarray(offsets, np.float32), device=self.device)
+        offsets = offsets.to(self.device)
+        if self.train_rows is None:
+            return offsets
+        if self._train_rows_dev is None:
+            self._train_rows_dev = torch.as_tensor(self.train_rows, device=self.device)
+        return offsets.index_select(0, self._train_rows_dev)
 
 
 class RandomEffectDeviceData:
@@ -319,15 +340,24 @@ class FixedEffectCoordinate:
 
     def __init__(self, data: GameDataset, config: FixedEffectCoordinateConfig,
                  task_type: str, device=None,
-                 device_data: Optional[FixedEffectDeviceData] = None):
+                 device_data: Optional[FixedEffectDeviceData] = None,
+                 normalization: Optional[NormalizationContext] = None):
         self.data = data
         self.config = config
         self.task_type = task_type
         self.device_data = device_data or FixedEffectDeviceData(data, config, device)
         self.device = self.device_data.device
         self.dim = self.device_data.dim
-        self.objective = _CountingObjective(
-            GlmObjective.create(task_type, config.problem.regularization))
+        if normalization is not None:
+            if len(normalization.factors_or_ones(self.dim)) != self.dim:
+                raise ValueError(
+                    f"normalization context dim mismatch for shard "
+                    f"{config.shard_name!r} (expected {self.dim})"
+                )
+            normalization = normalization.to(self.device)
+        self.normalization = normalization
+        self.objective = _CountingObjective(GlmObjective.create(
+            task_type, config.problem.regularization, normalization))
         self.problem = GlmOptimizationProblem(self.objective, config.problem)
 
     def train(self, offsets, initial_model: Optional[FixedEffectModel] = None):
@@ -336,7 +366,11 @@ class FixedEffectCoordinate:
         ``evaluations``, ``host_reads`` and ``wall_time_s``."""
         batch = self.device_data.batch
         batch = batch._replace(offset=self.device_data.offsets_to_device(offsets))
-        w0 = None if initial_model is None else initial_model.coefficients.means
+        w0 = None
+        if initial_model is not None:
+            w0 = initial_model.coefficients.means
+            if self.normalization is not None:
+                w0 = self.normalization.model_to_normalized_space(w0)
         evaluations = self.objective.evaluations
         t0 = time.perf_counter()
         coefficients, result = self.problem.run(batch, w0, dim=self.dim)
@@ -500,15 +534,17 @@ class RandomEffectCoordinate:
 
 
 def build_coordinate(data: GameDataset, config: CoordinateConfig, task_type: str,
-                     device=None, normalization=None, device_data=None):
-    if normalization is not None:
-        raise NotImplementedError(
-            "normalized GAME coordinates wait with core/normalization.py in "
-            "ROADMAP.md queue 1, item 2"
-        )
+                     device=None, normalization: Optional[NormalizationContext] = None,
+                     device_data=None):
     if isinstance(config, FixedEffectCoordinateConfig):
-        return FixedEffectCoordinate(data, config, task_type, device, device_data)
+        return FixedEffectCoordinate(data, config, task_type, device, device_data,
+                                     normalization)
     if isinstance(config, RandomEffectCoordinateConfig):
+        if normalization is not None:
+            raise ValueError(
+                "normalization is not supported for random-effect coordinates "
+                f"(coordinate on shard {config.shard_name!r})"
+            )
         return RandomEffectCoordinate(data, config, task_type, device, device_data)
     raise TypeError(f"unknown coordinate config type {type(config)!r}")
 

@@ -6,6 +6,8 @@ Counterpart of the resident path of ``photon_tpu/game/estimator.py``:
 grid), and :meth:`GameEstimator.select_best` picks the best entry by the
 primary evaluator.  Device data is built once per data configuration and
 shared by every sweep entry; so is the validation scoring cache.
+``normalization`` maps a feature shard to its context and applies to the
+fixed-effect coordinates on that shard.
 
 Streamed and out-of-core fits (ROADMAP.md queue 1, item 9), onboarding and
 warm starts (item 5), descent checkpoints (item 6) and the mesh (item 10)
@@ -18,6 +20,7 @@ import dataclasses
 import logging
 from typing import Dict, List, Optional, Sequence
 
+from photon_tpu_torch.core.normalization import NormalizationContext
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.evaluation.evaluators import (
     MultiEvaluator,
@@ -90,8 +93,11 @@ class GameEstimator:
     ):
         if mesh is not None:
             raise _not_ported("the device mesh", 10)
-        if normalization:
-            raise _not_ported("normalized GAME coordinates", 2)
+        if isinstance(normalization, NormalizationContext):
+            raise TypeError("pass normalization as {shard_name: NormalizationContext}")
+        # Keyed by feature shard; applies to the fixed-effect coordinates on
+        # that shard (random-effect coordinates refuse it).
+        self.normalization = normalization or {}
         if stream_chunks is not None or spill_dir is not None:
             raise _not_ported("streamed (out-of-core) GAME training", 9)
         self.task_type = task_type
@@ -136,6 +142,8 @@ class GameEstimator:
         return {
             name: build_coordinate(self.training_data, coord_config, self.task_type,
                                    device=self.device,
+                                   normalization=self.normalization.get(
+                                       coord_config.shard_name),
                                    device_data=self.device_layout(coord_config))
             for name, coord_config in config.coordinates.items()
         }

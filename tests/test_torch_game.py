@@ -343,17 +343,10 @@ def test_unported_library_paths_raise():
     cases = [
         (lambda: GameEstimator("logistic_regression", data, mesh=object()), "item 10"),
         (lambda: GameEstimator("logistic_regression", data, stream_chunks=4), "item 9"),
-        (lambda: GameEstimator("logistic_regression", data,
-                               normalization={"global": object()}), "item 2"),
-        (lambda: coordinate.FixedEffectCoordinateConfig("g", downsampling_rate=0.5),
-         "item 4"),
         (lambda: coordinate.RandomEffectCoordinateConfig("r", "r", projection="index_map"),
          "item 5"),
-        (lambda: coordinate.build_coordinate(data, fixed, "logistic_regression",
-                                             device="cpu", normalization=object()),
-         "item 2"),
         (lambda: batched_solve.LaneObjective.of(GlmObjective.create(
-            "logistic", RegularizationContext("elastic_net", 1.0))), "item 3"),
+            "logistic", RegularizationContext("elastic_net", 1.0))), "item 5"),
         (lambda: batched_solve.solver_route(
             ProblemConfig(optimizer="newton_cg"), 19), "item 5"),
         (lambda: coordinate.RandomEffectCoordinateConfig("r", "r", row_split=True),
@@ -362,6 +355,12 @@ def test_unported_library_paths_raise():
     for make, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             make()
+    # Normalization applies to fixed effects only, as in the reference.
+    from photon_tpu_torch.core.normalization import NormalizationContext
+
+    with pytest.raises(ValueError, match="random-effect"):
+        coordinate.build_coordinate(data, rand, "logistic_regression", device="cpu",
+                                    normalization=NormalizationContext())
     est = GameEstimator("logistic_regression", data, device="cpu")
     config = GameOptimizationConfiguration({"fixed": fixed, "re0": rand})
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -191,6 +191,43 @@ def test_synthetic_input_and_sweep(tmp_path):
     assert tm.coordinate("re0").variances is not None
 
 
+# The GAME fits that run but that the slice test above does not drive: two
+# random-effect coordinates (per user and per item, config 5's structure)
+# and the Poisson, linear and smoothed-hinge tasks, each through both
+# drivers on the same Avro file for two descent iterations.
+PER_ITEM = ["--coordinate", "per_item:type=random,shard=per_user,entity=itemId,max_iters=20"]
+
+
+@pytest.mark.parametrize("task,extra_coords", [
+    ("logistic_regression", PER_ITEM),
+    ("poisson_regression", []),
+    ("linear_regression", []),
+    ("smoothed_hinge_loss_linear_svm", []),
+])
+def test_game_fits_match_reference(slice_runs, tmp_path, task, extra_coords):
+    _, avro, _, _ = slice_runs
+    extra = [*extra_coords, "--task", task]
+    ref = jax_train_game.run(jax_train_game.build_parser().parse_args(
+        _args(avro, str(tmp_path / "jax"), [*extra, "--no-telemetry"])))
+    got = train_game.run(train_game.build_parser().parse_args(
+        _args(avro, str(tmp_path / "torch"), extra)))
+    for th, jh in zip(got["sweep"][0]["history"], ref["sweep"][0]["history"]):
+        assert set(th["metrics"]) == set(jh["metrics"])
+        for name, value in jh["metrics"].items():
+            assert abs(th["metrics"][name] - value) <= METRIC_TOL, (name, th, jh)
+    jm, _ = jax_load(str(tmp_path / "jax" / "best_model"))
+    tm, _ = load_game_model(str(tmp_path / "torch" / "best_model"), device="cpu")
+    assert list(tm.coordinates) == list(jm.coordinates)
+    np.testing.assert_allclose(
+        tm.coordinate("fixed").coefficients.means.numpy(),
+        np.asarray(jm.coordinate("fixed").coefficients.means), rtol=COEF_TOL, atol=COEF_TOL)
+    for name in list(tm.coordinates)[1:]:
+        np.testing.assert_array_equal(tm.coordinate(name).keys, jm.coordinate(name).keys)
+        np.testing.assert_allclose(tm.coordinate(name).table.numpy(),
+                                   np.asarray(jm.coordinate(name).table),
+                                   rtol=COEF_TOL, atol=COEF_TOL)
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--stream-chunks", "100"], "item 9"),
     (["--max-resident-mb", "1"], "item 9"),
@@ -215,8 +252,8 @@ def test_unported_flags_raise(tmp_path, extra, match):
     ("r:type=factored_random,shard=re0,entity=re0", "item 5"),
     ("r:type=random,shard=re0,entity=re0,projection=random,projected_dim=2", "item 5"),
     ("r:type=random,shard=re0,entity=re0,row_split=true", "item 10"),
-    ("f:type=fixed,shard=global,downsample=0.5", "item 4"),
-    ("f:type=fixed,shard=global,reg_type=l1", "item 3"),
+    ("r:type=random,shard=re0,entity=re0,reg_type=l1", "item 5"),
+    ("r:type=random,shard=re0,entity=re0,reg_type=elastic_net", "item 5"),
     ("r:type=random,shard=re0,entity=re0,optimizer=newton_cg", "item 5"),
 ])
 def test_unported_coordinate_keys_raise(tmp_path, spec, match):

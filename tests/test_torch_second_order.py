@@ -170,8 +170,43 @@ def test_fused_hvp_operator_matches_jax(monkeypatch, dist, loss):
 
 
 def test_normalized_objective_waits():
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        GlmObjective.create("logistic", normalization=object())
+    """Normalized objectives are ported: TRON fits in the normalized space
+    through the normalized Hv, like the JAX package's, and the problem
+    returns the coefficients and SIMPLE variances in the original space."""
+    from photon_tpu.core.normalization import NormalizationContext as JaxNorm
+    from photon_tpu.core.stats import BasicStatisticalSummary as JaxSummary
+    from photon_tpu.data.batch import dense_batch as jax_dense
+    from photon_tpu_torch.core.normalization import NormalizationContext
+    from photon_tpu_torch.core.stats import BasicStatisticalSummary
+    from photon_tpu_torch.data.batch import dense_batch
+
+    rng = np.random.default_rng(40)
+    x = (rng.standard_normal((200, 8)) * 3.0 + 1.0).astype(np.float32)
+    x[:, -1] = 1.0
+    y = (rng.random(200) < 1.0 / (1.0 + np.exp(-x @ (rng.standard_normal(8) * 0.2)))
+         ).astype(np.float32)
+    jb, tb = jax_dense(x, y), dense_batch(x, y, device="cpu")
+    jnorm = JaxNorm.build("standardization", JaxSummary.from_batch(jb, 8), intercept_id=7)
+    norm = NormalizationContext.build(
+        "standardization", BasicStatisticalSummary.from_batch(tb, 8), intercept_id=7)
+    cfg = dict(optimizer="tron", variance_computation="simple")
+    jc, jr = JaxProblem(
+        JaxObjective.create("logistic", JaxReg("l2", 0.5), normalization=jnorm),
+        JaxProblemConfig(regularization=JaxReg("l2", 0.5), **cfg),
+    ).run(jb, jnp.zeros(8, jnp.float32))
+    obj = GlmObjective.create("logistic", RegularizationContext("l2", 0.5),
+                              normalization=norm)
+    coef, res = GlmOptimizationProblem(
+        obj, ProblemConfig(regularization=RegularizationContext("l2", 0.5), **cfg),
+    ).run(tb, dim=8)
+    np.testing.assert_allclose(res.value, float(jr.value), rtol=1e-5)
+    np.testing.assert_allclose(res.w.numpy(), np.asarray(jr.w), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(coef.means.numpy(),
+                               np.asarray(jnorm.model_to_original_space(jc.means)),
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(coef.variances.numpy(),
+                               np.asarray(jnorm.variances_to_original_space(jc.variances)),
+                               rtol=1e-3)
 
 
 def _quadratic(seed):

@@ -99,8 +99,8 @@ def test_lbfgs_stops_on_max_iterations_and_zero_gradient():
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ProblemConfig(optimizer="owlqn")
+    # OWL-QN is ported: L1 and the elastic net construct with it only.
+    ProblemConfig(optimizer="owlqn", regularization=RegularizationContext("l1", 1.0))
     with pytest.raises(ValueError, match="OWL-QN"):
         ProblemConfig(regularization=RegularizationContext("l1", 1.0))
     with pytest.raises(KeyError):
