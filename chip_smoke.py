@@ -107,7 +107,26 @@ Phases (any failure exits non-zero and prints no result line):
    the card held to the host (validation RMSE 1e-4 relative, coefficients
    rtol = atol = 1e-3); then the score CLI on the validation file with the
    card's model on the card and the host (scores within 1e-4 of each other,
-   RMSE the train summary's to 1e-6).
+   RMSE the train summary's to 1e-6);
+8. serving on the card, with every kernel's launch count set to 0 just
+   before it and read after (the serving path has no hand-written kernel;
+   the retrain below runs K1): (a) ``score_game`` on phase 6's ``fused``
+   model over its Avro file on the card, on the host and through the host
+   oracle, the scores within 1e-5; (b) the ``GameScorer`` at
+   ``bench.py``'s serving fixture (20,000 entities, two random coordinates
+   and a fixed effect of d = 32, 1500 geometric requests of mean 8 rows,
+   cap 128, 16 closed-loop clients) for f32, bf16 and int8: captures and
+   allocator segments at warmup and after serving (no new one may appear),
+   host syncs against batches (equal), parity against the host oracle
+   under ``PARITY_TOL`` (``bench.py``'s window, the worst over all
+   requests beside it), table bytes against the reference's bars (bf16
+   1.9x, int8 3.5x), QPS, p50 and p99, and per bucket the graph's replay
+   and the eager body (CUDA events) beside the bytes bound and the whole
+   batch on the host clock; (c) ``serve_game`` with two replicas,
+   power-law traffic, a 10% cold-start storm and a deadline, then a
+   two-replica fleet under load taking a rollout of phase 6's fit retrained
+   with one descent iteration: no request dropped, every response wholly
+   one model's, the tail the new model's, nothing captured.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
@@ -118,12 +137,14 @@ that the training paths launch none of them; K1's and K2's
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1961,11 +1982,13 @@ def game_reads(avro: str) -> dict:
     return {"native_s": reads["native"][2], "python_s": reads["python"][2]}
 
 
-def run_game(dev) -> dict:
+def run_game(dev, tmp: str) -> dict:
     """Phase 6: the port's ``train_game`` on config 4, on the card under
     ``fused``, ``pallas`` and ``auto`` and on the host, each run with every
     launch count set to 0 just before it and read just after; card and host
-    held to each other; then the random-effect path's torch ops timed."""
+    held to each other; then the random-effect path's torch ops timed.  The
+    Avro file and every run's output directory stay in ``tmp`` for phase 8
+    (``out["avro"]``, ``out["run_dirs"]``)."""
     from photon_tpu_torch.data import game_io
     from photon_tpu_torch.data.fixtures import make_movielens_like
     from photon_tpu_torch.data.game_io import write_game_avro
@@ -1985,155 +2008,153 @@ def run_game(dev) -> dict:
                 "vperm_chunk": vp.chunk_pass, "vperm_lane": vp.lane_pass,
                 "vperm_chunk_expand": vp.chunk_expand_pass,
                 "slab_gather": aligned_gather_products}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_game_")
     out = {"runs": {}}
-    try:
-        t0 = time.monotonic()
-        data, maps = make_movielens_like(**GAME_FIXTURE)
-        out["generate_s"] = time.monotonic() - t0
-        avro = os.path.join(tmp, "movielens.avro")
-        t0 = time.monotonic()
-        write_game_avro(avro, data, maps)
-        out["avro_write_s"] = time.monotonic() - t0
-        n_rows = data.num_examples
-        users = len(np.unique(data.id_columns["userId"]))
-        out.update(rows=n_rows, users=users, avro_bytes=os.path.getsize(avro))
-        log(f"  config 4: {n_rows:,} ratings, {users} users, "
-            f"{len(np.unique(data.id_columns['itemId']))} items; Avro write "
-            f"{out['avro_write_s']:.2f} s ({out['avro_bytes'] / 2**20:.1f} MiB)")
-        del data
-        out["avro_read_s"] = game_reads(avro)
-        # The first run's dataset, as read from the Avro file, is kept for the
-        # torch-op timings below.
-        read = []
-        load = train_game._load_game_data
+    t0 = time.monotonic()
+    data, maps = make_movielens_like(**GAME_FIXTURE)
+    out["generate_s"] = time.monotonic() - t0
+    avro = os.path.join(tmp, "movielens.avro")
+    out["avro"] = avro
+    out["run_dirs"] = {name: os.path.join(tmp, name) for name, _, _ in GAME_RUNS}
+    t0 = time.monotonic()
+    write_game_avro(avro, data, maps)
+    out["avro_write_s"] = time.monotonic() - t0
+    n_rows = data.num_examples
+    users = len(np.unique(data.id_columns["userId"]))
+    out.update(rows=n_rows, users=users, avro_bytes=os.path.getsize(avro))
+    log(f"  config 4: {n_rows:,} ratings, {users} users, "
+        f"{len(np.unique(data.id_columns['itemId']))} items; Avro write "
+        f"{out['avro_write_s']:.2f} s ({out['avro_bytes'] / 2**20:.1f} MiB)")
+    del data
+    out["avro_read_s"] = game_reads(avro)
+    # The first run's dataset, as read from the Avro file, is kept for the
+    # torch-op timings below.
+    read = []
+    load = train_game._load_game_data
 
-        def load_and_keep(*args, **kwargs):
-            loaded = load(*args, **kwargs)
-            if not read:
-                read.append(loaded[0])
-            return loaded
+    def load_and_keep(*args, **kwargs):
+        loaded = load(*args, **kwargs)
+        if not read:
+            read.append(loaded[0])
+        return loaded
 
-        train_game._load_game_data = load_and_keep
-        for name, route, backend in GAME_RUNS:
-            env_before = os.environ.get("PHOTON_SPARSE_GRAD")
-            if route is None:
+    train_game._load_game_data = load_and_keep
+    for name, route, backend in GAME_RUNS:
+        env_before = os.environ.get("PHOTON_SPARSE_GRAD")
+        if route is None:
+            os.environ.pop("PHOTON_SPARSE_GRAD", None)
+        else:
+            os.environ["PHOTON_SPARSE_GRAD"] = route
+        probes_before = set(sel.PROBE_RECORD)
+        for c in (*counters.values(), *pk.KERNELS):
+            c.launches = 0
+        run_dir = os.path.join(tmp, name)
+        try:
+            t0 = time.monotonic()
+            summary = train_game.run(train_game.build_parser().parse_args(
+                game_cli_args(avro, run_dir, backend)))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            if env_before is None:
                 os.environ.pop("PHOTON_SPARSE_GRAD", None)
             else:
-                os.environ["PHOTON_SPARSE_GRAD"] = route
-            probes_before = set(sel.PROBE_RECORD)
-            for c in (*counters.values(), *pk.KERNELS):
-                c.launches = 0
-            run_dir = os.path.join(tmp, name)
-            try:
-                t0 = time.monotonic()
-                summary = train_game.run(train_game.build_parser().parse_args(
-                    game_cli_args(avro, run_dir, backend)))
-                torch.cuda.synchronize()
-                wall = time.monotonic() - t0
-            finally:
-                if env_before is None:
-                    os.environ.pop("PHOTON_SPARSE_GRAD", None)
-                else:
-                    os.environ["PHOTON_SPARSE_GRAD"] = env_before
-                train_game._load_game_data = load
-            counts = {k: c.launches for k, c in counters.items()}
-            probes = {c.__name__: c.launches for c in pk.KERNELS}
-            if any(probes.values()):
-                raise AssertionError(f"GAME {name}: probe kernels launched: {probes}")
-            if game_io.last_reader != "native":
-                raise AssertionError(f"GAME {name}: the Avro file was read by the "
-                                     f"{game_io.last_reader} reader")
-            model, _ = load_game_model(os.path.join(run_dir, "best_model"), device="cpu")
-            fit_s = sum(v for k, v in summary["phase_times"].items()
-                        if k.startswith("fit-"))
-            history = summary["sweep"][0]["history"]
-            iteration_s = [h["seconds"] for h in history]
-            run = {
-                "backend": backend, "route": route or "auto", "wall_s": wall,
-                "phase_times": summary["phase_times"],
-                "epoch_s": wall / GAME_DESCENT_ITERATIONS,
-                "descent_iteration_s": iteration_s,
-                # The fit phase outside its descent iterations: the device
-                # data (bucketing, size bins, layouts) and the uploads.
-                "fit_setup_s": fit_s - sum(iteration_s),
-                "fit_s_per_descent_iteration": fit_s / GAME_DESCENT_ITERATIONS,
-                "rows_per_s": GAME_DESCENT_ITERATIONS * n_rows / wall,
-                "launches": {k: v for k, v in counts.items() if v},
-                "history": history,
-                "best_metrics": summary["best_metrics"], "device": summary["device"],
-            }
-            probe = [sel.PROBE_RECORD[key] for key in sel.PROBE_RECORD
-                     if key not in probes_before]
-            if probe:
-                run["auto_probe"] = probe
-            out["runs"][name] = (run, model)
-            log(f"  train_game {name} ({backend}, route {route or 'auto'}): "
-                f"{wall:.2f} s, of them the native Avro read (load-data) "
-                f"{summary['phase_times']['load-data']:.2f} s "
-                f"({run['epoch_s']:.3f} s per descent iteration as "
-                f"bench.py counts it, fit {run['fit_s_per_descent_iteration']:.3f} s "
-                f"per descent iteration: set-up {run['fit_setup_s']:.3f} s, iterations "
-                f"{[round(t, 4) for t in iteration_s]} s; {run['rows_per_s']:,.0f} "
-                f"rows/s), phases "
-                f"{ {k: round(v, 3) for k, v in summary['phase_times'].items()} }, "
-                f"metrics {summary['best_metrics']}, launches {run['launches']}")
-            for p in probe:
-                log(f"    auto probe: choice {p.get('choice')}, "
-                    f"{json.dumps(p, default=str)}")
-            for h in run["history"]:
-                fixed, per_user = h["solver"]["fixed"], h["solver"]["per_user"]
-                ms_each = 1e3 * fixed["seconds"] / max(fixed["evaluations"], 1)
-                log(f"    iteration {h['iteration']}: {h['seconds']:.3f} s; fixed effect "
-                    f"{fixed['iterations']} "
-                    f"L-BFGS iterations, {fixed['evaluations']} evaluations, "
-                    f"{ms_each:.3f} ms each, {fixed['host_reads']} host reads; "
-                    f"residual updates {h['residual_updates']}, descent host syncs "
-                    f"{h['host_syncs']}; metrics {h['metrics']}")
-                for b in per_user["bins"]:
-                    log(f"      per_user bin {b['bin']}: {b['entities']} entities, "
-                        f"capacity {b['capacity']}, route {b['route']}, "
-                        f"{b['newton_iterations']} Newton iterations, "
-                        f"{b['host_reads']} host reads, {1e3 * b['seconds']:.2f} ms")
-        cpu_run, cpu_model = out["runs"]["cpu"]
-        for name in ("fused", "pallas", "auto"):
-            run, model = out["runs"][name]
-            for h, hc in zip(run["history"], cpu_run["history"]):
-                for metric, ref in hc["metrics"].items():
-                    diff = abs(h["metrics"][metric] - ref)
-                    if diff > GAME_METRIC_ATOL:
-                        raise AssertionError(
-                            f"GAME {name}: {metric} at iteration {h['iteration']} "
-                            f"differs from the host run by {diff:.3e}")
-            pairs = (
-                ("fixed", model.coordinate("fixed").coefficients.means,
-                 cpu_model.coordinate("fixed").coefficients.means),
-                ("per_user", model.coordinate("per_user").table,
-                 cpu_model.coordinate("per_user").table),
-            )
-            errs = {}
-            for coord, got, want in pairs:
-                if not torch.allclose(got, want, rtol=GAME_COEF_TOL, atol=GAME_COEF_TOL):
-                    raise AssertionError(f"GAME {name}: {coord} coefficients differ "
-                                         "from the host run")
-                errs[coord] = float((got - want).abs().max())
-            run["coefficient_max_abs_diff_vs_cpu"] = errs
-            log(f"  {name} vs cpu: metrics within {GAME_METRIC_ATOL:g}, coefficients "
-                f"max |diff| {errs} (tolerance rtol = atol = {GAME_COEF_TOL:g})")
-        # Phase 2 held K1 and K2 at the fixed effect's batch shape: the auto
-        # run's probe saw it.
-        seen = [(p["rows"], p["nnz_per_row"], p["dim"])
-                for p in out["runs"]["auto"][0].get("auto_probe", [])]
-        if seen != [GAME_FIXED_SHAPE]:
-            raise AssertionError(f"GAME: the fixed effect's batch {seen} is not phase "
-                                 f"2's GAME_FIXED_SHAPE {GAME_FIXED_SHAPE}")
-        for name, kernel in (("fused", "fused_sparse"), ("pallas", "position_reduce")):
-            if not out["runs"][name][0]["launches"].get(kernel):
-                raise AssertionError(f"GAME {name}: {kernel} never launched")
-        log("  the random-effect path's torch ops and the score table:")
-        out["ops"] = game_op_timings(read[0], dev)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+                os.environ["PHOTON_SPARSE_GRAD"] = env_before
+            train_game._load_game_data = load
+        counts = {k: c.launches for k, c in counters.items()}
+        probes = {c.__name__: c.launches for c in pk.KERNELS}
+        if any(probes.values()):
+            raise AssertionError(f"GAME {name}: probe kernels launched: {probes}")
+        if game_io.last_reader != "native":
+            raise AssertionError(f"GAME {name}: the Avro file was read by the "
+                                 f"{game_io.last_reader} reader")
+        model, _ = load_game_model(os.path.join(run_dir, "best_model"), device="cpu")
+        fit_s = sum(v for k, v in summary["phase_times"].items()
+                    if k.startswith("fit-"))
+        history = summary["sweep"][0]["history"]
+        iteration_s = [h["seconds"] for h in history]
+        run = {
+            "backend": backend, "route": route or "auto", "wall_s": wall,
+            "phase_times": summary["phase_times"],
+            "epoch_s": wall / GAME_DESCENT_ITERATIONS,
+            "descent_iteration_s": iteration_s,
+            # The fit phase outside its descent iterations: the device
+            # data (bucketing, size bins, layouts) and the uploads.
+            "fit_setup_s": fit_s - sum(iteration_s),
+            "fit_s_per_descent_iteration": fit_s / GAME_DESCENT_ITERATIONS,
+            "rows_per_s": GAME_DESCENT_ITERATIONS * n_rows / wall,
+            "launches": {k: v for k, v in counts.items() if v},
+            "history": history,
+            "best_metrics": summary["best_metrics"], "device": summary["device"],
+        }
+        probe = [sel.PROBE_RECORD[key] for key in sel.PROBE_RECORD
+                 if key not in probes_before]
+        if probe:
+            run["auto_probe"] = probe
+        out["runs"][name] = (run, model)
+        log(f"  train_game {name} ({backend}, route {route or 'auto'}): "
+            f"{wall:.2f} s, of them the native Avro read (load-data) "
+            f"{summary['phase_times']['load-data']:.2f} s "
+            f"({run['epoch_s']:.3f} s per descent iteration as "
+            f"bench.py counts it, fit {run['fit_s_per_descent_iteration']:.3f} s "
+            f"per descent iteration: set-up {run['fit_setup_s']:.3f} s, iterations "
+            f"{[round(t, 4) for t in iteration_s]} s; {run['rows_per_s']:,.0f} "
+            f"rows/s), phases "
+            f"{ {k: round(v, 3) for k, v in summary['phase_times'].items()} }, "
+            f"metrics {summary['best_metrics']}, launches {run['launches']}")
+        for p in probe:
+            log(f"    auto probe: choice {p.get('choice')}, "
+                f"{json.dumps(p, default=str)}")
+        for h in run["history"]:
+            fixed, per_user = h["solver"]["fixed"], h["solver"]["per_user"]
+            ms_each = 1e3 * fixed["seconds"] / max(fixed["evaluations"], 1)
+            log(f"    iteration {h['iteration']}: {h['seconds']:.3f} s; fixed effect "
+                f"{fixed['iterations']} "
+                f"L-BFGS iterations, {fixed['evaluations']} evaluations, "
+                f"{ms_each:.3f} ms each, {fixed['host_reads']} host reads; "
+                f"residual updates {h['residual_updates']}, descent host syncs "
+                f"{h['host_syncs']}; metrics {h['metrics']}")
+            for b in per_user["bins"]:
+                log(f"      per_user bin {b['bin']}: {b['entities']} entities, "
+                    f"capacity {b['capacity']}, route {b['route']}, "
+                    f"{b['newton_iterations']} Newton iterations, "
+                    f"{b['host_reads']} host reads, {1e3 * b['seconds']:.2f} ms")
+    cpu_run, cpu_model = out["runs"]["cpu"]
+    for name in ("fused", "pallas", "auto"):
+        run, model = out["runs"][name]
+        for h, hc in zip(run["history"], cpu_run["history"]):
+            for metric, ref in hc["metrics"].items():
+                diff = abs(h["metrics"][metric] - ref)
+                if diff > GAME_METRIC_ATOL:
+                    raise AssertionError(
+                        f"GAME {name}: {metric} at iteration {h['iteration']} "
+                        f"differs from the host run by {diff:.3e}")
+        pairs = (
+            ("fixed", model.coordinate("fixed").coefficients.means,
+             cpu_model.coordinate("fixed").coefficients.means),
+            ("per_user", model.coordinate("per_user").table,
+             cpu_model.coordinate("per_user").table),
+        )
+        errs = {}
+        for coord, got, want in pairs:
+            if not torch.allclose(got, want, rtol=GAME_COEF_TOL, atol=GAME_COEF_TOL):
+                raise AssertionError(f"GAME {name}: {coord} coefficients differ "
+                                     "from the host run")
+            errs[coord] = float((got - want).abs().max())
+        run["coefficient_max_abs_diff_vs_cpu"] = errs
+        log(f"  {name} vs cpu: metrics within {GAME_METRIC_ATOL:g}, coefficients "
+            f"max |diff| {errs} (tolerance rtol = atol = {GAME_COEF_TOL:g})")
+    # Phase 2 held K1 and K2 at the fixed effect's batch shape: the auto
+    # run's probe saw it.
+    seen = [(p["rows"], p["nnz_per_row"], p["dim"])
+            for p in out["runs"]["auto"][0].get("auto_probe", [])]
+    if seen != [GAME_FIXED_SHAPE]:
+        raise AssertionError(f"GAME: the fixed effect's batch {seen} is not phase "
+                             f"2's GAME_FIXED_SHAPE {GAME_FIXED_SHAPE}")
+    for name, kernel in (("fused", "fused_sparse"), ("pallas", "position_reduce")):
+        if not out["runs"][name][0]["launches"].get(kernel):
+            raise AssertionError(f"GAME {name}: {kernel} never launched")
+    log("  the random-effect path's torch ops and the score table:")
+    out["ops"] = game_op_timings(read[0], dev)
     out["runs"] = {name: run for name, (run, _) in out["runs"].items()}
     return out
 
@@ -2350,6 +2371,501 @@ def score_config2(val: str, model_dir: str, train_run: dict, counters: dict,
     return out
 
 
+# Phase 8, serving on the card.  (b) is bench.py's serving fixture at its
+# accelerator size (bench.py:1319-1367 and its _bench_serving): 20,000
+# entities, two random coordinates of d = 32 and a fixed effect of d = 32
+# over make_game_dataset(20000, 20, 32, 32, seed=0), seeded tables, 1500
+# geometric requests of mean 8 rows, cap 128, 16 closed-loop clients.
+SERVING_FIXTURE = dict(n_entities=20_000, rows_mean=20, dim=32)
+SERVING_REQUESTS = 1500
+SERVING_MEAN_ROWS = 8.0
+SERVING_MAX_BATCH = 128
+SERVING_CLIENTS = 16
+SERVING_PASSES = 2
+SERVING_TIMING_REPS = 50
+# The reference's table-bytes bars against f32 (tests/test_lowp.py).
+TABLE_BYTES_BARS = {"bf16": 1.9, "int8": 3.5}
+# Parity: each dtype's worst |delta| against the host oracle, under
+# PARITY_TOL, over every request for f32 and int8.  bf16 is gated as
+# bench.py's serving bench gates it (bench.py:1487-1506), over the first
+# 100 requests: later in this stream the reference's own bf16 tables (bit
+# for bit the port's) pass 5e-2 (tests/test_torch_lowp.py::
+# test_bench_fixture_parity_per_dtype).  The worst over every request is
+# reported for every dtype.
+PARITY_WINDOW = 100
+WINDOWED_PARITY = ("bf16",)
+# (a): the card's scores against the host's and the host oracle's.
+SCORE_GAME_ATOL = 1e-5
+# (c): serve_game's stream, and the rollout's, on phase 6's model.
+FLEET_REQUESTS = 600
+FLEET_DEADLINE_MS = 50.0
+ROLLOUT_REQUESTS = 600
+ROLLOUT_ATOL = 1e-4
+GAME_BAGS = ["--feature-bags", "global=global,per_user=per_user",
+             "--id-columns", "userId,itemId"]
+
+
+def kernel_wrappers() -> list:
+    """Every hand-written kernel's wrapper; each counts its launches."""
+    from photon_tpu_torch.ops import probe_kernels as pk
+    from photon_tpu_torch.ops import vperm as vp
+    from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad, row_scatter
+    from photon_tpu_torch.ops.slab_reduce import (
+        aligned_gather_products,
+        position_partial_sums,
+    )
+
+    return [fused_value_and_grad, row_scatter, position_partial_sums, vp.chunk_pass,
+            vp.lane_pass, vp.chunk_expand_pass, aligned_gather_products, *pk.KERNELS]
+
+
+def counter_total(session, name: str) -> float:
+    return sum(m["value"] for m in session.registry.snapshot()["counters"]
+               if m["name"] == name)
+
+
+@contextlib.contextmanager
+def no_stray_syncs():
+    """Inside, every synchronizing CUDA call but an event wait raises
+    (``torch.cuda.set_sync_debug_mode``, process-wide, so the serving
+    threads are held to it too): the scorer's one wait a batch is an
+    event's, so a batch that syncs anywhere else fails."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def check_sync_guard(dev) -> None:
+    """The guard is live: inside it ``.item()`` raises and an event wait
+    does not."""
+    x = torch.ones(1, device=dev)
+    with no_stray_syncs():
+        try:
+            x.item()
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("sync debug mode did not flag .item()")
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+
+
+def allocator_segments(dev) -> int:
+    """Device memory segments the caching allocator has ever allocated."""
+    if dev.type != "cuda":
+        return 0
+    return int(torch.cuda.memory_stats(dev).get("segment.all.allocated", 0))
+
+
+def serving_fixture():
+    """bench.py's serving model and request source, the model on the host
+    (each scorer builds its own tables on the card from it)."""
+    from photon_tpu_torch.data.synthetic import make_game_dataset
+    from photon_tpu_torch.game.model import game_model_from_numpy
+
+    f = SERVING_FIXTURE
+    data, _ = make_game_dataset(f["n_entities"], f["rows_mean"], f["dim"], f["dim"],
+                                seed=0, n_random_coords=2)
+    rng = np.random.default_rng(7)
+    coords = {"fixed": {"type": "fixed", "shard_name": "global",
+                        "means": rng.standard_normal(f["dim"]).astype(np.float32)}}
+    for name in ("re0", "re1"):
+        keys = np.unique(data.id_columns[name])
+        coords[name] = {"type": "random", "shard_name": name, "entity_column": name,
+                        "keys": keys, "table": rng.standard_normal(
+                            (len(keys), f["dim"])).astype(np.float32)}
+    return game_model_from_numpy("logistic_regression", coords, device="cpu"), data
+
+
+def stream_ms(fn, stream, reps: int = SERVING_TIMING_REPS, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn`` on ``stream`` (CUDA events)."""
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(reps):
+            fn()
+        end.record(stream)
+    stream.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bucket_bound(scorer, program) -> tuple:
+    """The least time one bucket's program could take: its request inputs
+    read once, the table rows its rows gather (and the fixed weights) read
+    once, its outputs written once, against the multiply-adds."""
+    bucket = program.rows
+    nbytes = sum(v.numel() * v.element_size() for v in program.inputs.values())
+    nbytes += sum(v.numel() * v.element_size() for v in program.outputs.values())
+    ops = 0
+    for c, table in zip(scorer._plan, scorer._tables):
+        leaves = table if isinstance(table, tuple) else (table,)
+        dim = leaves[0].shape[-1]
+        if c.kind == "fixed":
+            nbytes += leaves[0].numel() * 4
+        else:
+            nbytes += bucket * sum(
+                (leaf.shape[1] if leaf.dim() == 2 else 1) * leaf.element_size()
+                for leaf in leaves)
+        ops += 2 * bucket * dim
+    return bound(nbytes, ops) + (nbytes,)
+
+
+def serving_bucket_timings(scorer, request) -> list:
+    """Per bucket: the captured graph's replay and the same body run eagerly,
+    and the batch's device work (copy up, replay, copy down), on CUDA events
+    on the scorer's stream; the whole batch on the host clock (staging,
+    copies, replay, the one wait); beside the bytes bound."""
+    from photon_tpu_torch.serving import slice_request
+
+    rows = []
+    for bucket in scorer.buckets:
+        program = scorer._programs[(bucket, "request")]
+        if program.graph is None:
+            raise AssertionError(f"serving: bucket {bucket} has no captured graph")
+        req = slice_request(request, 0, bucket)
+        with scorer._lock:
+            scorer._stage(req, program, bucket, scorer._vocab)
+            with torch.cuda.stream(scorer._stream):
+                program.dev_in.copy_(program.host_in)
+            replay_ms = stream_ms(program.graph.replay, scorer._stream)
+            eager_ms = stream_ms(program.body, scorer._stream)
+            device_ms = stream_ms(program.run, scorer._stream)
+        t0 = time.perf_counter()
+        for _ in range(SERVING_TIMING_REPS):
+            scorer.score_batch(req)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / SERVING_TIMING_REPS
+        bound_ms, bound_by, nbytes = bucket_bound(scorer, program)
+        rows.append({"bucket": bucket, "replay_ms": replay_ms, "eager_ms": eager_ms,
+                     "batch_device_ms": device_ms, "batch_host_ms": batch_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": nbytes})
+    return rows
+
+
+def run_serving_fixture(dev) -> dict:
+    """(b): one scorer per table dtype at bench.py's serving size, driven by
+    the closed-loop batcher; after warmup no capture and no new allocator
+    segment, one host sync a batch and no other (the loops run inside
+    :func:`no_stray_syncs`), parity within PARITY_TOL of the host oracle,
+    the table-bytes bars met."""
+    from photon_tpu_torch.drivers.serve_game import request_sizes
+    from photon_tpu_torch.game.lowp import PARITY_TOL, TABLE_DTYPES
+    from photon_tpu_torch.serving import (
+        GameScorer,
+        RequestBatcher,
+        build_requests,
+        concat_requests,
+        host_score_request,
+        request_spec_for_dataset,
+        run_closed_loop,
+    )
+    from photon_tpu_torch.telemetry import TelemetrySession
+
+    t0 = time.monotonic()
+    model, data = serving_fixture()
+    sizes = request_sizes(SERVING_REQUESTS, SERVING_MEAN_ROWS, SERVING_MAX_BATCH, seed=0)
+    requests = build_requests(data, model, sizes)
+    oracle = np.split(host_score_request(model, concat_requests(requests)),
+                      np.cumsum(sizes)[:-1])
+    spec = request_spec_for_dataset(model, data)
+    out = {"setup_s": time.monotonic() - t0, "rows": int(sizes.sum()),
+           "requests": len(requests), "dataset_rows": data.num_examples, "legs": {}}
+    log(f"  (b) fixture: {data.num_examples:,} rows, {SERVING_REQUESTS} requests "
+        f"({out['rows']:,} rows), set-up {out['setup_s']:.1f} s")
+    check_sync_guard(dev)
+    for dtype in TABLE_DTYPES:
+        session = TelemetrySession(f"serving-{dtype}")
+        t0 = time.monotonic()
+        scorer = GameScorer(model, device=dev, request_spec=spec,
+                            max_batch=SERVING_MAX_BATCH, telemetry=session,
+                            table_dtype=dtype).warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.monotonic() - t0
+        captures = scorer.compilations
+        segments = allocator_segments(dev)
+        passes = []
+        with no_stray_syncs(), RequestBatcher(
+                scorer, max_batch=SERVING_MAX_BATCH, max_delay_s=0.001,
+                telemetry=session) as batcher:
+            for _ in range(SERVING_PASSES):
+                passes.append(run_closed_loop(batcher, requests, clients=SERVING_CLIENTS))
+        segments_after = allocator_segments(dev)
+        _, latencies, wall = min(passes, key=lambda p: p[2])
+        deltas = [[float(np.abs(got - want).max()) for got, want in zip(p[0], oracle)]
+                  for p in passes]
+        worst_all = max(max(d) for d in deltas)
+        window = PARITY_WINDOW if dtype in WINDOWED_PARITY else SERVING_REQUESTS
+        worst = max(max(d[:window]) for d in deltas)
+        batches = counter_total(session, "serving.batches")
+        syncs = counter_total(session, "serving.host_syncs")
+        lat_ms = np.sort(np.asarray(latencies, np.float64)) * 1e3
+        leg = {
+            "captures_at_warmup": captures,
+            "captures_after_serving": scorer.compilations,
+            "segments_at_warmup": segments, "segments_after_serving": segments_after,
+            "batches": batches, "host_syncs": syncs, "worst_parity": worst,
+            "parity_requests": window, "worst_parity_all_requests": worst_all,
+            "parity_tol": PARITY_TOL[dtype],
+            "table_bytes": session.registry.gauge("serving.table_bytes",
+                                                  dtype=dtype).value,
+            "qps": len(requests) / wall, "rows_per_s": out["rows"] / wall,
+            "wall_s": wall, "walls_s": [p[2] for p in passes],
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "warmup_s": warmup_s,
+        }
+        per_bucket = {int(m["labels"]["bucket"]): m["value"]
+                      for m in session.registry.snapshot()["counters"]
+                      if m["name"] == "serving.batches"}
+        leg["buckets"] = serving_bucket_timings(scorer, concat_requests(requests[:40]))
+        # An estimate of the card's busy share over the closed loops, not a
+        # trace: each bucket's device work a batch (copies and replay, timed
+        # apart above) times its batches in the loops, over their wall.
+        device = {row["bucket"]: row["batch_device_ms"] for row in leg["buckets"]}
+        leg["busy_share_estimate"] = sum(
+            device[b] * count for b, count in per_bucket.items()) / (
+            1e3 * sum(p[2] for p in passes))
+        out["legs"][dtype] = leg
+        log(f"  (b) {dtype}: captures {captures} at warmup, {scorer.compilations} after "
+            f"serving; allocator segments {segments} -> {segments_after}; host syncs "
+            f"{syncs:.0f} for {batches:.0f} batches, no other sync; worst parity "
+            f"{worst:.3e} over the first {window} requests (tolerance "
+            f"{PARITY_TOL[dtype]:g}), {worst_all:.3e} over all; table bytes {leg['table_bytes']:.0f}; "
+            f"{leg['qps']:.1f} requests/s ({leg['rows_per_s']:,.0f} rows/s), p50 "
+            f"{leg['p50_ms']:.3f} ms, p99 {leg['p99_ms']:.3f} ms (best of "
+            f"{[round(w, 3) for w in leg['walls_s']]} s); warmup {warmup_s:.2f} s; "
+            f"busy share estimate (device ms a batch x batches / wall) "
+            f"{leg['busy_share_estimate']}")
+        for row in leg["buckets"]:
+            log(f"    bucket {row['bucket']}: replay {row['replay_ms']:.4f} ms, eager body "
+                f"{row['eager_ms']:.4f} ms, copies and replay "
+                f"{row['batch_device_ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.4f} us "
+                f"({row['bound_by']}, {row['bytes']:,} bytes), whole batch on the host "
+                f"clock {row['batch_host_ms']:.4f} ms")
+        if scorer.compilations != captures:
+            raise AssertionError(f"serving {dtype}: captured after warmup")
+        if segments_after != segments:
+            raise AssertionError(f"serving {dtype}: new allocator segments after warmup")
+        if syncs != batches or not batches:
+            raise AssertionError(f"serving {dtype}: {syncs} host syncs for {batches} batches")
+        if not worst <= PARITY_TOL[dtype]:
+            raise AssertionError(f"serving {dtype}: parity {worst:.3e} past its tolerance")
+    f32_bytes = out["legs"]["f32"]["table_bytes"]
+    for dtype, bar in TABLE_BYTES_BARS.items():
+        ratio = f32_bytes / out["legs"][dtype]["table_bytes"]
+        out["legs"][dtype]["bytes_ratio_vs_f32"] = ratio
+        log(f"  (b) {dtype} tables {ratio:.3f}x smaller than f32 (bar {bar}x)")
+        if ratio < bar:
+            raise AssertionError(f"serving {dtype}: table bytes {ratio:.3f}x under {bar}x")
+    return out
+
+
+def run_score_game(game: dict) -> dict:
+    """(a): score_game on phase 6's ``fused`` model over its Avro file, on
+    the card, on the host, and through the host oracle
+    (``PHOTON_BATCH_SCORER=host``), the scores within SCORE_GAME_ATOL."""
+    from photon_tpu_torch.drivers import score_game
+
+    model_dir = os.path.join(game["run_dirs"]["fused"], "best_model")
+    runs, scores = {}, {}
+    for name, backend, scorer in (("gpu", "gpu", None), ("cpu", "cpu", None),
+                                  ("host_oracle", "cpu", "host")):
+        before = os.environ.pop("PHOTON_BATCH_SCORER", None)
+        if scorer is not None:
+            os.environ["PHOTON_BATCH_SCORER"] = scorer
+        out_dir = os.path.join(os.path.dirname(game["avro"]), f"score_{name}")
+        try:
+            t0 = time.monotonic()
+            res = score_game.run(score_game.build_parser().parse_args([
+                "--input", game["avro"], "--model", model_dir, *GAME_BAGS,
+                "--evaluators", "AUC,LOGISTIC_LOSS", "--backend", backend,
+                "--output-dir", out_dir]))
+            wall = time.monotonic() - t0
+        finally:
+            os.environ.pop("PHOTON_BATCH_SCORER", None)
+            if before is not None:
+                os.environ["PHOTON_BATCH_SCORER"] = before
+        scores[name] = np.loadtxt(os.path.join(out_dir, "scores.txt"))
+        runs[name] = {"wall_s": wall, "rows": res["num_scored"], "metrics": res["metrics"],
+                      "phase_times": res["phase_times"]}
+        log(f"  (a) score_game {name}: {res['num_scored']:,} rows in {wall:.2f} s, "
+            f"phases { {k: round(v, 3) for k, v in res['phase_times'].items()} }, "
+            f"metrics {res['metrics']}")
+    for other in ("cpu", "host_oracle"):
+        diff = float(np.abs(scores["gpu"] - scores[other]).max())
+        runs[f"gpu_vs_{other}_max_abs_diff"] = diff
+        log(f"  (a) card against {other}: max |diff| {diff:.2e} "
+            f"(tolerance {SCORE_GAME_ATOL:g})")
+        if not diff <= SCORE_GAME_ATOL:
+            raise AssertionError(f"score_game: the card's scores differ from {other}")
+    return runs
+
+
+def run_serve_game(game: dict) -> dict:
+    """(c), first half: serve_game on phase 6's model, two replicas,
+    power-law traffic with a 10% cold-start storm and a deadline."""
+    import json as _json
+
+    from photon_tpu_torch.drivers import serve_game
+
+    out_dir = os.path.join(os.path.dirname(game["avro"]), "served")
+    summary = serve_game.run(serve_game.build_parser().parse_args([
+        "--model", os.path.join(game["run_dirs"]["fused"], "best_model"),
+        "--input", game["avro"], *GAME_BAGS, "--requests", str(FLEET_REQUESTS),
+        "--clients", str(SERVING_CLIENTS), "--replicas", "2", "--traffic", "powerlaw",
+        "--storm-frac", "0.1", "--deadline-ms", str(FLEET_DEADLINE_MS),
+        "--max-batch", str(SERVING_MAX_BATCH), "--max-delay-ms", "1",
+        "--backend", "gpu", "--output-dir", out_dir]))
+    with open(os.path.join(out_dir, "telemetry", "run_report.json")) as f:
+        counters = {}
+        for m in _json.load(f)["metrics"]["counters"]:
+            counters[m["name"]] = counters.get(m["name"], 0) + m["value"]
+    summary["host_syncs"] = counters.get("serving.host_syncs", 0)
+    summary["batches"] = counters.get("serving.batches", 0)
+    log(f"  (c) serve_game: {summary['served']}/{summary['requests']} served, "
+        f"{summary['shed']} shed, {summary['cold_entities']} cold entities, "
+        f"{summary['qps']} requests/s, p50 {summary['latency_p50_ms']} ms, p99 "
+        f"{summary['latency_p99_ms']} ms, {summary['compiled_programs']} programs "
+        f"captured, {summary['host_syncs']:.0f} host syncs for {summary['batches']:.0f} "
+        f"batches")
+    if summary["served"] + summary["shed"] != FLEET_REQUESTS or not summary["served"]:
+        raise AssertionError("serve_game: requests lost")
+    if summary["host_syncs"] != summary["batches"] or not summary["cold_entities"]:
+        raise AssertionError("serve_game: host syncs or the cold-start storm wrong")
+    return summary
+
+
+def retrain(game: dict) -> str:
+    """Phase 6's ``fused`` fit retrained with one descent iteration in
+    place of two: the same data, split and layout, other coefficients."""
+    from photon_tpu_torch.drivers import train_game
+
+    out_dir = os.path.join(os.path.dirname(game["avro"]), "retrained")
+    args = game_cli_args(game["avro"], out_dir, "gpu")
+    args[args.index("--descent-iterations") + 1] = "1"
+    before = os.environ.get("PHOTON_SPARSE_GRAD")
+    os.environ["PHOTON_SPARSE_GRAD"] = "fused"
+    try:
+        train_game.run(train_game.build_parser().parse_args(args))
+    finally:
+        if before is None:
+            os.environ.pop("PHOTON_SPARSE_GRAD", None)
+        else:
+            os.environ["PHOTON_SPARSE_GRAD"] = before
+    return os.path.join(out_dir, "best_model")
+
+
+def run_rollout(game: dict, dev) -> dict:
+    """(c), second half: a two-replica fleet on phase 6's ``fused`` model
+    under closed-loop power-law traffic; midway, a rollout of that fit
+    retrained (the same layout, other coefficients), the canary held to
+    the host oracle on a host copy of it.  No request may be dropped, every
+    response is wholly one model's, the tail is the new model's, nothing
+    captures, and traffic and rollout sync nothing but the scorers' one
+    wait a batch and a swap (inside :func:`no_stray_syncs`)."""
+    from photon_tpu_torch.data.game_io import read_game_avro
+    from photon_tpu_torch.game.model_io import load_game_model
+    from photon_tpu_torch.serving import (
+        ServingFleet,
+        TrafficSpec,
+        generate_traffic,
+        host_score_request,
+        request_spec_for_dataset,
+        run_closed_loop_outcomes,
+    )
+    from photon_tpu_torch.telemetry import TelemetrySession
+
+    old, maps = load_game_model(os.path.join(game["run_dirs"]["fused"], "best_model"),
+                                device=dev)
+    retrained = retrain(game)
+    new, _ = load_game_model(retrained, device=dev)
+    new_host, _ = load_game_model(retrained, device="cpu")
+    data, _ = read_game_avro(game["avro"], {"global": "global", "per_user": "per_user"},
+                             ["userId", "itemId"], index_maps=maps)
+    items = generate_traffic(data, old, TrafficSpec(
+        requests=ROLLOUT_REQUESTS, mean_rows=SERVING_MEAN_ROWS,
+        max_rows=SERVING_MAX_BATCH, storm_frac=0.1, seed=1)).items
+    session = TelemetrySession("rollout")
+    fleet = ServingFleet(old, replicas=2, device=dev,
+                         request_spec=request_spec_for_dataset(old, data),
+                         max_batch=SERVING_MAX_BATCH, max_delay_s=0.001,
+                         telemetry=session).warmup()
+    captures = fleet.compilations
+    result = {}
+
+    def drive():
+        result["outcomes"], result["wall"] = run_closed_loop_outcomes(
+            lambda tid: (lambda item: fleet.score(item.request)), items,
+            clients=SERVING_CLIENTS)
+
+    driver = threading.Thread(target=drive)
+    try:
+        with no_stray_syncs():
+            driver.start()
+            admitted = session.registry.counter("serving.admitted")
+            while admitted.value < ROLLOUT_REQUESTS // 3 and driver.is_alive():
+                time.sleep(0.001)
+            t0 = time.monotonic()
+            fleet.rollout(new, probe_oracle=lambda req: host_score_request(new_host, req))
+            rollout_s = time.monotonic() - t0
+            driver.join(timeout=600)
+    finally:
+        fleet.close()
+    if driver.is_alive():
+        raise AssertionError("rollout: the traffic did not finish")
+    outcomes = result["outcomes"]
+    verdicts = []
+    for o in outcomes:
+        if o.status != "ok":
+            raise AssertionError(f"rollout: a request was dropped ({o.status}: {o.reason})")
+        req = o.item.request
+        is_old = np.allclose(o.scores, host_score_request(old, req), rtol=0, atol=ROLLOUT_ATOL)
+        is_new = np.allclose(o.scores, host_score_request(new, req), rtol=0, atol=ROLLOUT_ATOL)
+        if not (is_old or is_new):
+            raise AssertionError("rollout: a response matches neither model")
+        verdicts.append((o.finished_at_s, "new" if is_new and not is_old else
+                         "old" if is_old and not is_new else "both"))
+    verdicts.sort()
+    counts = {k: sum(v == k for _, v in verdicts) for k in ("old", "new", "both")}
+    out = {"requests": len(outcomes), "rollout_s": rollout_s, "wall_s": result["wall"],
+           "responses": counts, "captures": captures,
+           "captures_after": fleet.compilations,
+           "host_syncs": counter_total(session, "serving.host_syncs"),
+           "batches": counter_total(session, "serving.batches"),
+           "swaps": counter_total(session, "serving.swaps")}
+    log(f"  (c) rollout under load: {len(outcomes)} requests, none dropped, responses "
+        f"{counts}, rollout {rollout_s * 1e3:.1f} ms, swaps {out['swaps']:.0f}, captures "
+        f"{captures} -> {fleet.compilations}, host syncs {out['host_syncs']:.0f} for "
+        f"{out['batches']:.0f} batches, no other sync")
+    if verdicts[-1][1] == "old" or not counts["old"] or out["swaps"] != 2:
+        raise AssertionError("rollout: the stream's tail is not the new model's")
+    if fleet.compilations != captures or out["host_syncs"] != out["batches"]:
+        raise AssertionError("rollout: captured after warmup, or syncs != batches")
+    return out
+
+
+def run_serving(game: dict, dev) -> dict:
+    """Phase 8: (a) score_game, (b) the scorer at bench.py's serving size
+    per table dtype, (c) serve_game and a rollout under load."""
+    out = {}
+    t0 = time.monotonic()
+    out["score_game"] = run_score_game(game)
+    out["score_game_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["scorer"] = run_serving_fixture(dev)
+    out["scorer_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["serve_game"] = run_serve_game(game)
+    out["rollout"] = run_rollout(game, dev)
+    out["fleet_s"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2409,18 +2925,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 5 took {time.monotonic() - t5:.1f} s")
 
-    t6 = time.monotonic()
-    log("phase 6: GAME, config 4 (fixed + per-user random effect) through train_game")
-    game = run_game(dev)
-    game["seconds"] = time.monotonic() - t6
-    log(f"  phase 6 took {game['seconds']:.1f} s")
+    game_tmp = tempfile.mkdtemp(prefix="chip_smoke_game_")
+    try:
+        t6 = time.monotonic()
+        log("phase 6: GAME, config 4 (fixed + per-user random effect) through train_game")
+        game = run_game(dev, game_tmp)
+        game["seconds"] = time.monotonic() - t6
+        log(f"  phase 6 took {game['seconds']:.1f} s")
 
-    t7 = time.monotonic()
-    log("phase 7: BASELINE.json config 2 (linear elastic net, OWL-QN) through the "
-        "train and score CLIs")
-    config2 = run_config2()
-    config2["seconds"] = time.monotonic() - t7
-    log(f"  phase 7 took {config2['seconds']:.1f} s")
+        t7 = time.monotonic()
+        log("phase 7: BASELINE.json config 2 (linear elastic net, OWL-QN) through the "
+            "train and score CLIs")
+        config2 = run_config2()
+        config2["seconds"] = time.monotonic() - t7
+        log(f"  phase 7 took {config2['seconds']:.1f} s")
+
+        t8 = time.monotonic()
+        log("phase 8: serving on the card (score_game, the scorer per table dtype, "
+            "serve_game and a rollout under load)")
+        kernel_counters = kernel_wrappers()
+        for c in kernel_counters:
+            c.launches = 0
+        serving = run_serving(game, dev)
+        serving["kernel_launches"] = {c.__name__: c.launches for c in kernel_counters
+                                      if c.launches}
+        serving["seconds"] = time.monotonic() - t8
+        log(f"  phase 8 launched {serving['kernel_launches'] or 'no hand-written kernel'} "
+            "(the serving path has none; the retrain runs K1)")
+        log(f"  phase 8 took {serving['seconds']:.1f} s")
+    finally:
+        shutil.rmtree(game_tmp, ignore_errors=True)
 
     timings = main_path["timings"]["uniform"]
     zipf = main_path["timings"]["zipf"]
@@ -2530,6 +3064,7 @@ def main() -> int:
     log(f"GAME ops: {json.dumps(game['ops'])}")
     log(f"GAME Avro reads: {json.dumps(game['avro_read_s'])}")
     log(f"config 2: {json.dumps(config2, default=str)}")
+    log(f"serving: {json.dumps(serving, default=str)}")
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

@@ -40,6 +40,8 @@ class RunLogger:
             )
             self._logger.addHandler(handler)
         self.phase_times: dict[str, float] = {}
+        # Set by TelemetrySession.attach: each timed phase becomes a span.
+        self.tracer = None
 
     def info(self, msg: str, *args) -> None:
         self._logger.info(msg, *args)
@@ -51,8 +53,11 @@ class RunLogger:
     def timed(self, phase: str) -> Iterator[None]:
         t0 = time.monotonic()
         self.info("phase %s: start", phase)
+        span = (self.tracer.span(phase) if self.tracer is not None
+                else contextlib.nullcontext())
         try:
-            yield
+            with span:
+                yield
         finally:
             self.phase_times[phase] = time.monotonic() - t0
             self.info("phase %s: %.3fs", phase, self.phase_times[phase])
@@ -63,6 +68,41 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="gpu (default) runs on the CUDA card and fails "
                         "without one; cpu runs on the host")
     parser.add_argument("--output-dir", required=True)
+
+
+def add_telemetry_arg(parser: argparse.ArgumentParser) -> None:
+    """The one definition of ``--telemetry``."""
+    parser.add_argument("--telemetry", action=argparse.BooleanOptionalAction,
+                        default=True,
+                        help="write structured telemetry (metrics registry "
+                        "snapshot, tracing spans, run report) under "
+                        "<output-dir>/telemetry/; PHOTON_TELEMETRY=off "
+                        "disables process-wide")
+
+
+@contextlib.contextmanager
+def telemetry_run(args: argparse.Namespace, driver: str, logger: RunLogger):
+    """Run-report bracket around a driver body: yields a telemetry session
+    attached to ``logger`` (every timed phase becomes a span), then writes
+    ``<output-dir>/telemetry/run_report.json`` — with status "error" and the
+    exception when the body raises.  A ``PHOTON_FAULTS`` plan restarts
+    fresh for the run."""
+    from photon_tpu_torch.fault.injection import reset_env_plan
+    from photon_tpu_torch.telemetry import TelemetrySession, telemetry_enabled
+
+    reset_env_plan()
+    session = TelemetrySession(
+        driver, enabled=telemetry_enabled(getattr(args, "telemetry", None))
+    )
+    session.attach(logger)
+    try:
+        yield session
+    except BaseException as e:
+        session.finalize(getattr(args, "output_dir", None), status="error",
+                         error=f"{type(e).__name__}: {e}")
+        raise
+    else:
+        session.finalize(getattr(args, "output_dir", None))
 
 
 def add_data_args(parser: argparse.ArgumentParser) -> None:

@@ -9,8 +9,14 @@ score 0.
 
 :func:`game_model_from_numpy` carries a GAME model trained by the JAX
 package (its arrays as numpy) across, as ``models.glm.from_numpy`` does for
-a GLM.  The serving table and its low-precision storage forms wait with
-serving (ROADMAP.md queue 1, item 7).
+a GLM.
+
+The serving forms feed :mod:`photon_tpu_torch.serving`: a fixed effect's
+weight vector (:meth:`FixedEffectModel.serving_weights`) and one gather
+table per random effect (:meth:`RandomEffectModel.serving_table`), whose
+rows past the vocabulary are zero, in f32, bf16 or int8 storage.  Every
+multiply-accumulate of :func:`serving_fixed_margins` and
+:func:`serving_gather_margins` is float32; only the storage narrows.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from photon_tpu_torch.core.losses import get_loss
 from photon_tpu_torch.data.batch import DenseBatch, SparseBatch
 from photon_tpu_torch.device import resolve_device
+from photon_tpu_torch.game import lowp
 from photon_tpu_torch.game.data import (
     DenseShard,
     GameDataset,
@@ -38,6 +45,11 @@ from photon_tpu_torch.models.glm import (
 )
 
 Tensor = torch.Tensor
+
+
+def pow2_at_least(n: int) -> int:
+    """Smallest power of two >= n (>= 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 def _f32(values, device) -> Tensor:
@@ -93,6 +105,42 @@ def random_margins(table: Tensor, entity_idx: Tensor, feats: tuple,
     return torch.where(entity_idx >= 0, m, torch.zeros_like(m))
 
 
+def serving_fixed_margins(w: Tensor, feats: tuple, dense: bool) -> Tensor:
+    """``w . x_i`` per row as the serving programs compute it.  The dense
+    form is an elementwise product and a sum, never a matmul: a matmul may
+    run in TF32 on the card, and the serving parity rule is float32."""
+    if dense:
+        return (feats[0] * w).sum(-1)
+    return fixed_margins(w, feats, dense)
+
+
+def serving_gather_margins(table, safe_idx: Tensor, feats: tuple,
+                           dense: bool) -> Tensor:
+    """Margins through the serving gather convention: ``safe_idx`` is in the
+    table already (unknown entities mapped by the caller to the zero row of
+    :meth:`RandomEffectModel.serving_table`), so the gather itself gives the
+    fixed-effect-only fallback with no output mask.
+
+    ``table`` is the storage form: an f32 or bf16 ``[capacity, dim]``
+    tensor, or an int8 ``(q, scale)`` pair.  The gather moves the stored
+    bytes and the decode runs on the gathered block; the accumulation is
+    float32."""
+    idx = safe_idx.long()
+    if isinstance(table, tuple):
+        q, scale = table
+        row_scale = scale[idx]
+        if dense:
+            rows = q[idx].to(torch.float32) * row_scale[:, None]
+            return (feats[0] * rows).sum(-1)
+        ids, vals = feats
+        gathered = q[idx[:, None], ids.long()].to(torch.float32)
+        return (gathered * row_scale[:, None] * vals).sum(-1)
+    if dense:
+        return (feats[0] * table[idx].to(torch.float32)).sum(-1)
+    ids, vals = feats
+    return (table[idx[:, None], ids.long()].to(torch.float32) * vals).sum(-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class FixedEffectModel:
     """Global GLM on one feature shard."""
@@ -113,6 +161,15 @@ class FixedEffectModel:
     def margins_device(self, feats: tuple, dense: bool) -> Tensor:
         """Margins against features already on the device."""
         return fixed_margins(self.coefficients.means, feats, dense)
+
+    def serving_weights(self, device=None) -> Tensor:
+        """The coefficient vector as the serving tables hold it: float32,
+        contiguous, a copy of its own on ``device`` (the means' device by
+        default)."""
+        means = self.coefficients.means
+        dev = means.device if device is None else resolve_device(device)
+        return means.detach().to(device=dev, dtype=torch.float32,
+                                 copy=True).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +211,45 @@ class RandomEffectModel:
     def margins_device(self, entity_idx: Tensor, feats: tuple, dense: bool) -> Tensor:
         """Margins against device features and a per-row entity index."""
         return random_margins(self.table, entity_idx, feats, dense)
+
+    @property
+    def serving_capacity(self) -> int:
+        """Default row capacity of the serving gather table: the next power
+        of two past ``num_entities + 1`` (the entities and the zero row).
+        The headroom lets a grown vocabulary swap into a live scorer in
+        place while ``num_entities + 1`` still fits."""
+        return pow2_at_least(self.num_entities + 1)
+
+    def serving_table(self, capacity: Optional[int] = None,
+                      dtype: Optional[str] = None, device=None):
+        """This coordinate's rows as one serving gather table on ``device``
+        (the table's own by default): ``[capacity, dim]`` (default
+        :attr:`serving_capacity`), rows ``num_entities`` .. ``capacity - 1``
+        zero.  The scorer maps unknown entities to the zero row at
+        ``num_entities``, so their margin is exactly zero.
+
+        ``dtype`` is the storage tier: ``"f32"`` (default); ``"bf16"``, the
+        same table cast; ``"int8"``, the pair ``(q int8 [capacity, dim],
+        scale f32 [capacity])`` of :func:`lowp.quantize_int8_table`, whose
+        zero rows store scale 0 and decode to exactly 0.  A vocabulary that
+        no longer fits ``capacity`` is a layout-shape change and raises."""
+        dtype = lowp.check_dtype(dtype)
+        capacity = self.serving_capacity if capacity is None else int(capacity)
+        if self.num_entities + 1 > capacity:
+            raise ValueError(
+                f"serving_table: vocabulary ({self.num_entities} entities "
+                f"+ zero row) exceeds the table capacity {capacity}; "
+                "capacity growth is a layout-shape change — rebuild the "
+                "scorer instead of hot-swapping"
+            )
+        dev = self.table.device if device is None else resolve_device(device)
+        table = torch.zeros(capacity, self.dim, dtype=torch.float32, device=dev)
+        table[: self.num_entities] = self.table.detach().to(dev, torch.float32)
+        if dtype == "bf16":
+            return table.to(torch.bfloat16)
+        if dtype == "int8":
+            return lowp.quantize_int8_table(table)
+        return table
 
 
 class DeviceScoringCache:

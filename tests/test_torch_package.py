@@ -52,10 +52,18 @@ def test_every_module_imports_without_jax():
         "for m in mods: importlib.import_module(m)\n"
         "want = {'photon_tpu_torch.tools.probe_common', 'photon_tpu_torch.tools.probe_permute',\n"
         "        'photon_tpu_torch.tools.probe_tiles', 'photon_tpu_torch.tools.probe_blocklocal',\n"
-        "        'photon_tpu_torch.utils.env', 'photon_tpu_torch.ops.probe_kernels'}\n"
+        "        'photon_tpu_torch.utils.env', 'photon_tpu_torch.ops.probe_kernels',\n"
+        "        'photon_tpu_torch.serving.scorer', 'photon_tpu_torch.serving.fleet',\n"
+        "        'photon_tpu_torch.serving.router', 'photon_tpu_torch.serving.traffic',\n"
+        "        'photon_tpu_torch.serving.batcher', 'photon_tpu_torch.telemetry.report',\n"
+        "        'photon_tpu_torch.telemetry.distributed', 'photon_tpu_torch.fault.retry',\n"
+        "        'photon_tpu_torch.fault.injection', 'photon_tpu_torch.fault.watchdog',\n"
+        "        'photon_tpu_torch.game.lowp', 'photon_tpu_torch.drivers.score_game',\n"
+        "        'photon_tpu_torch.drivers.serve_game'}\n"
         "assert want <= set(mods), sorted(want - set(mods))\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'photon_tpu.')) or m == 'photon_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'photon_tpu', 'ml_dtypes')\n"
+        "             or m.startswith(('jax.', 'photon_tpu.', 'ml_dtypes.')))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -80,7 +88,7 @@ def test_no_source_imports_photon_tpu_or_jax():
                 names = [node.module]
             for name in names:
                 top = name.split(".")[0]
-                if top in ("photon_tpu", "jax", "jaxlib"):
+                if top in ("photon_tpu", "jax", "jaxlib", "ml_dtypes"):
                     offenders.append(f"{path}: {name}")
     assert not offenders, offenders
 
@@ -101,6 +109,21 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     assert args.backend == "gpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         train.run(args)
+
+
+@pytest.mark.parametrize("driver", ["score_game", "serve_game"])
+def test_serving_drivers_default_to_the_card(monkeypatch, tmp_path, driver):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"photon_tpu_torch.drivers.{driver}")
+    args = mod.build_parser().parse_args([
+        "--input", "synthetic-game:8:2:3:2", "--model", str(tmp_path / "m"),
+        "--output-dir", str(tmp_path / "out"),
+    ])
+    assert args.backend == "gpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.run(args)
 
 
 def test_cpu_tensors_take_the_plain_version():
