@@ -126,12 +126,33 @@ Phases (any failure exits non-zero and prints no result line):
    power-law traffic, a 10% cold-start storm and a deadline, then a
    two-replica fleet under load taking a rollout of phase 6's fit retrained
    with one descent iteration: no request dropped, every response wholly
-   one model's, the tail the new model's, nothing captured.
+   one model's, the tail the new model's, nothing captured;
+9. the rest of GAME training through ``train_game`` at config 4's width on
+   phase 6's Avro file and split, each run on the card and with
+   ``--backend cpu``, every launch count set to 0 just before each run and
+   read after, the card held to the host under phase 6's gates: (9a) on
+   ``fused`` (K1 must launch), a fixed effect, an elastic-net per-user
+   effect (the ``vmapped`` route, lane OWL-QN) and a factored per-item
+   effect (rank 4, two alternations), its card model then scored by
+   ``score_game`` on the card; (9b) on ``pallas`` with
+   ``PHOTON_SOLVE_NEWTON=off``, warm-started from 9a's card model with the
+   fixed effect locked (its coefficients 9a's bit for bit; no kernel
+   launches, the locked coordinate being the one that reaches one), a
+   per-user TRON effect (lane TRON) and an index-map per-item effect; per
+   run the routes, solver iterations, host reads and ms of every bin;
+   (9c) ``bench.py``'s high-dimension entity leg on its fixture: d = 64,
+   256 and 1024 at 384, 160 and 32 entities and d = 256 at 10,000,
+   ``RandomEffectCoordinate.train`` on the Newton-CG route
+   (``PHOTON_NEWTON_MAX_DIM=0``) and on the vmapped L-BFGS route: every
+   bin routed ``newton_cg``, the routes within p99 5e-3 and max 5e-2 of
+   each other, solves/s per route and ms per lane Hv beside its bytes
+   bound, and at the first three points the card held to the host.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
 that the training paths launch none of them; K1's and K2's
-``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's); the last line is ``{"ok": true, "device":
+``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's,
+``phase9_launches`` phase 9's); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -1868,11 +1889,11 @@ def game_op_timings(data, dev) -> dict:
     """The random-effect path's torch ops and the score-table update on the
     card, at the training split's own bins (of ``data``, the dataset the
     first run read from the Avro file): per bin the lane objective's
-    value and gradient, its Hessian (a float64 scatter), one batched
-    Cholesky step, one line-search block of values and the whole Newton
-    fit, each beside the time its bytes
-    take at the card's memory rate; then one residual-engine update and one
-    offsets pass over the table."""
+    value and gradient (also with the vmapped route's float64 values), its
+    Hessian (a float64 scatter), one batched Cholesky step, one line-search
+    block of values (also in float64) and the whole Newton fit, each beside
+    the time its bytes take at the card's memory rate; then one
+    residual-engine update and one offsets pass over the table."""
     from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
     from photon_tpu_torch.core.optimizers import OptimizerConfig
     from photon_tpu_torch.core.optimizers.newton import newton_step
@@ -1906,12 +1927,17 @@ def game_op_timings(data, dev) -> dict:
             "bin": i, "entities": stats["live_entities"], "capacity": r, "k": k,
             "value_and_grad_ms": cuda_ms(lambda: lane.value_and_grad(w, batch)),
             "value_and_grad_bound_ms": (inputs + bsz * (d + 1) * 4) / HBM_BYTES_PER_S * 1e3,
+            # The vmapped route's float64 values, beside the Newton route's.
+            "value_and_grad_f64_ms": cuda_ms(
+                lambda: lane.value_and_grad(w, batch, torch.float64)),
             "hessian_ms": cuda_ms(lambda: lane.hessian_matrix(w, batch)),
             "hessian_bound_ms": (inputs + bsz * d * d * 4) / HBM_BYTES_PER_S * 1e3,
             "cholesky_step_ms": cuda_ms(lambda: newton_step(h, g)),
             # The line search's first block: t = 0 and 8 step sizes.
             "line_values_ms": cuda_ms(lambda: lane.line_values(w, g, ts, batch)),
             "line_values_bound_ms": (inputs + bsz * (2 * d + 9) * 4) / HBM_BYTES_PER_S * 1e3,
+            "line_values_f64_ms": cuda_ms(
+                lambda: lane.line_values(w, g, ts, batch, torch.float64)),
             "newton_fit_ms": cuda_ms(lambda: run_newton_fit(
                 lane, batch, w, cfg=problem.optimizer_config, variance="none"),
                 reps=2, warmup=1),
@@ -1919,10 +1945,12 @@ def game_op_timings(data, dev) -> dict:
         rows.append(row)
         log(f"    bin {i}: {stats['live_entities']} entities x {r} rows x k={k}: "
             f"value_and_grad {row['value_and_grad_ms']:.3f} ms (bytes bound "
-            f"{row['value_and_grad_bound_ms']:.4f}), hessian {row['hessian_ms']:.3f} ms "
+            f"{row['value_and_grad_bound_ms']:.4f}; float64 values "
+            f"{row['value_and_grad_f64_ms']:.3f}), hessian {row['hessian_ms']:.3f} ms "
             f"(bound {row['hessian_bound_ms']:.4f}), cholesky step "
             f"{row['cholesky_step_ms']:.3f} ms, line-search block "
-            f"{row['line_values_ms']:.3f} ms (bound {row['line_values_bound_ms']:.4f}), "
+            f"{row['line_values_ms']:.3f} ms (bound {row['line_values_bound_ms']:.4f}; "
+            f"float64 {row['line_values_f64_ms']:.3f}), "
             f"whole Newton fit "
             f"{row['newton_fit_ms']:.2f} ms")
     n = train.num_examples
@@ -2116,7 +2144,7 @@ def run_game(dev, tmp: str) -> dict:
             for b in per_user["bins"]:
                 log(f"      per_user bin {b['bin']}: {b['entities']} entities, "
                     f"capacity {b['capacity']}, route {b['route']}, "
-                    f"{b['newton_iterations']} Newton iterations, "
+                    f"{b['loop_iterations']} Newton iterations, "
                     f"{b['host_reads']} host reads, {1e3 * b['seconds']:.2f} ms")
     cpu_run, cpu_model = out["runs"]["cpu"]
     for name in ("fused", "pallas", "auto"):
@@ -2866,6 +2894,315 @@ def run_serving(game: dict, dev) -> dict:
     return out
 
 
+# Phase 9: the rest of GAME training at config 4's width, on phase 6's data
+# and split.  9a trains an elastic-net per-user effect (the vmapped route,
+# lane OWL-QN) and a factored per-item effect on `fused`; 9b warm-starts
+# from 9a's card model with the fixed effect locked, per-user TRON (the
+# vmapped route, PHOTON_SOLVE_NEWTON=off) and an index-map per-item effect.
+# Each on the card and the host, held to phase 6's gates.  9a's lanes run
+# with tolerance=0 and max_iters=20 (9b's with max_iters=20), to the
+# gradient tolerance or the cap: at the default relative tolerance (1e-7)
+# a lane stops ~1e-2 from its optimum, at an iteration that a last-digit
+# difference between the card's and the host's arithmetic can move, and
+# the factored coordinate's pooled L solve carries such a difference to
+# every item.  9a_default is 9a at the spec's defaults (the stopping rule a
+# train_game user gets): its metrics are held, its coefficients' card-host
+# gap is printed and recorded, not gated.
+RUN_9A = [
+    "--coordinate", "fixed:type=fixed,shard=global,max_iters=30",
+    "--coordinate", "per_user:type=random,shard=per_user,entity=userId,"
+                    "reg_type=elastic_net,alpha=0.5,max_iters=20,tolerance=0",
+    "--coordinate", "per_item:type=factored_random,shard=per_user,entity=itemId,"
+                    "latent_dim=4,latent_iterations=2,max_iters=20",
+]
+RUN_9A_DEFAULT = [
+    "--coordinate", "fixed:type=fixed,shard=global,max_iters=30",
+    "--coordinate", "per_user:type=random,shard=per_user,entity=userId,"
+                    "reg_type=elastic_net,alpha=0.5",
+    "--coordinate", "per_item:type=factored_random,shard=per_user,entity=itemId,"
+                    "latent_dim=4,latent_iterations=2",
+]
+RUN_9B = [
+    "--coordinate", "fixed:type=fixed,shard=global,max_iters=30",
+    "--coordinate", "per_user:type=random,shard=per_user,entity=userId,optimizer=tron,"
+                    "max_iters=20",
+    "--coordinate", "per_item:type=random,shard=per_user,entity=itemId,"
+                    "projection=index_map,max_iters=20",
+]
+# (run, PHOTON_SPARSE_GRAD, PHOTON_SOLVE_NEWTON, coordinates, the kernel it
+# must launch, coefficients gated).  9b locks the fixed effect, the one
+# coordinate whose fit reaches a kernel, so it launches none and sets no
+# sparse-gradient route: phase 9 drives K2 nowhere.
+PHASE9_RUNS = (("9a", "fused", None, RUN_9A, "fused_value_and_grad", True),
+               ("9a_default", "fused", None, RUN_9A_DEFAULT, "fused_value_and_grad",
+                False),
+               ("9b", None, "off", RUN_9B, None, True))
+# 9c: bench.py's high-dimension points (_bench_entities_hidim: dim,
+# entities) and d = 256 at 10,000 entities; the first three also on the host.
+HIDIM_POINTS = ((64, 384), (256, 160), (1024, 32), (256, 10_000))
+HIDIM_HOST_POINTS = 3
+HIDIM_P99, HIDIM_MAX = 5e-3, 5e-2
+# _hidim_solve_env: the Newton-CG route at every dim, and the vmapped L-BFGS.
+HIDIM_ENVS = {
+    "newton_cg": {"PHOTON_SOLVE_BINNING": "on", "PHOTON_SOLVE_NEWTON": "on",
+                  "PHOTON_SOLVE_NEWTON_CG": "on", "PHOTON_NEWTON_MAX_DIM": "0",
+                  "PHOTON_NEWTON_CG_MAX_DIM": "1024"},
+    "lbfgs": {"PHOTON_SOLVE_BINNING": "on", "PHOTON_SOLVE_NEWTON": "off",
+              "PHOTON_SOLVE_NEWTON_CG": "off"},
+}
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    """``os.environ`` updated with ``values`` (None deletes) inside."""
+    before = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def log_solver_records(name: str, history: list) -> None:
+    """Per descent iteration and coordinate: the routes the bins took, the
+    lane solvers' iterations, host reads and ms a bin."""
+    for h in history:
+        for coord, rec in h["solver"].items():
+            if "bins" not in rec:
+                log(f"    {name} iteration {h['iteration']} {coord}: "
+                    f"{rec['iterations']} iterations, {rec['evaluations']} evaluations, "
+                    f"{rec['host_reads']} host reads, {1e3 * rec['seconds']:.1f} ms")
+                continue
+            extra = {k: rec[k] for k in ("cg_iters", "cg_entities", "latent_iterations")
+                     if rec.get(k)}
+            log(f"    {name} iteration {h['iteration']} {coord}: {rec['entities']} "
+                f"entities, {rec['converged']} converged, iterations_max "
+                f"{rec['iterations_max']}, quarantined {rec['quarantined']} {extra}")
+            for b in rec["bins"]:
+                log(f"      bin {b['bin']}: {b['entities']} entities x capacity "
+                    f"{b['capacity']}, dim {b['solve_dim']}, route {b['route']}, "
+                    f"{b['loop_iterations']} solver iterations, {b['host_reads']} host "
+                    f"reads, {1e3 * b['seconds']:.2f} ms")
+
+
+def models_agree(name: str, model, ref, tol: float, gate: bool = True) -> dict:
+    """Every coordinate of ``model`` against ``ref``'s within rtol = atol =
+    ``tol``; returns the max |diff| per coordinate and, under
+    ``"rows_past"``, the rows past the tolerance per coordinate; with
+    ``gate`` a coordinate past it raises."""
+    errs, bad, past = {}, [], {}
+    for coord, m in model.coordinates.items():
+        r = ref.coordinate(coord)
+        got, want = ((m.coefficients.means, r.coefficients.means)
+                     if hasattr(m, "coefficients") else (m.table, r.table))
+        errs[coord] = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            over = (got - want).abs() > tol + tol * want.abs()
+            rows = over.reshape(over.shape[0], -1).any(-1) if over.dim() > 1 else over
+            past[coord] = f"{int(rows.sum())} of {rows.numel()}"
+            bad.append(f"{coord} (max |diff| {errs[coord]:.3e}, {past[coord]} rows past "
+                       "the tolerance)")
+    if bad and gate:
+        raise AssertionError(f"{name}: coefficients differ from the host run: "
+                             f"{'; '.join(bad)}")
+    return {**errs, "rows_past": past}
+
+
+def run_game_rest(game: dict) -> dict:
+    """Phase 9a and 9b: ``train_game`` on the card and with ``--backend cpu``,
+    every launch count set to 0 just before each run and read after; the
+    card held to the host (metrics GAME_METRIC_ATOL every iteration,
+    coefficients GAME_COEF_TOL, reported only for 9a_default); 9b's locked
+    coordinate bit for bit 9a's; 9a's card model scored through
+    ``score_game`` on the card."""
+    from photon_tpu_torch.drivers import score_game, train_game
+    from photon_tpu_torch.game.model_io import load_game_model
+
+    counters = kernel_wrappers()
+    out = {}
+    root = os.path.dirname(game["avro"])
+    for name, route, newton, coords, kernel, gated in PHASE9_RUNS:
+        models = {}
+        for backend in ("gpu", "cpu"):
+            run_dir = os.path.join(root, f"phase{name}_{backend}")
+            args = ["--input", game["avro"], *GAME_BAGS, *coords,
+                    "--descent-iterations", str(GAME_DESCENT_ITERATIONS),
+                    "--validation-split", "0.2", "--output-dir", run_dir,
+                    "--backend", backend]
+            if name == "9b":
+                args += ["--initial-model", os.path.join(root, "phase9a_gpu", "best_model"),
+                         "--locked-coordinates", "fixed"]
+            for c in counters:
+                c.launches = 0
+            with env_set({"PHOTON_SPARSE_GRAD": route, "PHOTON_SOLVE_NEWTON": newton}):
+                t0 = time.monotonic()
+                summary = train_game.run(train_game.build_parser().parse_args(args))
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            launches = {c.__name__: c.launches for c in counters if c.launches}
+            history = summary["sweep"][0]["history"]
+            models[backend] = load_game_model(os.path.join(run_dir, "best_model"),
+                                              device="cpu")[0]
+            out[f"{name}_{backend}"] = {
+                "wall_s": wall, "phase_times": summary["phase_times"],
+                "descent_iteration_s": [h["seconds"] for h in history],
+                "launches": launches, "best_metrics": summary["best_metrics"],
+                "history": history,
+            }
+            log(f"  {name} train_game ({backend}, route {route or 'unset'}, PHOTON_SOLVE_NEWTON "
+                f"{newton or 'on'}): {wall:.2f} s, descent iterations "
+                f"{[round(h['seconds'], 3) for h in history]} s, metrics "
+                f"{summary['best_metrics']}, launches {launches}")
+            log_solver_records(f"{name} {backend}", history)
+            if backend == "gpu" and (not launches.get(kernel) if kernel
+                                     else any(launches.values())):
+                raise AssertionError(f"phase {name}: launches {launches}, expected "
+                                     f"{kernel or 'none'}")
+        card, host = out[f"{name}_gpu"], out[f"{name}_cpu"]
+        for h, hc in zip(card["history"], host["history"]):
+            for metric, ref in hc["metrics"].items():
+                diff = abs(h["metrics"][metric] - ref)
+                if diff > GAME_METRIC_ATOL:
+                    raise AssertionError(f"phase {name}: {metric} at iteration "
+                                         f"{h['iteration']} differs from the host by "
+                                         f"{diff:.3e}")
+        card["coefficient_max_abs_diff_vs_cpu"] = models_agree(
+            f"phase {name}", models["gpu"], models["cpu"], GAME_COEF_TOL, gate=gated)
+        log(f"  {name} card vs host: metrics within {GAME_METRIC_ATOL:g}, coefficients "
+            f"max |diff| {card['coefficient_max_abs_diff_vs_cpu']} (rtol = atol = "
+            f"{GAME_COEF_TOL:g}{'' if gated else ', reported, not gated'})")
+        out[f"{name}_models"] = models
+    for backend in ("gpu", "cpu"):
+        locked = out["9b_models"][backend].coordinate("fixed").coefficients.means
+        if not torch.equal(locked, out["9a_models"]["gpu"].coordinate("fixed")
+                           .coefficients.means):
+            raise AssertionError(f"phase 9b ({backend}): the locked fixed effect moved")
+    log("  9b: the locked fixed effect equals 9a's bit for bit (card and host runs)")
+    score_dir = os.path.join(root, "phase9a_scores")
+    t0 = time.monotonic()
+    res = score_game.run(score_game.build_parser().parse_args([
+        "--input", game["avro"], "--model", os.path.join(root, "phase9a_gpu", "best_model"),
+        *GAME_BAGS, "--evaluators", "AUC,LOGISTIC_LOSS", "--backend", "gpu",
+        "--output-dir", score_dir]))
+    scores = np.loadtxt(os.path.join(score_dir, "scores.txt"))
+    out["9a_score_game"] = {"wall_s": time.monotonic() - t0, "rows": res["num_scored"],
+                            "metrics": res["metrics"]}
+    log(f"  9a's factored model through score_game on the card: {res['num_scored']:,} "
+        f"rows in {out['9a_score_game']['wall_s']:.2f} s, metrics {res['metrics']}")
+    if len(scores) != res["num_scored"] or not np.isfinite(scores).all():
+        raise AssertionError("phase 9a: score_game's scores are not finite")
+    for name, *_ in PHASE9_RUNS:
+        del out[f"{name}_models"]
+    for run in out.values():
+        run.pop("history", None)
+    return out
+
+
+def hidim_point(dim: int, n_entities: int, dev, on_host: bool) -> dict:
+    """One 9c point: ``RandomEffectCoordinate.train`` on bench.py's fixture
+    on the Newton-CG route and the vmapped L-BFGS route (a warm-up train,
+    then the best of two timed), held as bench.py holds them; per route
+    solves/s and, on the Newton-CG route, ms per lane Hv beside its bytes
+    bound; with ``on_host`` the same trains on the host, the card held to
+    them."""
+    from photon_tpu_torch.core.objective import RegularizationContext
+    from photon_tpu_torch.core.optimizers import OptimizerConfig
+    from photon_tpu_torch.core.problem import ProblemConfig
+    from photon_tpu_torch.data.fixtures import make_entities_dataset
+    from photon_tpu_torch.game.coordinate import (
+        RandomEffectCoordinate,
+        RandomEffectCoordinateConfig,
+    )
+
+    data = make_entities_dataset(n_entities, rows_mean=6, dim=dim, seed=5)
+    config = RandomEffectCoordinateConfig(
+        "re0", "re0", problem=ProblemConfig(
+            regularization=RegularizationContext("l2", 1.0),
+            optimizer_config=OptimizerConfig(max_iterations=50)))
+    offsets = np.zeros(data.num_examples, np.float32)
+    row = {"dim": dim, "entities": n_entities, "rows": data.num_examples}
+    tables = {}
+    for path, env in HIDIM_ENVS.items():
+        for where in (("card", "host") if on_host else ("card",)):
+            with env_set(env):
+                coord = RandomEffectCoordinate(data, config, "logistic_regression",
+                                               device=dev if where == "card" else "cpu")
+                coord.train(offsets)
+                best = float("inf")
+                for _ in range(2):
+                    t0 = time.monotonic()
+                    model, stats = coord.train(offsets)
+                    model.table.sum().item()
+                    best = min(best, time.monotonic() - t0)
+            tables[path, where] = model.table.cpu()
+            if where == "host":
+                continue
+            row[f"{path}_routes"] = sorted({b["route"] for b in stats.bins})
+            row[f"{path}_s"] = best
+            row[f"{path}_solves_per_s"] = n_entities / best
+            row[f"{path}_host_reads_per_bin"] = [b["host_reads"] for b in stats.bins]
+            row[f"{path}_loop_iterations"] = [b["loop_iterations"] for b in stats.bins]
+            if path == "newton_cg":
+                row["cg_iters_per_entity"] = stats["cg_iters"] / max(stats["cg_entities"], 1)
+                hv_rows = []
+                for i, bucket in enumerate(coord.device_data.device_buckets):
+                    batch = coord.device_data.batch_for(i, torch.zeros_like(bucket["weight"]))
+                    bsz, r, d = batch.x.shape
+                    w = torch.zeros(bsz, d, device=dev)
+                    v = torch.randn(bsz, d, device=dev)
+                    hv = coord.objective.hvp_operator(w, batch)
+                    # X v and X^T (D X v): x read twice, v, D and the output.
+                    nbytes = 4 * (2 * bsz * r * d + 2 * bsz * d + bsz * r)
+                    hv_rows.append({"bin": i, "lanes": bsz, "rows": r,
+                                    "ms": cuda_ms(lambda: hv(v)),
+                                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+                row["hv"] = hv_rows
+    if row["newton_cg_routes"] != ["newton_cg"]:
+        raise AssertionError(f"9c d={dim}: bins routed {row['newton_cg_routes']}, "
+                             "not all newton_cg")
+    diff = np.abs(tables["newton_cg", "card"].numpy() - tables["lbfgs", "card"].numpy())
+    row["p99_cross_route_diff"] = float(np.quantile(diff, 0.99))
+    row["max_cross_route_diff"] = float(diff.max())
+    if row["p99_cross_route_diff"] > HIDIM_P99 or row["max_cross_route_diff"] > HIDIM_MAX:
+        raise AssertionError(f"9c d={dim}: newton_cg vs lbfgs p99 "
+                             f"{row['p99_cross_route_diff']:.3e}, max "
+                             f"{row['max_cross_route_diff']:.3e}")
+    if on_host:
+        row["card_vs_host_max_abs_diff"] = {}
+        for path in HIDIM_ENVS:
+            got, want = tables[path, "card"], tables[path, "host"]
+            if not torch.allclose(got, want, rtol=GAME_COEF_TOL, atol=GAME_COEF_TOL):
+                raise AssertionError(f"9c d={dim} {path}: the card differs from the host "
+                                     f"by {float((got - want).abs().max()):.3e}")
+            row["card_vs_host_max_abs_diff"][path] = float((got - want).abs().max())
+    log(f"  9c d={dim}, {n_entities:,} entities ({row['rows']:,} rows): newton_cg "
+        f"{row['newton_cg_solves_per_s']:,.0f} solves/s ({row['newton_cg_s'] * 1e3:.1f} ms, "
+        f"{row['cg_iters_per_entity']:.1f} CG steps an entity, host reads a bin "
+        f"{row['newton_cg_host_reads_per_bin']}), lbfgs {row['lbfgs_solves_per_s']:,.0f} "
+        f"solves/s ({row['lbfgs_s'] * 1e3:.1f} ms, host reads a bin "
+        f"{row['lbfgs_host_reads_per_bin']}); routes p99 {row['p99_cross_route_diff']:.2e}, "
+        f"max {row['max_cross_route_diff']:.2e}; card vs host "
+        f"{row.get('card_vs_host_max_abs_diff', 'not run')}")
+    for h in row["hv"]:
+        log(f"    lane Hv, bin {h['bin']} ({h['lanes']} lanes x {h['rows']} rows): "
+            f"{h['ms']:.4f} ms (bytes bound {h['bound_ms']:.5f})")
+    return row
+
+
+def run_hidim(dev) -> list:
+    """Phase 9c: bench.py's high-dimension entity leg on the card."""
+    return [hidim_point(dim, n, dev, i < HIDIM_HOST_POINTS)
+            for i, (dim, n) in enumerate(HIDIM_POINTS)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2953,6 +3290,14 @@ def main() -> int:
         log(f"  phase 8 launched {serving['kernel_launches'] or 'no hand-written kernel'} "
             "(the serving path has none; the retrain runs K1)")
         log(f"  phase 8 took {serving['seconds']:.1f} s")
+
+        t9 = time.monotonic()
+        log("phase 9: the rest of GAME training (lane solves, projections, factored "
+            "effects, warm starts, locked coordinates) through train_game")
+        rest = run_game_rest(game)
+        rest["hidim"] = run_hidim(dev)
+        rest["seconds"] = time.monotonic() - t9
+        log(f"  phase 9 took {rest['seconds']:.1f} s")
     finally:
         shutil.rmtree(game_tmp, ignore_errors=True)
 
@@ -2974,6 +3319,9 @@ def main() -> int:
                               for name, run in game["runs"].items()},
             "config2_launches": {name: run["launches"].get("fused_sparse", 0)
                                  for name, run in config2["runs"].items()},
+            "phase9_launches": {name: run["launches"].get("fused_value_and_grad", 0)
+                                for name, run in rest.items() if name[:2] in ("9a", "9b")
+                                and "launches" in run},
             "config2": k_config2["fused_sparse"],
             "card": card,
         },
@@ -3005,6 +3353,10 @@ def main() -> int:
                               for name, run in game["runs"].items()},
             "config2_launches": {name: run["launches"].get("position_reduce", 0)
                                  for name, run in config2["runs"].items()},
+            "phase9_launches": {name: run["launches"].get("position_partial_sums", 0)
+                                for name, run in rest.items() if name[:2] in ("9a", "9b")
+                                and "launches" in run},
+            "phase9_note": "phase 9 drives K2 nowhere: 9b's one fixed effect is locked",
             "config2": {"grad": k_config2["position_reduce[grad]"],
                         "forward": k_config2["position_reduce[forward]"]},
         },
@@ -3065,6 +3417,7 @@ def main() -> int:
     log(f"GAME Avro reads: {json.dumps(game['avro_read_s'])}")
     log(f"config 2: {json.dumps(config2, default=str)}")
     log(f"serving: {json.dumps(serving, default=str)}")
+    log(f"phase 9: {json.dumps(rest, default=str)}")
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

@@ -28,6 +28,15 @@ from photon_tpu_torch.core.optimizers.base import (
     check_convergence,
     reason_is_converged,
 )
+from photon_tpu_torch.core.optimizers.lanes import (
+    BatchedResult,
+    LaneState,
+    armijo_lanes,
+    default_values,
+    dot,
+    norm,
+    polish_step,
+)
 
 Tensor = torch.Tensor
 
@@ -173,3 +182,121 @@ def lbfgs(
         history_value=hv, history_grad_norm=hg, history_valid=hvalid,
         host_reads=reads, evaluations=evaluations,
     )
+
+
+class LaneHistory:
+    """Per-lane ring buffers of (s, y) pairs (``S``, ``Y`` ``[B, m, d]``,
+    ``rho`` ``[B, m]``), the reference's L-BFGS state under ``vmap``: each
+    lane stores its own pairs at its own insert position."""
+
+    def __init__(self, m: int, w0: Tensor):
+        bsz, d = w0.shape
+        dev = w0.device
+        self.m = m
+        self.S = torch.zeros(bsz, m, d, dtype=w0.dtype, device=dev)
+        self.Y = torch.zeros_like(self.S)
+        self.rho = torch.zeros(bsz, m, dtype=w0.dtype, device=dev)
+        self.num_pairs = torch.zeros(bsz, dtype=torch.int64, device=dev)
+        self.insert_pos = torch.zeros(bsz, dtype=torch.int64, device=dev)
+        self.gamma = torch.ones(bsz, dtype=w0.dtype, device=dev)
+        self.lanes = torch.arange(bsz, device=dev)
+
+    def push(self, s: Tensor, y: Tensor, ok: Tensor) -> None:
+        """Store ``(s, y)`` on the lanes where ``ok`` and ``s.y`` is
+        positive (the cautious update)."""
+        sy = torch.sum(s * y, dim=-1)
+        ok = ok & (sy > _PAIR_EPS)
+        lanes, pos = self.lanes, self.insert_pos
+        self.S[lanes, pos] = torch.where(ok[:, None], s, self.S[lanes, pos])
+        self.Y[lanes, pos] = torch.where(ok[:, None], y, self.Y[lanes, pos])
+        self.rho[lanes, pos] = torch.where(
+            ok, 1.0 / torch.where(ok, sy, torch.ones_like(sy)), self.rho[lanes, pos])
+        self.num_pairs = torch.where(ok, torch.clamp_max(self.num_pairs + 1, self.m),
+                                     self.num_pairs)
+        self.insert_pos = torch.where(ok, (pos + 1) % self.m, pos)
+        self.gamma = torch.where(
+            ok, sy / torch.clamp_min(torch.sum(y * y, dim=-1), 1e-30), self.gamma)
+
+    def direction(self, g: Tensor) -> Tensor:
+        """``-H g`` per lane by the two-loop recursion.  The ring buffers
+        are first gathered newest first, so step ``j`` of both loops reads
+        slot ``j`` of every lane; a slot past a lane's pair count adds an
+        exact zero, and the valid slots run in the reference's order."""
+        m, d = self.m, g.shape[1]
+        order = (self.insert_pos[:, None] - 1
+                 - torch.arange(m, device=g.device)[None, :]) % m
+        S = self.S.gather(1, order[..., None].expand(-1, -1, d))
+        Y = self.Y.gather(1, order[..., None].expand(-1, -1, d))
+        rho = self.rho.gather(1, order)
+        zero = torch.zeros_like(self.gamma)
+        q, alphas = g, []
+        for j in range(m):  # newest first
+            valid = j < self.num_pairs
+            alpha = torch.where(valid, rho[:, j] * torch.sum(S[:, j] * q, dim=-1), zero)
+            q = q - alpha[:, None] * Y[:, j]
+            alphas.append(alpha)
+        r = self.gamma[:, None] * q
+        for j in range(m - 1, -1, -1):  # oldest first
+            valid = j < self.num_pairs
+            beta = torch.where(valid, rho[:, j] * torch.sum(Y[:, j] * r, dim=-1), zero)
+            r = r + torch.where(valid, alphas[j] - beta, zero)[:, None] * S[:, j]
+        return -r
+
+
+def lbfgs_lanes(
+    fun: Callable[[Tensor], tuple[Tensor, Tensor]],
+    w0: Tensor,
+    config: OptimizerConfig = OptimizerConfig(),
+    values: Callable[[Tensor, Tensor, Tensor], Tensor] | None = None,
+) -> BatchedResult:
+    """:func:`lbfgs` batched over lanes (``w`` ``[B, d]``, ``fun`` ->
+    ``([B], [B, d])``), the reference's ``lbfgs`` under ``vmap`` (GAME's
+    ``vmapped`` entity route): per lane the two-loop direction over its own
+    ring buffer, the steepest-descent fallback, ``t0 = 1 / max(|g|, 1)``
+    until the first pair, the Armijo search of :func:`lanes.armijo_lanes`
+    (``values`` as :func:`newton.newton`'s), the cautious pair update and
+    the two polish steps.  Returns a :class:`lanes.BatchedResult`; host
+    reads: one a line-search block."""
+    values = values or default_values(fun)
+    f, g = fun(w0)
+    w = w0
+    lanes = LaneState(f, norm(g), config)
+    hist = LaneHistory(config.history_length, w0)
+    any_active = bool(lanes.active.any())
+    reads, loops = 1, 0
+    while any_active:
+        loops += 1
+        dvec = hist.direction(g)
+        dir_deriv = dot(g, dvec)
+        # Steepest descent where the direction is not a descent direction.
+        bad = dir_deriv >= 0.0
+        dvec = torch.where(bad[:, None], -g, dvec)
+        dir_deriv = torch.where(bad, -dot(g, g), dir_deriv)
+        t0 = torch.where(hist.num_pairs == 0, 1.0 / torch.clamp_min(norm(g), 1.0),
+                         torch.ones_like(dir_deriv))
+
+        def trial(ts):
+            return values(w, dvec, ts), (_ARMIJO_C1 * ts) * dir_deriv[:, None]
+
+        def finish(t, ls_ok, f_try, level):
+            w_t = w + t[:, None] * dvec
+            f_t, g_t = fun(w_t)
+            decided = lanes.decide(f_try, level, norm(g_t), ls_ok)
+            return (w_t, f_t, g_t, ls_ok, decided), decided[1].any()
+
+        (w_t, f_t, g_t, ls_ok, decided), any_active, block_reads = armijo_lanes(
+            trial, t0, lanes.active, config.max_line_search + 1, finish)
+        reads += block_reads
+        hist.push(w_t - w, g_t - g, lanes.active & ls_ok)
+        keep = decided[3]  # on a failed search the old iterate stays
+        w = torch.where(keep[:, None], w_t, w)
+        f = torch.where(keep, f_t, f)
+        g = torch.where(keep[:, None], g_t, g)
+        lanes.commit(decided, f, norm(g))
+
+    # Full-step polish: two unsearched steps of the final quasi-Newton map,
+    # each kept per lane only when small, finite and not growing |g|.
+    every = torch.ones_like(lanes.active)
+    for _ in range(2):
+        w, f, g = polish_step(fun, w, f, g, hist.direction(g), every, no_growth=True)
+    return lanes.result(w, f, norm(g), loops, reads)

@@ -12,6 +12,12 @@ at a tight CG tolerance polish the result past the float32 value stall.
 Host reads: one per CG step (``d.Hd``, the residual norm, ``r.z``), one to
 start each CG solve, one per line-search trial and one for the direction
 test; ``OptimizerResult.host_reads`` reports the count.
+
+:func:`newton_cg_lanes` is the same solver batched over lanes, the
+reference's ``newton_cg`` under ``jax.vmap`` (GAME's ``newton_cg`` entity
+route): every update masked per lane, the CG steps in blocks of
+``lanes.CG_BLOCK`` and the step sizes in blocks of
+``lanes.LINE_SEARCH_BLOCK``, one host read a block.
 """
 
 from __future__ import annotations
@@ -28,6 +34,16 @@ from photon_tpu_torch.core.optimizers.base import (
     check_convergence,
     reason_is_converged,
 )
+from photon_tpu_torch.core.optimizers.lanes import (
+    CG_BLOCK,
+    BatchedResult,
+    LaneState,
+    default_values,
+    dot,
+    norm,
+    polish_step,
+)
+from photon_tpu_torch.core.optimizers.newton import damped_step
 
 Tensor = torch.Tensor
 f32 = np.float32
@@ -182,3 +198,107 @@ def newton_cg(
         history_value=hv_hist, history_grad_norm=hg, history_valid=hvalid,
         cg_iterations=cg_total, host_reads=reads,
     )
+
+
+def _pcg_lanes(hv: Callable[[Tensor], Tensor], g: Tensor, mdiag: Tensor,
+               tol: Tensor, max_cg: int, active: Tensor):
+    """:func:`_pcg` on every lane at once (``g``, ``mdiag`` ``[B, d]``,
+    ``tol`` ``[B]``), the reference's ``_pcg`` under ``vmap``: each step is
+    masked on the lanes still iterating, and the steps run in blocks of
+    :data:`lanes.CG_BLOCK`, one host read ("any lane still iterating") a
+    block.  Inactive lanes do not iterate.  Returns ``(p, steps [B] int32,
+    host reads)``."""
+    r = -g
+    z = r / mdiag
+    rz = dot(r, z)
+    p = torch.zeros_like(g)
+    dvec = z
+    it = torch.zeros(g.shape[0], dtype=torch.int32, device=g.device)
+    done = ~active | (norm(r) <= tol) | ~torch.isfinite(rz)
+    reads = 0
+    while True:
+        for _ in range(CG_BLOCK):
+            hd = hv(dvec)
+            dhd = dot(dvec, hd)
+            neg = dhd <= 0.0
+            alpha = rz / torch.where(neg, torch.ones_like(dhd), dhd)
+            p_new = p + alpha[:, None] * dvec
+            r_new = r - alpha[:, None] * hd
+            z_new = r_new / mdiag
+            rz_new = dot(r_new, z_new)
+            beta = rz_new / torch.where(rz > 0.0, rz, torch.ones_like(rz))
+            d_new = z_new + beta[:, None] * dvec
+            # Negative curvature keeps the iterate so far, or on the first
+            # step the preconditioned steepest-descent direction.
+            p_new = torch.where(neg[:, None], torch.where((it == 0)[:, None], z, p), p_new)
+            it_new = it + 1
+            done_new = (neg | (norm(r_new) <= tol) | (it_new >= max_cg)
+                        | ~torch.isfinite(rz_new))
+            step = ~done
+            p = torch.where(step[:, None], p_new, p)
+            r = torch.where(step[:, None], r_new, r)
+            z = torch.where(step[:, None], z_new, z)
+            dvec = torch.where(step[:, None], d_new, dvec)
+            rz = torch.where(step, rz_new, rz)
+            it = torch.where(step, it_new, it)
+            done = torch.where(step, done_new, done)
+        reads += 1
+        if bool(done.all()):
+            return p, it, reads
+
+
+def newton_cg_lanes(
+    fun: Callable[[Tensor], tuple[Tensor, Tensor]],
+    w0: Tensor,
+    config: OptimizerConfig = OptimizerConfig(),
+    hvp_at: Optional[Callable[[Tensor], Callable[[Tensor], Tensor]]] = None,
+    diag: Optional[Callable[[Tensor], Tensor]] = None,
+    values: Optional[Callable[[Tensor, Tensor, Tensor], Tensor]] = None,
+) -> BatchedResult:
+    """:func:`newton_cg` batched over lanes (``w`` ``[B, d]``, ``fun`` ->
+    ``([B], [B, d])``), the reference's ``newton_cg`` under ``vmap``:
+    ``hvp_at(w)`` returns ``v [B, d] -> H(w) v`` (for GLM lanes
+    ``LaneObjective.hvp_operator``: the per-row curvature once per outer
+    iteration, two lane matvecs a CG step, no ``[B, d, d]`` block);
+    ``diag(w)`` the Jacobi diagonal ``[B, d]``; ``values`` as
+    :func:`newton.newton`'s.  Per lane the Eisenstat-Walker tolerance, the
+    steepest-descent fallback, the Armijo search of :func:`newton.
+    damped_step` and the two polish steps at a tight CG tolerance.  Host
+    reads: one a CG block and one a line-search block."""
+    if hvp_at is None:
+        raise ValueError("newton_cg_lanes needs hvp_at (the curvature operator)")
+    if diag is None:
+        def diag(w):
+            return torch.ones_like(w)
+    values = values or default_values(fun)
+    max_cg = config.cg_max_iterations or min(int(w0.shape[1]), 256)
+    f, g = fun(w0)
+    w = w0
+    lanes = LaneState(f, norm(g), config)
+    cg = torch.zeros(w0.shape[0], dtype=torch.int32, device=w0.device)
+    any_active = bool(lanes.active.any())
+    reads, loops = 1, 0
+    while any_active:
+        loops += 1
+        mdiag = torch.clamp_min(diag(w), _DIAG_FLOOR)
+        gnorm = norm(g)
+        # Eisenstat-Walker forcing term: loose early, tight near the optimum.
+        eta = torch.clamp_max(
+            torch.sqrt(gnorm / torch.clamp_min(lanes.gnorm0, 1e-30)), 0.5)
+        step, cg_it, cg_reads = _pcg_lanes(hvp_at(w), g, mdiag, eta * gnorm,
+                                           max_cg, lanes.active)
+        cg = cg + cg_it
+        w, f, g, any_active, ls_reads = damped_step(
+            fun, values, lanes, w, f, g, step, ~torch.isfinite(step).all(dim=-1))
+        reads += cg_reads + ls_reads
+
+    # Full-step polish: two guarded Newton steps at a tight CG tolerance.
+    every = torch.ones_like(lanes.active)
+    for _ in range(2):
+        mdiag = torch.clamp_min(diag(w), _DIAG_FLOOR)
+        step, cg_it, cg_reads = _pcg_lanes(hvp_at(w), g, mdiag, _POLISH_ETA * norm(g),
+                                           max_cg, every)
+        cg = cg + cg_it
+        reads += cg_reads
+        w, f, g = polish_step(fun, w, f, g, step, every)
+    return lanes.result(w, f, norm(g), loops, reads, cg)

@@ -15,11 +15,16 @@ Host syncs: one per objective evaluation, as in the port's L-BFGS.  Each
 line-search trial reads one packed vector — the trial's total value, the
 projected Armijo verdict, ``s.y``, ``y.y`` and the trial's pseudo-gradient
 norm — and the host takes every decision from it.
+
+:func:`owlqn_lanes` is the same solver batched over lanes, the reference's
+``owlqn`` under ``jax.vmap`` (GAME's L1 and elastic-net entity solves):
+every update masked per lane, trial points evaluated as explicit
+orthant-projected points, one host read a block of step sizes.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -31,7 +36,19 @@ from photon_tpu_torch.core.optimizers.base import (
     check_convergence,
     reason_is_converged,
 )
-from photon_tpu_torch.core.optimizers.lbfgs import _ARMIJO_C1, _PAIR_EPS, _History
+from photon_tpu_torch.core.optimizers.lanes import (
+    BatchedResult,
+    LaneState,
+    armijo_lanes,
+    dot,
+    norm,
+)
+from photon_tpu_torch.core.optimizers.lbfgs import (
+    _ARMIJO_C1,
+    _PAIR_EPS,
+    LaneHistory,
+    _History,
+)
 
 Tensor = torch.Tensor
 
@@ -173,3 +190,94 @@ def owlqn(
         history_value=hv, history_grad_norm=hg, history_valid=hvalid,
         host_reads=reads, evaluations=evaluations,
     )
+
+
+def owlqn_lanes(
+    fun: Callable[[Tensor], tuple[Tensor, Tensor]],
+    w0: Tensor,
+    config: OptimizerConfig = OptimizerConfig(),
+    l1_weight: float = 0.0,
+    point_values: Optional[Callable[[Tensor], Tensor]] = None,
+) -> BatchedResult:
+    """:func:`owlqn` batched over lanes (``w`` ``[B, d]``, ``fun`` ->
+    smooth ``([B], [B, d])``), the reference's ``owlqn`` under ``vmap``
+    (GAME's ``vmapped`` route for L1 and elastic-net entity solves): per
+    lane the pseudo-gradient, the two-loop direction over its own ring
+    buffer (``lbfgs.LaneHistory``) projected onto the pseudo-gradient's
+    descent orthant, orthant-projected trial points, the projected Armijo
+    test on the total objective, the cautious pair update and the two
+    polish steps.
+
+    An orthant-projected trial point is not ``w + t * step``, so the line
+    search evaluates explicit points: ``point_values(points [B, T, d]) ->
+    [B, T]`` is the smooth objective at each (for GLM lanes
+    ``LaneObjective.point_values``), by default one ``fun`` call a column.
+    Host reads: one a line-search block."""
+    if point_values is None:
+        def point_values(points: Tensor) -> Tensor:
+            return torch.stack([fun(points[:, j])[0] for j in range(points.shape[1])], 1)
+    l1 = float(np.float32(l1_weight))
+
+    def total(w: Tensor, f_smooth: Tensor) -> Tensor:
+        # The l1 term in the smooth values' dtype (float64 on GAME lanes):
+        # a float32 |w|_1 would round away the progress the values resolve.
+        return f_smooth + l1 * torch.sum(torch.abs(w), dim=-1, dtype=f_smooth.dtype)
+
+    f, g = fun(w0)
+    w = w0
+    pg = _pseudo_gradient(w, g, l1)
+    lanes = LaneState(total(w, f), norm(pg), config)
+    hist = LaneHistory(config.history_length, w0)
+    any_active = bool(lanes.active.any())
+    reads, loops = 1, 0
+    while any_active:
+        loops += 1
+        pg = _pseudo_gradient(w, g, l1)
+        dvec = _project_direction(hist.direction(pg), pg)
+        # Steepest descent on the pseudo-gradient where the projected
+        # direction does not descend.
+        dvec = torch.where((dot(pg, dvec) >= 0.0)[:, None], -pg, dvec)
+        xi = _orthant(w, pg)
+        t0 = torch.where(hist.num_pairs == 0, 1.0 / torch.clamp_min(norm(pg), 1.0),
+                         torch.ones_like(lanes.gnorm0))
+
+        def trial(ts):
+            # Armijo on the total objective along the projected step:
+            # f(w_t) <= f(w) + c1 * pg . (w_t - w).
+            pts = _orthant_project(w[:, None] + ts[..., None] * dvec[:, None], xi[:, None])
+            return (total(pts, point_values(pts)),
+                    _ARMIJO_C1 * torch.sum(pg[:, None] * (pts - w[:, None]), dim=-1))
+
+        def finish(t, ls_ok, f_try, level):
+            w_t = _orthant_project(w + t[:, None] * dvec, xi)
+            f_t, g_t = fun(w_t)
+            decided = lanes.decide(f_try, level, norm(_pseudo_gradient(w_t, g_t, l1)),
+                                   ls_ok)
+            return (w_t, f_t, g_t, ls_ok, decided), decided[1].any()
+
+        (w_t, f_t, g_t, ls_ok, decided), any_active, block_reads = armijo_lanes(
+            trial, t0, lanes.active, config.max_line_search + 1, finish)
+        reads += block_reads
+        hist.push(w_t - w, g_t - g, lanes.active & ls_ok)
+        keep = decided[3]  # on a failed search the old iterate stays
+        w = torch.where(keep[:, None], w_t, w)
+        f = torch.where(keep, f_t, f)
+        g = torch.where(keep[:, None], g_t, g)
+        lanes.commit(decided, total(w, f), norm(_pseudo_gradient(w, g, l1)))
+
+    # Full-step polish through OWL-QN's machinery (exact zeros stay zero):
+    # each step kept per lane only when small, finite and not growing the
+    # pseudo-gradient.
+    for _ in range(2):
+        pg = _pseudo_gradient(w, g, l1)
+        step = _project_direction(hist.direction(pg), pg)
+        near = torch.isfinite(step).all(dim=-1) & (
+            norm(step) <= 1e-3 * torch.clamp_min(norm(w), 1.0))
+        w_p = torch.where(near[:, None], _orthant_project(w + step, _orthant(w, pg)), w)
+        f_p, g_p = fun(w_p)
+        keep = (near & torch.isfinite(f_p) & torch.isfinite(g_p).all(dim=-1)
+                & (norm(_pseudo_gradient(w_p, g_p, l1)) <= norm(pg)))
+        w = torch.where(keep[:, None], w_p, w)
+        f = torch.where(keep, f_p, f)
+        g = torch.where(keep[:, None], g_p, g)
+    return lanes.result(w, total(w, f), norm(_pseudo_gradient(w, g, l1)), loops, reads)

@@ -16,6 +16,11 @@ predicted and actual reduction and the new gradient norm) and one at the
 start.  The host takes every decision from them in float32 arithmetic, as
 the reference's device loop does; the vectors stay on the device.
 ``OptimizerResult.host_reads`` reports the count.
+
+:func:`tron_lanes` is the same solver batched over lanes, the reference's
+``tron`` under ``jax.vmap`` (GAME's TRON entity solves): a trust radius per
+lane, every update masked per lane, the CG steps in blocks with one host
+read a block and one an outer iteration.
 """
 
 from __future__ import annotations
@@ -31,6 +36,14 @@ from photon_tpu_torch.core.optimizers.base import (
     OptimizerResult,
     check_convergence,
     reason_is_converged,
+)
+from photon_tpu_torch.core.optimizers.lanes import (
+    CG_BLOCK,
+    BatchedResult,
+    LaneState,
+    check_convergence_lanes,
+    dot,
+    norm,
 )
 
 Tensor = torch.Tensor
@@ -178,3 +191,139 @@ def tron(
         history_value=hv, history_grad_norm=hg, history_valid=hvalid,
         cg_iterations=cg_total, host_reads=reads,
     )
+
+
+def _trcg_lanes(hvp: Callable[[Tensor], Tensor], g: Tensor, delta: Tensor,
+                max_cg: int, active: Tensor, cg_tolerance: float):
+    """:func:`_trcg` on every lane at once (``g`` ``[B, d]``, ``delta``
+    ``[B]``), the reference's ``_trcg`` under ``vmap``: each CG step masked
+    on the lanes still iterating, the steps in blocks of
+    :data:`lanes.CG_BLOCK`, one host read a block.  Returns ``(s, r, steps
+    [B] int32, host reads)``, ``r = -g - H s``."""
+    cg_tol = cg_tolerance * norm(g)
+    s = torch.zeros_like(g)
+    r = -g
+    d = r.clone()
+    rtr = dot(g, g)
+    it = torch.zeros(g.shape[0], dtype=torch.int32, device=g.device)
+    done = ~active | (torch.sqrt(rtr) <= cg_tol)
+    tiny = torch.full_like(rtr, float(_TINY))
+    one = torch.ones_like(rtr)
+    dsq = delta * delta
+    reads = 0
+    while True:
+        for _ in range(CG_BLOCK):
+            hd = hvp(d)
+            dhd = dot(d, hd)
+            # Flat directions (d.Hd ~ 0) stop at the boundary.
+            alpha = rtr / torch.where(dhd > _TINY, dhd, one)
+            bad_curv = dhd <= _TINY
+            s_try = s + alpha[:, None] * d
+            over = norm(s_try) > delta
+            # Truncate to the trust boundary along d from the previous s.
+            std, sts, dtd = dot(s, d), dot(s, s), dot(d, d)
+            rad = torch.sqrt(torch.clamp_min(std * std + dtd * (dsq - sts), 0.0))
+            alpha_b = torch.where(std >= 0.0,
+                                  (dsq - sts) / torch.maximum(std + rad, tiny),
+                                  (rad - std) / torch.maximum(dtd, tiny))
+            r_in = r - alpha[:, None] * hd
+            rtr_new = dot(r_in, r_in)
+            beta = rtr_new / torch.maximum(rtr, tiny)
+            d_new = r_in + beta[:, None] * d
+            stop_boundary = over | bad_curv
+            done_new = (stop_boundary | (torch.sqrt(rtr_new) <= cg_tol)
+                        | (it + 1 >= max_cg))
+            step = ~done
+            edge = (step & stop_boundary)[:, None]
+            inner = (step & ~stop_boundary)[:, None]
+            s = torch.where(edge, s + alpha_b[:, None] * d, torch.where(inner, s_try, s))
+            r = torch.where(edge, r - alpha_b[:, None] * hd, torch.where(inner, r_in, r))
+            d = torch.where(step[:, None], d_new, d)
+            rtr = torch.where(step, rtr_new, rtr)
+            it = torch.where(step, it + 1, it)
+            done = torch.where(step, done_new, done)
+        reads += 1
+        if bool(done.all()):
+            return s, r, it, reads
+
+
+def tron_lanes(
+    fun: Callable[[Tensor], tuple[Tensor, Tensor]],
+    w0: Tensor,
+    config: OptimizerConfig = OptimizerConfig(),
+    hvp_at: Optional[Callable[[Tensor], Callable[[Tensor], Tensor]]] = None,
+) -> BatchedResult:
+    """:func:`tron` batched over lanes (``w`` ``[B, d]``, ``fun`` ->
+    ``([B], [B, d])``), the reference's ``tron`` under ``vmap`` (GAME's
+    ``vmapped`` route for TRON entity solves): per lane a trust radius, the
+    truncated CG of :func:`_trcg_lanes` on ``hvp_at(w)`` (for GLM lanes
+    ``LaneObjective.hvp_operator``), LIBLINEAR's radius update and
+    acceptance test; rejected trials count toward ``max_iterations``.  Host
+    reads: one a CG block and one an outer iteration."""
+    if hvp_at is None:
+        raise ValueError("tron_lanes needs hvp_at (the curvature operator)")
+    max_cg = config.cg_max_iterations or min(int(w0.shape[1]), 100)
+    f, g = fun(w0)
+    w = w0
+    gnorm0 = norm(g)
+    lanes = LaneState(f, gnorm0, config)
+    delta = gnorm0.clone()
+    accepted = torch.zeros_like(lanes.it)
+    cg = torch.zeros_like(lanes.it)
+    any_active = bool(lanes.active.any())
+    reads, loops = 1, 0
+    while any_active:
+        loops += 1
+        active = lanes.active
+        step, resid, cg_it, cg_reads = _trcg_lanes(
+            hvp_at(w), g, delta, max_cg, active, config.cg_tolerance)
+        cg = cg + cg_it
+        w_new = w + step
+        f_new, g_new = fun(w_new)
+        gs = dot(g, step)
+        prered = -0.5 * (gs - dot(step, resid))
+        actred = f - f_new
+        snorm = norm(step)
+        # The first successful iteration clamps the radius to the step.
+        rad = torch.where(accepted == 0, torch.minimum(delta, snorm), delta)
+        denom = f_new - f - gs
+        alpha = torch.where(
+            denom <= 0.0, torch.full_like(denom, float(_SIGMA3)),
+            torch.clamp_min(-0.5 * (gs / torch.where(denom <= 0.0, torch.ones_like(denom),
+                                                     denom)), float(_SIGMA1)))
+        lo, hi = torch.minimum, torch.maximum
+        rad = torch.where(
+            actred < _ETA0 * prered,
+            lo(torch.clamp_min(alpha, float(_SIGMA1)) * snorm, _SIGMA2 * rad),
+            torch.where(
+                actred < _ETA1 * prered,
+                hi(_SIGMA1 * rad, lo(alpha * snorm, _SIGMA2 * rad)),
+                torch.where(actred < _ETA2 * prered,
+                            hi(_SIGMA1 * rad, lo(alpha * snorm, _SIGMA3 * rad)),
+                            hi(rad, lo(alpha * snorm, _SIGMA3 * rad)))))
+        accept = (actred > _ETA0 * prered) & torch.isfinite(f_new)
+        f_out = torch.where(accept, f_new, f)
+        gnorm_new = norm(torch.where(accept[:, None], g_new, g))
+        # Tolerances are tested only after accepted steps; a degenerate
+        # model (no predicted reduction possible) stops the lane.
+        converged, why = check_convergence_lanes(f_out, f, gnorm_new, gnorm0, config)
+        converged = converged & accept
+        why = torch.where(accept, why, ConvergenceReason.NOT_CONVERGED)
+        degenerate = (prered <= 0.0) & (actred <= 0.0)
+        why = torch.where(degenerate, ConvergenceReason.OBJECTIVE_NOT_IMPROVING, why)
+        it_new = lanes.it + 1
+        hit_max = it_new >= config.max_iterations
+        why = torch.where(hit_max & ~(converged | degenerate),
+                          ConvergenceReason.MAX_ITERATIONS, why).to(torch.int32)
+        still = active & ~(converged | degenerate | hit_max)
+        keep = active & accept
+        w = torch.where(keep[:, None], w_new, w)
+        f = torch.where(keep, f_new, f)
+        g = torch.where(keep[:, None], g_new, g)
+        delta = torch.where(active, rad.to(delta.dtype), delta)
+        accepted = torch.where(keep, accepted + 1, accepted)
+        lanes.commit((torch.where(active, it_new, lanes.it), still,
+                      torch.where(active, why, lanes.reason), keep), f, norm(g))
+        any_active = bool(still.any())
+        reads += cg_reads + 1
+    return lanes.result(w, f, norm(g), loops, reads, cg)

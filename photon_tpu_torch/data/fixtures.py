@@ -1,4 +1,5 @@
-"""The MovieLens-shaped GAME fixture (BASELINE.json config 4).
+"""The MovieLens-shaped GAME fixture (BASELINE.json config 4), and the
+entity-scaling fixture of ``bench.py``.
 
 A numpy copy of ``make_movielens_like`` and ``movielens_dataset`` from
 ``photon_tpu/data/fixtures.py``: with the same seed they give the
@@ -7,6 +8,8 @@ here, so the generator reproduces its shape — 18 genre indicators plus an
 intercept per rating, zipf item popularity, geometric per-user activity,
 ratings >= 4 as positives (~57.5%) — and ``movielens_dataset`` reads the
 real ``ml-1m`` files instead when ``PHOTON_REAL_DATA_DIR`` holds them.
+``make_entities_dataset`` is a copy of ``bench.py``'s ``_entities_dataset``
+(the same draw, so the same arrays).
 """
 
 from __future__ import annotations
@@ -179,3 +182,23 @@ def _movielens_real(mdir: str):
         id_columns={"userId": users, "itemId": items},
     )
     return data, index_maps
+
+
+def make_entities_dataset(n_entities: int, rows_mean: int = 3, dim: int = 8,
+                          seed: int = 0):
+    """``bench.py``'s entity-scaling fixture: one random-effect coordinate
+    ``re0`` over ``n_entities`` entities with geometric (skewed) rows an
+    entity and a dense ``dim``-feature shard whose last column is the
+    intercept; logistic labels from per-entity coefficients."""
+    from photon_tpu_torch.game.data import DenseShard, GameDataset
+
+    rng = np.random.default_rng(seed)
+    counts = np.maximum(1, rng.geometric(1.0 / rows_mean, n_entities))
+    n = int(counts.sum())
+    ent = np.repeat(np.arange(n_entities, dtype=np.int64), counts)
+    x = rng.standard_normal((n, dim)).astype(np.float32)
+    x[:, -1] = 1.0
+    w_true = (rng.standard_normal((n_entities, dim)) * 0.5).astype(np.float32)
+    z = np.einsum("nd,nd->n", x, w_true[ent])
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    return GameDataset.create(y, {"re0": DenseShard(x)}, id_columns={"re0": ent})

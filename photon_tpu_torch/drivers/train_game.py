@@ -16,22 +16,26 @@ validation data, and write the best GAME model and
         --descent-iterations 2 --validation-split 0.2 --output-dir out
 
 Coordinate specs are ``name:key=value,...`` (or one ``@file.json``); keys:
-``type`` (fixed|random), ``shard``, ``entity`` (random), ``optimizer``
-(lbfgs|tron; random-effect bins solve by batched Newton), ``reg_type``
-(none|l2; l1 and elastic_net, with ``alpha``, fit the fixed effect with
-OWL-QN), ``reg_weights`` (a ``+``-joined sweep), ``max_iters``,
-``tolerance``, ``variance`` (none|simple|full), ``active_row_cap``
-(random), ``downsample`` and ``downsampler`` (fixed: default|binary, by
-default the task's), ``seed``.  The sweep is the cross product of every coordinate's
-``reg_weights``.  ``--backend gpu`` (the default) runs on the card and
-fails without one; ``--backend cpu`` runs on the host.
+``type`` (fixed|random|factored_random), ``shard``, ``entity`` (random),
+``optimizer`` (lbfgs|tron|newton_cg; random-effect bins take the route
+``game/batched_solve.solver_route`` gives them), ``reg_type`` (none|l2;
+l1 and elastic_net, with ``alpha``, fit with OWL-QN), ``reg_weights`` (a
+``+``-joined sweep), ``max_iters``, ``tolerance``, ``variance``
+(none|simple|full), ``active_row_cap`` (random), ``projection``
+(none|index_map|random) and ``projected_dim`` (random), ``latent_dim`` and
+``latent_iterations`` (factored_random), ``downsample`` and
+``downsampler`` (fixed: default|binary, by default the task's), ``seed``.
+The sweep is the cross product of every coordinate's ``reg_weights``.
+``--initial-model`` warm-starts every fit from a saved GAME model and
+``--locked-coordinates`` keeps those coordinates at it.  ``--backend gpu``
+(the default) runs on the card and fails without one; ``--backend cpu``
+runs on the host.  The run report (``<output-dir>/telemetry/``) carries
+the entity solves' routes and bins.
 
 Flags of the reference that the port does not carry yet raise, naming
 their ROADMAP.md queue 1 item: streaming (9), checkpoints and fault flags
 (6), tuning and multi-process runs (10), ``--dtype`` other than float32
-(9), warm start and locked coordinates (5), and the coordinate keys
-``type=factored_random``, ``projection`` (5), ``row_split`` (10) and L1
-regularization of a random effect (5).
+(9), and the coordinate key ``row_split`` (10).
 """
 
 from __future__ import annotations
@@ -60,8 +64,6 @@ _NOT_PORTED = (
     ("stall_timeout", 6, "the run watchdog"),
     ("tuning", 10, "hyperparameter tuning"),
     ("coordinator", 10, "multi-process runs"),
-    ("initial_model", 5, "GAME warm starts"),
-    ("locked_coordinates", 5, "locked coordinates"),
 )
 
 
@@ -115,6 +117,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "before it fails; -1 = unlimited")
     p.add_argument("--dtype", default="float32",
                    help="feature value storage (only float32 is ported)")
+    p.add_argument("--initial-model", default=None,
+                   help="GAME model directory to warm-start from")
+    p.add_argument("--locked-coordinates", default=None,
+                   help="comma-separated coordinates to keep at the initial "
+                   "model (partial retraining)")
+    common.add_telemetry_arg(p)
     for flag, item, what in _NOT_PORTED:
         p.add_argument("--" + flag.replace("_", "-"), default=None,
                        help=f"not ported: {what} (ROADMAP.md queue 1, item {item})")
@@ -134,14 +142,12 @@ def _validate_coordinate(name: str, kv: dict, origin: str) -> tuple[str, dict]:
     if unknown:
         raise ValueError(f"unknown coordinate key(s) {sorted(unknown)} in {origin}")
     kind = kv.get("type", "fixed")
-    if kind == "factored_random":
-        raise NotImplementedError(
-            "factored random effects wait in ROADMAP.md queue 1, item 5")
-    if kind not in ("fixed", "random"):
-        raise ValueError(f"coordinate type must be fixed|random in {origin}")
+    if kind not in ("fixed", "random", "factored_random"):
+        raise ValueError(
+            f"coordinate type must be fixed|random|factored_random in {origin}")
     if "shard" not in kv:
         raise ValueError(f"coordinate {name!r} needs shard=<feature shard>")
-    if kind == "random" and "entity" not in kv:
+    if kind in ("random", "factored_random") and "entity" not in kv:
         raise ValueError(f"random coordinate {name!r} needs entity=<id column>")
     return name, kv
 
@@ -187,6 +193,7 @@ def _coord_config(kv: dict, lam: float, task: str):
     from photon_tpu_torch.core.optimizers import OptimizerConfig
     from photon_tpu_torch.core.problem import ProblemConfig
     from photon_tpu_torch.game.coordinate import (
+        FactoredRandomEffectCoordinateConfig,
         FixedEffectCoordinateConfig,
         RandomEffectCoordinateConfig,
     )
@@ -218,6 +225,23 @@ def _coord_config(kv: dict, lam: float, task: str):
             downsampler=downsampler, seed=int(kv.get("seed", 0)),
         )
     cap = kv.get("active_row_cap")
+    if kv.get("type") == "factored_random":
+        if _coord_bool(kv.get("row_split", False)):
+            raise ValueError("row_split is not supported for factored_random "
+                             "coordinates (the pooled latent solve spans every row)")
+        if kv.get("projection") or kv.get("projected_dim") or kv.get("variance"):
+            raise ValueError(
+                "projection/projected_dim/variance are not supported for "
+                "factored_random coordinates (the latent projection is the "
+                "dimensionality reduction; z-space variances do not transport "
+                "to w = L z)")
+        return FactoredRandomEffectCoordinateConfig(
+            shard_name=kv["shard"], entity_column=kv["entity"],
+            latent_dim=int(kv.get("latent_dim", 4)),
+            latent_iterations=int(kv.get("latent_iterations", 2)),
+            problem=problem, active_row_cap=None if cap in (None, "") else int(cap),
+            seed=int(kv.get("seed", 0)),
+        )
     pdim = kv.get("projected_dim")
     return RandomEffectCoordinateConfig(
         shard_name=kv["shard"], entity_column=kv["entity"], problem=problem,
@@ -290,6 +314,14 @@ def _reject_not_ported(args) -> None:
 
 
 def run(args: argparse.Namespace) -> dict:
+    _reject_not_ported(args)
+    logger = common.RunLogger("photon_tpu_torch.train_game")
+    os.makedirs(args.output_dir, exist_ok=True)
+    with common.telemetry_run(args, "train_game", logger) as session:
+        return _train(args, logger, session)
+
+
+def _train(args: argparse.Namespace, logger, session) -> dict:
     from photon_tpu_torch.data.validation import apply_validation, validate_game_dataset
     from photon_tpu_torch.evaluation.evaluators import (
         MultiEvaluator,
@@ -300,12 +332,9 @@ def run(args: argparse.Namespace) -> dict:
         GameEstimator,
         GameOptimizationConfiguration,
     )
-    from photon_tpu_torch.game.model_io import save_game_model
+    from photon_tpu_torch.game.model_io import load_game_model, save_game_model
 
-    _reject_not_ported(args)
     device = common.device_for_backend(args.backend)
-    logger = common.RunLogger("photon_tpu_torch.train_game")
-    os.makedirs(args.output_dir, exist_ok=True)
     specs = _coordinate_specs(args)
     sweep = _build_sweep(specs, args.task)
 
@@ -337,11 +366,17 @@ def run(args: argparse.Namespace) -> dict:
         evaluators = common.build_flat_evaluators(args.evaluators)
     else:
         evaluators = MultiEvaluator(default_evaluators_for_task(args.task))
+    initial_model = None
+    if args.initial_model:
+        # Joined onto this run's feature maps by (name, term).
+        initial_model, _ = load_game_model(args.initial_model, index_maps, device=device)
+    locked = ([c.strip() for c in args.locked_coordinates.split(",") if c.strip()]
+              if args.locked_coordinates else [])
     estimator = GameEstimator(
         args.task, data, validation_data=val_data,
         evaluators=evaluators if val_data is not None else None,
         device=device, logger=logger, residual_mode=args.residuals,
-        validation_mode=args.validation_pipeline,
+        validation_mode=args.validation_pipeline, telemetry=session,
     )
     max_quarantined = None if args.max_quarantined < 0 else args.max_quarantined
     results = []
@@ -350,7 +385,9 @@ def run(args: argparse.Namespace) -> dict:
             coordinates=coords, descent_iterations=args.descent_iterations,
             name=label)
         with logger.timed(f"fit-{label}"):
-            result = estimator.fit([config], max_quarantined=max_quarantined)[0]
+            result = estimator.fit([config], initial_model=initial_model,
+                                   locked_coordinates=locked,
+                                   max_quarantined=max_quarantined)[0]
         results.append(result)
         if args.save_all_models:
             save_game_model(os.path.join(args.output_dir, f"model_{label}"),

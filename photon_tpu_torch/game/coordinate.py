@@ -9,8 +9,14 @@ scores data with it:
   batch (``GlmOptimizationProblem``: L-BFGS or TRON through the route
   ``ops/sparse_grad_select`` picks, K1 on ``fused``, K2 on ``pallas``).
 - :class:`RandomEffectCoordinate` — per-entity GLMs, the entities of each
-  size bin solved together by the batched damped Newton
-  (``game/batched_solve.py``), converged lanes frozen.
+  size bin solved together along the bin's route (``game/batched_solve.py``:
+  the batched damped Newton, the matrix-free Newton-CG, or the problem's
+  own optimizer batched over lanes), converged lanes frozen; optionally in
+  a projected feature space (``game/projection.py``: per-entity index maps
+  or one random matrix), lifted back into the global table.
+- :class:`FactoredRandomEffectCoordinate` — per-entity coefficients
+  ``w_e = L z_e`` in a shared rank-``r`` subspace: lane L-BFGS solves of
+  the ``z_e`` alternate with one pooled L-BFGS solve of ``L``.
 
 Device data (``FixedEffectDeviceData`` / ``RandomEffectDeviceData``) is
 built and uploaded once per data configuration and shared across the
@@ -26,14 +32,18 @@ normalized space and stores its model in the original one, and a warm
 start re-enters the normalized space.  Random-effect coordinates refuse a
 normalization, as the reference's do.
 
-Not carried (each raises, naming its ROADMAP.md queue 1 item): the mesh and
-row-split placement (item 10), projections, factored random effects,
-onboarding and warm starts from a foreign vocabulary, and L1 entity
-solves (item 5).
+A warm start from a model with another entity vocabulary (one loaded from
+disk) joins the two by key on the host, once per keys object
+(:func:`_foreign_src_idx`), and may be scheduled while the fixed effect
+trains (:func:`prefetch_warm_joins`).
+
+Not carried: the mesh and row-split placement (they raise, naming
+ROADMAP.md queue 1, item 10) and onboarding (item 8).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import time
 from typing import Optional, Union
@@ -50,17 +60,26 @@ from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.game.batched_solve import (
     LaneObjective,
     record_bin_telemetry,
+    run_lane_fit,
+    run_newton_cg_fit,
     run_newton_fit,
     solver_route,
 )
 from photon_tpu_torch.game.data import (
+    DenseShard,
     GameDataset,
     RandomEffectDataset,
     _gather_shard_rows,
     build_random_effect_dataset,
+    entity_index_for,
     keys_match,
     merge_buckets,
     pad_bucket_entities,
+)
+from photon_tpu_torch.game.projection import (
+    IndexMapBucketProjection,
+    build_index_map_projection,
+    build_random_projection,
 )
 from photon_tpu_torch.game.model import (
     FixedEffectModel,
@@ -69,28 +88,34 @@ from photon_tpu_torch.game.model import (
     shard_to_batch,
 )
 from photon_tpu_torch.models.glm import Coefficients, model_for_task
+from photon_tpu_torch.telemetry import NULL_SESSION
 
 Tensor = torch.Tensor
 
 
 def _accumulate_solve_stats(acc: Tensor, entity_index: Tensor, num_entities: int,
-                            converged: Tensor, iterations: Tensor,
-                            good: Tensor) -> Tensor:
+                            converged: Tensor, iterations: Tensor, good: Tensor,
+                            cg_iterations: Optional[Tensor] = None) -> Tensor:
     """Fold one bin's solve into the coordinate's ``[6]`` int32 device
     accumulator ``[entities, converged, iterations_max, quarantined,
     cg_iters, cg_entities]``.  Padded entities (``entity_index >=
     num_entities``) count nowhere; a quarantined entity does not count as
-    converged.  The Newton route has no inner CG, so the last two stay 0."""
+    converged.  ``cg_iterations`` (per-entity inner CG steps, the routes
+    with an inner CG) sums into ``cg_iters`` and the same bins' entities
+    into ``cg_entities``; other routes add 0 to both."""
     real = entity_index < num_entities
     real_i = real.to(torch.int32)
-    zero = torch.zeros((), dtype=torch.int32, device=acc.device)
+    if cg_iterations is None:
+        cg = cg_entities = torch.zeros((), dtype=torch.int32, device=acc.device)
+    else:
+        cg, cg_entities = (cg_iterations.to(torch.int32) * real_i).sum(), real_i.sum()
     return torch.stack([
         acc[0] + real_i.sum(),
         acc[1] + ((converged & good).to(torch.int32) * real_i).sum(),
         torch.maximum(acc[2], torch.where(real, iterations.to(torch.int32), 0).max()),
         acc[3] + ((~good).to(torch.int32) * real_i).sum(),
-        acc[4] + zero,
-        acc[5] + zero,
+        acc[4] + cg,
+        acc[5] + cg_entities,
     ]).to(torch.int32)
 
 
@@ -98,21 +123,26 @@ class DeferredSolveStats:
     """A random-effect ``train``'s convergence statistics as one device
     int32 vector, read by the descent loop with everything else of the
     iteration in one host read (:meth:`resolve` takes the fetched vector).
-    ``bins`` holds the per-bin solve records (host values)."""
+    ``bins`` holds the per-bin solve records and ``extra`` static entries
+    (the factored coordinate's ``latent_iterations``), host values."""
 
     KEYS = ("entities", "converged", "iterations_max", "quarantined",
             "cg_iters", "cg_entities")
 
-    def __init__(self, device: Tensor, bins: Optional[list] = None):
+    def __init__(self, device: Tensor, bins: Optional[list] = None,
+                 extra: Optional[dict] = None):
         self.device = device
         self.bins = list(bins or [])
+        self.extra = dict(extra or {})
         self._resolved: Optional[dict] = None
 
     def resolve(self, host_vec=None) -> dict:
         if self._resolved is None:
             if host_vec is None:
                 host_vec = self.device.tolist()
-            self._resolved = {k: int(host_vec[i]) for i, k in enumerate(self.KEYS)}
+            stats = {k: int(host_vec[i]) for i, k in enumerate(self.KEYS)}
+            stats.update(self.extra)
+            self._resolved = stats
         return self._resolved
 
     def __getitem__(self, key):
@@ -121,6 +151,89 @@ class DeferredSolveStats:
     def __str__(self):
         return (str(self.resolve()) if self._resolved is not None
                 else "DeferredSolveStats(pending)")
+
+
+_JOIN_POOL: Optional[concurrent.futures.ThreadPoolExecutor] = None
+
+
+def _join_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """One host thread for the prefetched warm-start key joins."""
+    global _JOIN_POOL
+    if _JOIN_POOL is None:
+        _JOIN_POOL = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="photon-warm-join")
+    return _JOIN_POOL
+
+
+def _cache_join(cache: dict, model_keys, src_idx) -> None:
+    if len(cache) >= 8:
+        cache.pop(next(iter(cache)))
+    cache[id(model_keys)] = (model_keys, src_idx)
+
+
+def _foreign_src_idx(device_data, model_keys) -> np.ndarray:
+    """The cached foreign-vocabulary join: ``src_idx[e]`` is the row of
+    ``model_keys`` holding this dataset's entity ``e`` (-1 = absent).  Keyed
+    by the keys object's identity on the shared device data (the entry pins
+    the keys, so the id cannot be recycled): a sweep that re-passes one
+    warm-start model joins once.  An entry may hold the future of a join
+    :func:`prefetch_warm_joins` scheduled; the first use resolves it."""
+    cache = device_data._warm_join_cache
+    hit = cache.get(id(model_keys))
+    if hit is not None and hit[0] is model_keys:
+        src_idx = hit[1]
+        if isinstance(src_idx, concurrent.futures.Future):
+            src_idx = src_idx.result()
+            cache[id(model_keys)] = (model_keys, src_idx)
+        return src_idx
+    src_idx = entity_index_for(device_data.dataset.keys, np.asarray(model_keys))
+    _cache_join(cache, model_keys, src_idx)
+    return src_idx
+
+
+def prefetch_warm_joins(coordinates, initial_model, telemetry=None) -> int:
+    """Schedule the first foreign-vocabulary warm-start key joins on a host
+    thread, so they run while the fixed effect trains instead of blocking
+    the first random-effect ``train``.  A coordinate whose warm-start model
+    carries its own vocabulary needs no join.  Returns the number scheduled
+    (``descent.warm_join_prefetch`` counts them)."""
+    telemetry = telemetry or NULL_SESSION
+    scheduled = 0
+    for name, coord in coordinates.items():
+        device_data = getattr(coord, "device_data", None)
+        dataset = getattr(device_data, "dataset", None)
+        model = initial_model.coordinates.get(name)
+        if dataset is None or not isinstance(model, RandomEffectModel):
+            continue
+        if keys_match(model.keys, dataset.keys):
+            continue
+        hit = device_data._warm_join_cache.get(id(model.keys))
+        if hit is not None and hit[0] is model.keys:
+            continue  # joined, or scheduled, already
+        future = _join_pool().submit(entity_index_for, dataset.keys,
+                                     np.asarray(model.keys))
+        _cache_join(device_data._warm_join_cache, model.keys, future)
+        scheduled += 1
+        telemetry.counter("descent.warm_join_prefetch", coordinate=name).inc()
+    return scheduled
+
+
+def _align_foreign_table(coord, initial_model) -> np.ndarray:
+    """The key-aligned host ``[E + 1, dim]`` table of a foreign warm-start
+    model (unseen entities zero; the last row is the dummy slot of padded
+    entities), its host traffic counted as ``descent.host_transfer_bytes``
+    ``path=warm_start``."""
+    telemetry = getattr(coord, "telemetry", NULL_SESSION)
+    aligned = np.zeros((coord.dataset.num_entities + 1, coord.dim), np.float32)
+    src_idx = _foreign_src_idx(coord.device_data, initial_model.keys)
+    found = src_idx >= 0
+    table = initial_model.table.detach().cpu().numpy()
+    telemetry.counter("descent.host_transfer_bytes", direction="d2h",
+                      path="warm_start").inc(table.nbytes)
+    aligned[:-1][found] = table[src_idx[found]]
+    telemetry.counter("descent.host_transfer_bytes", direction="h2d",
+                      path="warm_start").inc(aligned.nbytes)
+    return aligned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,11 +273,12 @@ class RandomEffectCoordinateConfig:
     def __post_init__(self):
         if self.projection not in ("none", "index_map", "random"):
             raise ValueError(f"unknown projection {self.projection!r}")
-        if self.projection != "none" or self.projected_dim:
-            raise NotImplementedError(
-                "random-effect feature projections wait with game/projection.py "
-                "in ROADMAP.md queue 1, item 5"
-            )
+        if self.projection == "random" and not self.projected_dim:
+            raise ValueError("random projection needs projected_dim")
+        if self.row_split and self.projection == "index_map":
+            # Each entity's index map comes from its own rows; a row slice
+            # per shard would give each shard another projection.
+            raise ValueError("row_split does not support index_map projection")
         if self.row_split:
             raise NotImplementedError(
                 "row-split entity placement needs a device mesh, which waits "
@@ -178,7 +292,59 @@ class RandomEffectCoordinateConfig:
                 self.seed, self.row_split)
 
 
-CoordinateConfig = Union[FixedEffectCoordinateConfig, RandomEffectCoordinateConfig]
+@dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectCoordinateConfig:
+    """A latent-factor random effect: per-entity coefficients in a shared
+    ``latent_dim``-rank subspace, ``w_e = L z_e`` with ``L [d, r]`` learned
+    on the pooled data and ``z_e`` per entity; ``latent_iterations``
+    alternations of the ``z`` solves and the ``L`` solve."""
+
+    kind = "factored_random"
+
+    shard_name: str
+    entity_column: str
+    latent_dim: int = 4
+    problem: ProblemConfig = ProblemConfig()
+    latent_iterations: int = 2
+    active_row_cap: Optional[int] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.latent_dim < 1:
+            raise ValueError("latent_dim must be >= 1")
+        if self.latent_iterations < 2:
+            # One alternation would fit z against the random L and never
+            # solve L.
+            raise ValueError("latent_iterations must be >= 2 (z,L,...,z)")
+        if self.problem.variance_computation != "none":
+            raise ValueError(
+                "variance computation is not supported for factored random "
+                "effects (z-space variances do not transport to w = L z)"
+            )
+        if self.problem.regularization.l1_weight > 0 or (
+                self.problem.optimizer.lower() not in ("lbfgs", "l-bfgs")):
+            raise ValueError(
+                "factored random effects support lbfgs with none/l2 "
+                "regularization only (the pooled projection solve is a "
+                "smooth L-BFGS problem)"
+            )
+
+    @property
+    def data_key(self):
+        # The device data of the unprojected random coordinate: the latent
+        # projection is learned, so the bins hold raw features.
+        return self.as_random_config().data_key
+
+    def as_random_config(self) -> RandomEffectCoordinateConfig:
+        return RandomEffectCoordinateConfig(
+            shard_name=self.shard_name, entity_column=self.entity_column,
+            problem=self.problem, active_row_cap=self.active_row_cap,
+            seed=self.seed,
+        )
+
+
+CoordinateConfig = Union[FixedEffectCoordinateConfig, RandomEffectCoordinateConfig,
+                         FactoredRandomEffectCoordinateConfig]
 
 
 class FixedEffectDeviceData:
@@ -237,10 +403,10 @@ class FixedEffectDeviceData:
 class RandomEffectDeviceData:
     """The entities of one random-effect data configuration, grouped into
     size bins (``batched_solve.bin_layout``) and uploaded once: per bin the
-    ``[E, R, ...]`` features, labels, weights and entity indices.  Padded
-    entities (none on one device, where ``pad_bucket_entities`` adds
-    nothing) would carry ``entity_index == num_entities``, the coefficient
-    table's dummy slot."""
+    ``[E, R, ...]`` features (projected when the configuration asks for a
+    projection), labels, weights and entity indices.  Padded entities (none
+    on one device, where ``pad_bucket_entities`` adds nothing) would carry
+    ``entity_index == num_entities``, the coefficient table's dummy slot."""
 
     def __init__(self, data: GameDataset, config: RandomEffectCoordinateConfig,
                  device=None):
@@ -253,8 +419,15 @@ class RandomEffectDeviceData:
             active_row_cap=config.active_row_cap, seed=config.seed,
         )
         self.dim = self.dataset.dim
+        # One global random matrix, the reference's numpy draw.
+        self.random_matrix = None
+        if config.projection == "random":
+            self.random_matrix = build_random_projection(
+                self.dim, config.projected_dim, seed=config.seed)
         self.score_feats: Optional[tuple] = None
         self.score_entity_idx: Optional[Tensor] = None
+        # Foreign warm-start joins: keys-object identity -> src_idx.
+        self._warm_join_cache: dict = {}
         self.buckets: list = []
         self.device_buckets: list = []
         self.bin_stats: list = []
@@ -275,18 +448,58 @@ class RandomEffectDeviceData:
 
     def _upload(self, bucket) -> dict:
         dev = self.device
-        feats, dense = shard_feats(bucket.features, dev)
+        proj = None
+        if self.config.projection == "index_map":
+            proj = build_index_map_projection(bucket)
+        elif self.config.projection == "random":
+            proj = self.random_matrix
+        features = bucket.features if proj is None else proj.project(bucket.features)
+        feats, dense = shard_feats(features, dev)
         if not dense:  # int64 once here: every lane evaluation gathers by them
             feats = (feats[0].long(), feats[1])
+        solve_dim = self.dim if proj is None else proj.projected_dim
         return {
             "feats": feats, "dense": dense,
             "label": torch.as_tensor(bucket.label, device=dev),
             "weight": torch.as_tensor(bucket.row_weight, device=dev),
             "entity_index": torch.as_tensor(bucket.entity_index, device=dev).long(),
-            "solve_dim": self.dim,
-            "w0": torch.zeros(bucket.num_entities, self.dim, dtype=torch.float32,
+            "proj": proj,
+            "solve_dim": solve_dim,
+            "w0": torch.zeros(bucket.num_entities, solve_dim, dtype=torch.float32,
                               device=dev),
         }
+
+    def projection_buffers(self, i: int) -> tuple:
+        """Bin ``i``'s projection on the device, uploaded on first use:
+        ``(ids [E, p] int64, mask [E, p])`` of an index map, or ``(R [d, p],
+        1 / diag(R^T R) [p])`` of the random matrix."""
+        dev = self.device_buckets[i]
+        if "proj_buffers" not in dev:
+            proj = dev["proj"]
+            if isinstance(proj, IndexMapBucketProjection):
+                ids, mask = proj.scatter_args()
+                dev["proj_buffers"] = (
+                    torch.as_tensor(ids, device=self.device).long(),
+                    torch.as_tensor(mask, device=self.device))
+            else:
+                col_norms = (proj.matrix ** 2).sum(axis=0)
+                dev["proj_buffers"] = (
+                    torch.as_tensor(proj.matrix, device=self.device),
+                    torch.as_tensor((1.0 / np.maximum(col_norms, 1e-12)).astype(np.float32),
+                                    device=self.device))
+        return dev["proj_buffers"]
+
+    def restrict_device(self, i: int, table: Tensor) -> Tensor:
+        """Bin ``i``'s warm start in its solve space, on the device: the
+        local coefficients of the globally gathered ``[E_b, dim]`` rows (an
+        index map's active columns, or the random matrix's column-normalized
+        least-squares pullback, ``RandomProjectionMatrix.restrict_table``)."""
+        if self.device_buckets[i]["proj"] is None:
+            return table
+        a, b = self.projection_buffers(i)
+        if isinstance(self.device_buckets[i]["proj"], IndexMapBucketProjection):
+            return torch.gather(table, 1, a) * b
+        return (table @ a) * b
 
     def gather_buffers(self, i: int) -> tuple[Tensor, Tensor]:
         """Bin ``i``'s ``row_index`` and row mask on the device, uploaded on
@@ -412,9 +625,9 @@ class FixedEffectCoordinate:
 
 
 class RandomEffectCoordinate:
-    """Per-entity GLM fits, each size bin's entities solved together by the
-    batched damped Newton; early-converging entities freeze while the
-    others iterate."""
+    """Per-entity GLM fits, each size bin's entities solved together along
+    the bin's route; early-converging entities freeze while the others
+    iterate."""
 
     kind = "random"
 
@@ -430,32 +643,51 @@ class RandomEffectCoordinate:
         self.dim = self.dataset.dim
         self.objective = LaneObjective.of(
             GlmObjective.create(task_type, config.problem.regularization))
-        # Every bin's route is resolved now, so a route the port does not
-        # carry raises before any work.
-        self.routes = [
-            solver_route(config.problem, dev["solve_dim"])
-            for dev in self.device_data.device_buckets
-        ]
-        self.telemetry = None
-        record_bin_telemetry(self.telemetry, config.shard_name,
-                             self.device_data.bin_stats, self.routes)
+        # The estimator names the coordinate and hands it the run's session.
+        self.name = config.shard_name
+        self.telemetry = NULL_SESSION
+        self._bins_recorded = None
+
+    @property
+    def routes(self) -> list:
+        """Each bin's route (``batched_solve.solver_route``)."""
+        return [solver_route(self.config.problem, dev["solve_dim"])
+                for dev in self.device_data.device_buckets]
+
+    def _solve_bin(self, route: str, batch, w0: Tensor):
+        """One bin's batched solve along its route: the batched Newton
+        (small smooth bins), the matrix-free Newton-CG, or the problem's own
+        optimizer batched over lanes (``vmapped``).  Row-split placement
+        (item 10) raises where its configuration is made."""
+        cfg = self.config.problem
+        if route == "newton":
+            return run_newton_fit(self.objective, batch, w0, cfg=cfg.optimizer_config,
+                                  variance=cfg.variance_computation)
+        if route == "newton_cg":
+            return run_newton_cg_fit(self.objective, batch, w0,
+                                     cfg=cfg.optimizer_config,
+                                     variance=cfg.variance_computation)
+        return run_lane_fit(self.objective, batch, w0, optimizer=cfg.optimizer,
+                            cfg=cfg.optimizer_config,
+                            variance=cfg.variance_computation)
 
     def _initial_table(self, initial_model: RandomEffectModel) -> Tensor:
-        """The warm-start table with the dummy row appended.  Descent
-        re-passes the model this coordinate trained, whose keys are the
-        dataset's own: that stays on the device."""
+        """The warm-start table aligned onto this dataset's vocabulary, with
+        the dummy row appended; entities the model lacks start at zero.
+        Descent re-passes the model this coordinate trained, whose keys are
+        the dataset's own: that stays on the device.  A foreign vocabulary
+        (a model from disk) joins by key on the host, cached per keys
+        object (:func:`_align_foreign_table`)."""
         if initial_model.dim != self.dim:
             raise ValueError(
                 f"warm-start model dim {initial_model.dim} != coordinate dim {self.dim}"
             )
-        if not keys_match(initial_model.keys, self.dataset.keys):
-            raise NotImplementedError(
-                "warm starts from another entity vocabulary wait in "
-                "ROADMAP.md queue 1, item 5"
-            )
-        table = initial_model.table.to(self.device, torch.float32)
-        return torch.cat([table, torch.zeros(1, self.dim, dtype=table.dtype,
-                                             device=self.device)])
+        if keys_match(initial_model.keys, self.dataset.keys):
+            table = initial_model.table.to(self.device, torch.float32)
+            return torch.cat([table, torch.zeros(1, self.dim, dtype=table.dtype,
+                                                 device=self.device)])
+        return torch.as_tensor(_align_foreign_table(self, initial_model),
+                               device=self.device)
 
     def train(self, offsets, initial_model: Optional[RandomEffectModel] = None):
         """Solve every entity; returns ``(model, DeferredSolveStats)``."""
@@ -468,6 +700,12 @@ class RandomEffectCoordinate:
                      if cfg.variance_computation != "none" else None)
         init_table = (None if initial_model is None
                       else self._initial_table(initial_model))
+        routes = self.routes
+        if self._bins_recorded != len(routes):
+            # The layout is static: its gauges are set once a coordinate.
+            record_bin_telemetry(self.telemetry, self.name,
+                                 self.device_data.bin_stats, routes)
+            self._bins_recorded = len(routes)
         acc = torch.zeros(6, dtype=torch.int32, device=dev)
         bins = []
         for i in range(len(self.device_data.buckets)):
@@ -476,31 +714,55 @@ class RandomEffectCoordinate:
                 i, self.device_data.bin_offsets(i, offsets))
             bucket = self.device_data.device_buckets[i]
             entity_idx = bucket["entity_index"]
-            w0 = bucket["w0"] if init_table is None else init_table[entity_idx]
-            coefficients, result = run_newton_fit(
-                self.objective, batch, w0, cfg=cfg.optimizer_config,
-                variance=cfg.variance_computation,
-            )
+            proj = bucket["proj"]
+            prev_rows = None if init_table is None else init_table[entity_idx]
+            w0 = (bucket["w0"] if prev_rows is None
+                  else self.device_data.restrict_device(i, prev_rows))
+            coefficients, result = self._solve_bin(routes[i], batch, w0)
             means, variances = coefficients.means, coefficients.variances
             # Non-finite guard: entities whose solve diverged keep their
             # previous row (zero on a cold start).  Duplicate indices write
             # only the dummy row, which is dropped.
             good = torch.isfinite(means).all(dim=1)
-            fallback = (torch.zeros_like(means) if init_table is None
-                        else init_table[entity_idx])
-            table[entity_idx] = torch.where(good[:, None], means, fallback)
-            if var_table is not None:
-                var_table[entity_idx] = torch.where(
-                    good[:, None], variances, torch.zeros_like(variances))
+            if proj is None or not isinstance(proj, IndexMapBucketProjection):
+                if proj is not None:  # the random matrix: the exact lift R w
+                    matrix, _ = self.device_data.projection_buffers(i)
+                    means = means @ matrix.T
+                    if variances is not None:
+                        variances = variances @ (matrix.T ** 2)
+                fallback = torch.zeros_like(means) if prev_rows is None else prev_rows
+                table[entity_idx] = torch.where(good[:, None], means, fallback)
+                if var_table is not None:
+                    # Quarantined entities get zero variance.
+                    var_table[entity_idx] = torch.where(
+                        good[:, None], variances, torch.zeros_like(variances))
+            else:
+                # Each local slot adds back onto its global column; slots are
+                # unique per entity and masked pad slots add exactly 0.  A
+                # quarantined entity adds zeros, then its previous row.
+                ids, mask = self.device_data.projection_buffers(i)
+                rows = entity_idx[:, None].expand_as(ids)
+                safe = torch.where(good[:, None], means, torch.zeros_like(means))
+                table.index_put_((rows, ids), safe * mask, accumulate=True)
+                if prev_rows is not None:
+                    table.index_add_(0, entity_idx, (~good).to(table.dtype)[:, None]
+                                     * prev_rows)
+                if var_table is not None:
+                    var_table.index_put_(
+                        (rows, ids), torch.where(good[:, None], variances,
+                                                 torch.zeros_like(variances)) * mask,
+                        accumulate=True)
             acc = _accumulate_solve_stats(acc, entity_idx, num_entities,
-                                          result.converged, result.iterations, good)
+                                          result.converged, result.iterations, good,
+                                          result.cg_iterations)
             stats = self.device_data.bin_stats[i]
-            # Host clock to the Newton loop's last read: the polish and the
-            # table write run on into the next bin's time.
+            # Host clock to the solver's last read: the polish and the table
+            # write run on into the next bin's time.
             bins.append({
                 "bin": i, "entities": stats["live_entities"],
-                "capacity": stats["capacity"], "route": self.routes[i],
-                "newton_iterations": result.loop_iterations,
+                "capacity": stats["capacity"], "route": routes[i],
+                "solve_dim": bucket["solve_dim"],
+                "loop_iterations": result.loop_iterations,
                 "host_reads": result.host_reads,
                 "seconds": time.perf_counter() - t0,
             })
@@ -516,21 +778,197 @@ class RandomEffectCoordinate:
         return model.score(self.data)
 
     def score_device(self, model: RandomEffectModel) -> Tensor:
-        """Training-data margins on the device: a gather-join against the
-        cached per-row entity index (a model on another shard or column,
-        or another vocabulary, scores through its host path)."""
-        if (model.shard_name != self.config.shard_name
-                or model.entity_column != self.config.entity_column
-                or not keys_match(model.keys, self.dataset.keys)):
-            return torch.as_tensor(model.score(self.data), device=self.device)
-        holder = self.device_data
-        if holder.score_feats is None:
-            holder.score_feats = shard_feats(
-                self.data.shard(self.config.shard_name), self.device)
-            holder.score_entity_idx = torch.as_tensor(
-                self.dataset.entity_idx_per_row, device=self.device)
-        feats, dense = holder.score_feats
-        return model.margins_device(holder.score_entity_idx, feats, dense)
+        return _random_score_device(self, model)
+
+
+def _random_score_device(coord, model: RandomEffectModel) -> Tensor:
+    """Training-data margins on the device: a gather-join against the
+    cached per-row entity index (a model on another shard or column, or
+    another vocabulary, scores through its host path)."""
+    if (model.shard_name != coord.config.shard_name
+            or model.entity_column != coord.config.entity_column
+            or not keys_match(model.keys, coord.dataset.keys)):
+        return torch.as_tensor(model.score(coord.data), device=coord.device)
+    holder = coord.device_data
+    if holder.score_feats is None:
+        holder.score_feats = shard_feats(
+            coord.data.shard(coord.config.shard_name), coord.device)
+        holder.score_entity_idx = torch.as_tensor(
+            coord.dataset.entity_idx_per_row, device=coord.device)
+    feats, dense = holder.score_feats
+    return model.margins_device(holder.score_entity_idx, feats, dense)
+
+
+class FactoredRandomEffectCoordinate:
+    """A latent-factor random effect: lane L-BFGS solves of the per-entity
+    ``z_e`` (dim ``r``, on the bins' features projected by ``L``: ``x @ L``)
+    alternate with one pooled L-BFGS solve of the shared ``L`` (the margin
+    ``x_i L z_{e(i)}`` is linear in ``L``).  Exports a plain
+    :class:`RandomEffectModel` with ``w_e = L z_e``, so scoring, model I/O
+    and warm starts are the unfactored ones."""
+
+    kind = "factored_random"
+
+    def __init__(self, data: GameDataset, config: FactoredRandomEffectCoordinateConfig,
+                 task_type: str, device=None,
+                 device_data: Optional[RandomEffectDeviceData] = None):
+        self.data = data
+        self.config = config
+        self.task_type = task_type
+        self.device_data = device_data or RandomEffectDeviceData(
+            data, config.as_random_config(), device)
+        self.device = self.device_data.device
+        self.dataset = self.device_data.dataset
+        self.dim = self.dataset.dim
+        self.r = config.latent_dim
+        glm = GlmObjective.create(task_type, config.problem.regularization)
+        self.objective = LaneObjective.of(glm)
+        self.name = config.shard_name
+        self.telemetry = NULL_SESSION
+        # The pooled solve's rows on the device, uploaded once.
+        dev = self.device
+        shard = data.shard(config.shard_name)
+        self._label = torch.as_tensor(np.asarray(data.label, np.float32), device=dev)
+        self._weight = torch.as_tensor(np.asarray(data.weight, np.float32), device=dev)
+        self._dense = isinstance(shard, DenseShard)
+        if self._dense:
+            self._x = torch.as_tensor(shard.x, device=dev)
+        else:
+            self._ids = torch.as_tensor(shard.ids, device=dev).long()
+            self._vals = torch.as_tensor(shard.vals, device=dev)
+        self._entity_of_row = torch.as_tensor(self.dataset.entity_idx_per_row,
+                                              device=dev).long()
+
+    def _project_bucket(self, dev: dict, latent: Tensor) -> Tensor:
+        """A bin's features projected by ``L``: ``[E, R, r]``."""
+        if dev["dense"]:
+            return torch.einsum("erd,dk->erk", dev["feats"][0], latent)
+        ids, vals = dev["feats"]
+        return torch.einsum("ernk,ern->erk", latent[ids], vals)
+
+    def _latent_value_and_grad(self, flat: Tensor, z_rows: Tensor,
+                               offsets: Tensor) -> tuple[Tensor, Tensor]:
+        """The pooled objective over ``vec(L)`` with every ``z`` fixed: its
+        value and gradient ``X^T (weight * loss') Z`` (the sparse scatter in
+        float64), both from float64 margins, as the ``z`` lanes' are
+        (:class:`LaneObjective`)."""
+        latent = flat.view(self.dim, self.r)
+        loss, l2 = self.objective.loss, self.objective.l2_weight
+        if self._dense:
+            xl = self._x @ latent
+        else:
+            xl = torch.einsum("njk,nj->nk", latent[self._ids], self._vals)
+        z = torch.sum(xl.double() * z_rows.double(), dim=-1) + offsets.double()
+        value = torch.sum(self._weight.double() * loss.value(z, self._label.double()))
+        per_row = self._weight * loss.d1(z, self._label.double()).float()
+        if self._dense:
+            grad = self._x.T @ (per_row[:, None] * z_rows)
+        else:
+            terms = (per_row[:, None] * self._vals)[..., None] * z_rows[:, None, :]
+            grad = torch.zeros(self.dim, self.r, dtype=torch.float64, device=flat.device)
+            grad.index_add_(0, self._ids.reshape(-1),
+                            terms.reshape(-1, self.r).double())
+            grad = grad.float()
+        grad = grad.reshape(-1)
+        if l2 != 0.0:
+            value = value + 0.5 * l2 * torch.dot(flat.double(), flat.double())
+            grad = grad + l2 * flat
+        return value, grad
+
+    def _solve_latent(self, z_rows: Tensor, offsets: Tensor, latent0: Tensor) -> Tensor:
+        """``L`` with every entity's ``z`` fixed: one L-BFGS fit over
+        ``vec(L)``."""
+        from photon_tpu_torch.core.optimizers import lbfgs
+
+        result = lbfgs(lambda w: self._latent_value_and_grad(w, z_rows, offsets),
+                       latent0.reshape(-1), self.config.problem.optimizer_config)
+        return result.w.view(self.dim, self.r)
+
+    def _warm_start(self, initial_model: RandomEffectModel):
+        """``(L, z, previous table)`` from a model's full-dim table by a
+        rank-r SVD on the host (the reference's numpy code): the key-aligned
+        table is also the quarantine fallback."""
+        aligned = _align_foreign_table(self, initial_model)
+        u, s, vt = np.linalg.svd(aligned, full_matrices=False)
+        r = self.r
+        sq = np.sqrt(s[:r])
+        latent = (vt[:r].T * sq[None, :]).astype(np.float32)  # [d, r]
+        z = (u[:, :r] * sq[None, :]).astype(np.float32)  # [E + 1, r]
+        dev = self.device
+        return (torch.as_tensor(latent, device=dev), torch.as_tensor(z, device=dev),
+                aligned[:-1])
+
+    def train(self, offsets, initial_model: Optional[RandomEffectModel] = None):
+        """The alternation; returns ``(model, DeferredSolveStats)`` whose
+        counts cover the last ``z`` pass."""
+        num_entities = self.dataset.num_entities
+        dev = self.device
+        cfg = self.config.problem
+        rng = np.random.default_rng(self.config.seed)
+        latent = torch.as_tensor(
+            (rng.standard_normal((self.dim, self.r)) / np.sqrt(self.dim)).astype(np.float32),
+            device=dev)
+        offsets_all = torch.as_tensor(offsets, dtype=torch.float32, device=dev)
+        z_table = torch.zeros(num_entities + 1, self.r, dtype=torch.float32, device=dev)
+        prev_table = None
+        if initial_model is not None:
+            latent, z_table, prev_table = self._warm_start(initial_model)
+            # The warm-started L is informed already: refresh it from the new
+            # offsets before the first z solve.
+            latent = self._solve_latent(z_table[self._entity_of_row], offsets_all, latent)
+        acc = torch.zeros(6, dtype=torch.int32, device=dev)
+        bins = []
+        for it in range(self.config.latent_iterations):
+            acc = torch.zeros(6, dtype=torch.int32, device=dev)
+            bins = []
+            for i in range(len(self.device_data.buckets)):
+                t0 = time.perf_counter()
+                bucket = self.device_data.device_buckets[i]
+                batch = DenseBatch(self._project_bucket(bucket, latent), bucket["label"],
+                                   self.device_data.bin_offsets(i, offsets),
+                                   bucket["weight"])
+                entity_idx = bucket["entity_index"]
+                coefficients, result = run_lane_fit(
+                    self.objective, batch, z_table[entity_idx], optimizer="lbfgs",
+                    cfg=cfg.optimizer_config, variance="none")
+                z_table[entity_idx] = coefficients.means
+                acc = _accumulate_solve_stats(
+                    acc, entity_idx, num_entities, result.converged, result.iterations,
+                    torch.ones_like(result.converged))
+                stats = self.device_data.bin_stats[i]
+                bins.append({
+                    "bin": i, "entities": stats["live_entities"],
+                    "capacity": stats["capacity"], "route": "vmapped",
+                    "solve_dim": self.r, "loop_iterations": result.loop_iterations,
+                    "host_reads": result.host_reads,
+                    "seconds": time.perf_counter() - t0,
+                })
+            if it != self.config.latent_iterations - 1:
+                latent = self._solve_latent(z_table[self._entity_of_row], offsets_all,
+                                            latent)
+        # w_e = L z_e (the dummy row drops).  Non-finite rows fall back to
+        # the warm-start model's (zero on a cold start) and count as
+        # quarantined.
+        table = z_table[:num_entities] @ latent.T
+        good = torch.isfinite(table).all(dim=1)
+        acc = acc.clone()
+        acc[3] += (~good).sum().to(torch.int32)
+        prev = (torch.zeros_like(table) if prev_table is None
+                else torch.as_tensor(prev_table, device=dev))
+        table = torch.where(good[:, None], table, prev)
+        model = RandomEffectModel(
+            table=table, keys=self.dataset.keys,
+            entity_column=self.config.entity_column,
+            shard_name=self.config.shard_name, task_type=self.task_type,
+        )
+        return model, DeferredSolveStats(
+            acc, bins, extra={"latent_iterations": self.config.latent_iterations})
+
+    def score(self, model: RandomEffectModel) -> np.ndarray:
+        return model.score(self.data)
+
+    def score_device(self, model: RandomEffectModel) -> Tensor:
+        return _random_score_device(self, model)
 
 
 def build_coordinate(data: GameDataset, config: CoordinateConfig, task_type: str,
@@ -539,12 +977,16 @@ def build_coordinate(data: GameDataset, config: CoordinateConfig, task_type: str
     if isinstance(config, FixedEffectCoordinateConfig):
         return FixedEffectCoordinate(data, config, task_type, device, device_data,
                                      normalization)
-    if isinstance(config, RandomEffectCoordinateConfig):
+    if isinstance(config, (RandomEffectCoordinateConfig,
+                           FactoredRandomEffectCoordinateConfig)):
         if normalization is not None:
             raise ValueError(
                 "normalization is not supported for random-effect coordinates "
                 f"(coordinate on shard {config.shard_name!r})"
             )
+        if isinstance(config, FactoredRandomEffectCoordinateConfig):
+            return FactoredRandomEffectCoordinate(data, config, task_type, device,
+                                                  device_data)
         return RandomEffectCoordinate(data, config, task_type, device, device_data)
     raise TypeError(f"unknown coordinate config type {type(config)!r}")
 

@@ -16,8 +16,10 @@ coordinates).  A rejected (non-finite) score row rolls its coordinate back
 to the previous iterate; ``max_quarantined`` bounds how many such events a
 run may absorb.
 
-Warm starts from an initial model and locked coordinates (ROADMAP.md
-queue 1, item 5) and descent checkpoints (item 6) raise.
+A run may start from an initial model (its coordinates seed the score
+tables and warm-start the first pass) and keep some coordinates locked at
+it: a locked coordinate is never trained again.  Descent checkpoints
+(ROADMAP.md queue 1, item 6) raise.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ class CoordinateDescent:
         residual_mode: Optional[str] = None,
         validation_mode: Optional[str] = None,
         validation_cache: Optional[DeviceScoringCache] = None,
+        telemetry=None,
     ):
         if not coordinates:
             raise ValueError("CoordinateDescent needs at least one coordinate")
@@ -99,6 +102,7 @@ class CoordinateDescent:
             validation_mode, self.residual_mode)
         self.device = next(iter(self.coordinates.values())).device
         self._validation_cache = validation_cache
+        self.telemetry = telemetry
 
     def _build_residuals(self):
         cls = ResidualEngine if self.residual_mode == "device" else HostResiduals
@@ -149,12 +153,18 @@ class CoordinateDescent:
         max_quarantined: Optional[int] = None,
     ) -> DescentResult:
         """``checkpoint_fn(iteration, model)``, when given, is called after
-        every pass with the composite model."""
-        if initial_model is not None or locked_coordinates:
-            raise NotImplementedError(
-                "GAME warm starts and locked coordinates wait in ROADMAP.md "
-                "queue 1, item 5"
-            )
+        every pass with the composite model.  ``initial_model``'s
+        coordinates seed the score tables and warm-start the first pass;
+        ``locked_coordinates`` stay at the initial model's."""
+        locked = set(locked_coordinates)
+        unknown = locked - set(self.coordinates)
+        if unknown:
+            raise KeyError(f"locked coordinates not in update sequence: {sorted(unknown)}")
+        if locked and initial_model is None:
+            raise ValueError("locked coordinates require an initial model")
+        for name in locked:
+            if name not in initial_model.coordinates:
+                raise KeyError(f"locked coordinate {name!r} missing from initial model")
         if checkpointer is not None or resume_state is not None:
             raise NotImplementedError(
                 "descent checkpoints and resume wait with fault/checkpoint.py "
@@ -172,6 +182,41 @@ class CoordinateDescent:
         history = []
         quarantined_total = 0
         game_model = None
+        if initial_model is not None:
+            for name, coord_model in initial_model.coordinates.items():
+                if name not in self.coordinates:
+                    continue
+                models[name] = coord_model
+                residuals.update(name, self._score(self.coordinates[name], coord_model))
+                if val_engine is not None:
+                    # Locked coordinates are never re-scored: their rows
+                    # stay as seeded here.
+                    val_engine.update(name, val_cache.score(coord_model))
+            # The foreign-vocabulary key joins run on a host thread while
+            # the first coordinates train.
+            from photon_tpu_torch.game.coordinate import prefetch_warm_joins
+
+            prefetch_warm_joins(self.coordinates, initial_model, self.telemetry)
+        # A rejected seed row belongs to the initial model, not to whatever
+        # trains first: the coordinate cold-starts instead (one host read).
+        seed_rejected = set(residuals.poll_quarantined())
+        if val_engine is not None:
+            seed_rejected |= set(val_engine.poll_quarantined())
+        bad_locked = sorted(seed_rejected & locked)
+        if bad_locked:
+            raise ValueError(
+                f"locked coordinate(s) {bad_locked} produced non-finite scores from "
+                "the initial model; a locked coordinate cannot be quarantined")
+        for name in sorted(seed_rejected):
+            quarantined_total += 1
+            models.pop(name, None)
+            self.logger.info("coordinate %s: non-finite scores from the initial "
+                             "model quarantined (cold start instead)", name)
+        if max_quarantined is not None and quarantined_total > max_quarantined:
+            raise QuarantineBudgetError(
+                f"{quarantined_total} quarantined solves/score rows exceed "
+                f"--max-quarantined {max_quarantined}"
+            )
         for it in range(num_iterations):
             t0 = time.perf_counter()
             coord_logs: Dict[str, object] = {}
@@ -179,6 +224,8 @@ class CoordinateDescent:
             deferred: Dict[str, DeferredSolveStats] = {}
             updates0 = residuals.updates
             for name, coord in self.coordinates.items():
+                if name in locked:
+                    continue
                 prev_iterates[name] = models.get(name)
                 offsets = residuals.offsets_for(name)
                 model, info = coord.train(offsets, initial_model=models.get(name))

@@ -9,9 +9,10 @@ shared by every sweep entry; so is the validation scoring cache.
 ``normalization`` maps a feature shard to its context and applies to the
 fixed-effect coordinates on that shard.
 
-Streamed and out-of-core fits (ROADMAP.md queue 1, item 9), onboarding and
-warm starts (item 5), descent checkpoints (item 6) and the mesh (item 10)
-raise.
+``fit`` may start every descent run from an initial model and keep some
+coordinates locked at it.  Streamed and out-of-core fits (ROADMAP.md queue
+1, item 9), descent checkpoints (item 6) and the mesh (item 10) raise;
+onboarding waits with item 8.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from photon_tpu_torch.evaluation.evaluators import (
 )
 from photon_tpu_torch.game.coordinate import (
     CoordinateConfig,
+    FactoredRandomEffectCoordinateConfig,
     FixedEffectCoordinateConfig,
     FixedEffectDeviceData,
     RandomEffectDeviceData,
@@ -40,6 +42,7 @@ from photon_tpu_torch.game.residuals import (
     resolve_residual_mode,
     resolve_validation_mode,
 )
+from photon_tpu_torch.telemetry import NULL_SESSION
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +93,7 @@ class GameEstimator:
         normalization=None,
         stream_chunks: Optional[int] = None,
         spill_dir: Optional[str] = None,
+        telemetry=None,
     ):
         if mesh is not None:
             raise _not_ported("the device mesh", 10)
@@ -110,6 +114,7 @@ class GameEstimator:
         self.logger = logger or logging.getLogger("photon_tpu_torch.game")
         self.residual_mode = residual_mode
         self.validation_mode = validation_mode
+        self.telemetry = telemetry or NULL_SESSION
         self._device_data_cache: Dict[tuple, object] = {}
         self._validation_cache: Optional[DeviceScoringCache] = None
 
@@ -131,15 +136,20 @@ class GameEstimator:
         use."""
         key = coord_config.data_key
         if key not in self._device_data_cache:
-            cls = (FixedEffectDeviceData
-                   if isinstance(coord_config, FixedEffectCoordinateConfig)
-                   else RandomEffectDeviceData)
-            self._device_data_cache[key] = cls(self.training_data, coord_config,
-                                               self.device)
+            if isinstance(coord_config, FixedEffectCoordinateConfig):
+                data = FixedEffectDeviceData(self.training_data, coord_config,
+                                             self.device)
+            else:
+                if isinstance(coord_config, FactoredRandomEffectCoordinateConfig):
+                    # The factored coordinate shares the unprojected layout.
+                    coord_config = coord_config.as_random_config()
+                data = RandomEffectDeviceData(self.training_data, coord_config,
+                                              self.device)
+            self._device_data_cache[key] = data
         return self._device_data_cache[key]
 
     def _build_coordinates(self, config: GameOptimizationConfiguration) -> dict:
-        return {
+        coords = {
             name: build_coordinate(self.training_data, coord_config, self.task_type,
                                    device=self.device,
                                    normalization=self.normalization.get(
@@ -147,6 +157,12 @@ class GameEstimator:
                                    device_data=self.device_layout(coord_config))
             for name, coord_config in config.coordinates.items()
         }
+        for name, coord in coords.items():
+            # The coordinates' own telemetry (bin gauges, warm-start
+            # transfers) lands in the run's session under their names.
+            coord.name = name
+            coord.telemetry = self.telemetry
+        return coords
 
     def fit(
         self,
@@ -158,8 +174,9 @@ class GameEstimator:
         resume: Optional[str] = None,
         max_quarantined: Optional[int] = None,
     ) -> List[GameResult]:
-        """One descent run per configuration; ``checkpoint_fn(iteration,
-        model)`` is passed to each run."""
+        """One descent run per configuration, each from ``initial_model``
+        when given, with ``locked_coordinates`` kept at it;
+        ``checkpoint_fn(iteration, model)`` is passed to each run."""
         if not configurations:
             raise ValueError("fit() needs at least one configuration")
         if checkpoint_dir is not None or resume:
@@ -172,6 +189,7 @@ class GameEstimator:
                 logger=self.logger, residual_mode=self.residual_mode,
                 validation_mode=self.validation_mode,
                 validation_cache=self._validation_scoring_cache(),
+                telemetry=self.telemetry,
             )
             descent = loop.run(
                 config.descent_iterations, initial_model=initial_model,

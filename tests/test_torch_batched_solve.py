@@ -328,13 +328,9 @@ def test_nonfinite_entity_keeps_previous_row(monkeypatch):
 
 
 def _route_matches_reference(jprob, tprob, dim):
-    """The port takes the reference's ``newton`` route where the reference
-    does and raises, naming item 5, where it takes another."""
-    if jbs.solver_route(jprob, dim) == "newton":
-        assert tbs.solver_route(tprob, dim) == "newton"
-    else:
-        with pytest.raises(NotImplementedError, match=f"dim {dim}.*item 5"):
-            tbs.solver_route(tprob, dim)
+    """The port takes the reference's route (``newton``, ``newton_cg`` or
+    ``vmapped``) at every dim."""
+    assert tbs.solver_route(tprob, dim) == jbs.solver_route(jprob, dim)
 
 
 def test_solver_route_and_bin_layout_match_reference(monkeypatch):
@@ -359,13 +355,26 @@ def test_solver_route_and_bin_layout_match_reference(monkeypatch):
     ({}, "newton_cg", "'newton_cg'"),
 ])
 def test_unported_entity_routes_raise(monkeypatch, env, optimizer, match):
-    """The reference's newton_cg route (past the dim cap, or asked for by
-    either spelling) raises at construction, before any work."""
+    """The reference's ``newton_cg`` route (past the dim cap, or asked for
+    by either spelling), which raised before the lane Newton-CG was ported,
+    now routes as the reference's and solves; the route that still waits
+    (row-split placement, item 10) raises at construction, before any
+    work."""
+    del match
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    _, td = _dataset(n_entities=5)
-    _, tprob = _problems(optimizer=optimizer)
-    with pytest.raises(NotImplementedError, match=f"{match}.*newton_cg or vmapped.*item 5"):
-        tcoord.RandomEffectCoordinate(
-            td, tcoord.RandomEffectCoordinateConfig("per_entity", "userId", tprob),
-            "logistic_regression", device="cpu")
+    jd, td = _dataset(n_entities=5)
+    jprob, tprob = _problems(optimizer=optimizer)
+    coord = tcoord.RandomEffectCoordinate(
+        td, tcoord.RandomEffectCoordinateConfig("per_entity", "userId", tprob),
+        "logistic_regression", device="cpu")
+    jc = jcoord.RandomEffectCoordinate(
+        jd, jcoord.RandomEffectCoordinateConfig("per_entity", "userId", jprob),
+        "logistic_regression")
+    assert coord.routes == jc._bin_routes() == ["newton_cg"] * len(coord.routes)
+    offsets = np.zeros(td.num_examples, np.float32)
+    np.testing.assert_allclose(coord.train(offsets)[0].table.numpy(),
+                               np.asarray(jc.train(offsets)[0].table), atol=ATOL, rtol=0)
+    with pytest.raises(NotImplementedError, match="mesh.*item 10"):
+        tcoord.RandomEffectCoordinateConfig("per_entity", "userId", tprob,
+                                            row_split=True)

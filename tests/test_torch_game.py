@@ -343,18 +343,20 @@ def test_unported_library_paths_raise():
     cases = [
         (lambda: GameEstimator("logistic_regression", data, mesh=object()), "item 10"),
         (lambda: GameEstimator("logistic_regression", data, stream_chunks=4), "item 9"),
-        (lambda: coordinate.RandomEffectCoordinateConfig("r", "r", projection="index_map"),
-         "item 5"),
-        (lambda: batched_solve.LaneObjective.of(GlmObjective.create(
-            "logistic", RegularizationContext("elastic_net", 1.0))), "item 5"),
-        (lambda: batched_solve.solver_route(
-            ProblemConfig(optimizer="newton_cg"), 19), "item 5"),
         (lambda: coordinate.RandomEffectCoordinateConfig("r", "r", row_split=True),
          "item 10"),
     ]
     for make, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             make()
+    # The item 5 paths are ported: the elastic-net lane objective, the
+    # Newton-CG and row-split routes, projections.
+    lane = batched_solve.LaneObjective.of(GlmObjective.create(
+        "logistic", RegularizationContext("elastic_net", 1.0)))
+    assert lane.l1_weight == 0.5 and lane.l2_weight == 0.5
+    assert batched_solve.solver_route(ProblemConfig(optimizer="newton_cg"), 19) == "newton_cg"
+    assert batched_solve.solver_route(problem, 19, row_split=True) == "row_split"
+    coordinate.RandomEffectCoordinateConfig("r", "r", projection="index_map")
     # Normalization applies to fixed effects only, as in the reference.
     from photon_tpu_torch.core.normalization import NormalizationContext
 
@@ -368,10 +370,12 @@ def test_unported_library_paths_raise():
     model = est.fit([config])[0].model
     coords = est._build_coordinates(config)
     loop = CoordinateDescent(coords, "logistic_regression", data)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        loop.run(1, initial_model=model)
+    loop.run(1, initial_model=model)  # warm starts are ported (item 5)
     with pytest.raises(NotImplementedError, match="item 6"):
         loop.run(1, resume_state=object())
+    # A foreign vocabulary joins by key (item 5): no entity overlaps, so
+    # the warm start is the cold one.
     foreign = dataclasses.replace(model.coordinate("re0"), keys=model.coordinate("re0").keys + 100)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        coords["re0"].train(np.zeros(data.num_examples, np.float32), initial_model=foreign)
+    offsets = np.zeros(data.num_examples, np.float32)
+    assert torch.equal(coords["re0"].train(offsets, initial_model=foreign)[0].table,
+                       coords["re0"].train(offsets)[0].table)

@@ -97,7 +97,7 @@ def test_solver_records_in_summary(slice_runs):
         assert per_user["entities"] == sum(b["entities"] for b in per_user["bins"])
         assert per_user["quarantined"] == 0
         assert {b["route"] for b in per_user["bins"]} == {"newton"}
-        assert all(b["host_reads"] >= b["newton_iterations"] + 1
+        assert all(b["host_reads"] >= b["loop_iterations"] + 1
                    for b in per_user["bins"])
         assert h["residual_updates"] == 2
         assert h["host_syncs"] == {"stats": 1, "validation": 1}
@@ -236,8 +236,6 @@ def test_game_fits_match_reference(slice_runs, tmp_path, task, extra_coords):
     (["--faults", "io:read:p=1"], "item 6"),
     (["--tuning", "random"], "item 10"),
     (["--coordinator", "localhost:1"], "item 10"),
-    (["--initial-model", "m"], "item 5"),
-    (["--locked-coordinates", "fixed"], "item 5"),
     (["--dtype", "bfloat16"], "item 9"),
 ])
 def test_unported_flags_raise(tmp_path, extra, match):
@@ -249,18 +247,30 @@ def test_unported_flags_raise(tmp_path, extra, match):
 
 
 @pytest.mark.parametrize("spec,match", [
-    ("r:type=factored_random,shard=re0,entity=re0", "item 5"),
-    ("r:type=random,shard=re0,entity=re0,projection=random,projected_dim=2", "item 5"),
     ("r:type=random,shard=re0,entity=re0,row_split=true", "item 10"),
-    ("r:type=random,shard=re0,entity=re0,reg_type=l1", "item 5"),
-    ("r:type=random,shard=re0,entity=re0,reg_type=elastic_net", "item 5"),
-    ("r:type=random,shard=re0,entity=re0,optimizer=newton_cg", "item 5"),
 ])
 def test_unported_coordinate_keys_raise(tmp_path, spec, match):
     args = ["--input", "synthetic-game:10:3:4:3", "--coordinate", spec,
             "--output-dir", str(tmp_path), "--backend", "cpu"]
     with pytest.raises(NotImplementedError, match=match):
         train_game.run(train_game.build_parser().parse_args(args))
+
+
+@pytest.mark.parametrize("spec,route", [
+    ("r:type=factored_random,shard=re0,entity=re0", "vmapped"),
+    ("r:type=random,shard=re0,entity=re0,projection=random,projected_dim=2", "newton"),
+    ("r:type=random,shard=re0,entity=re0,reg_type=l1", "vmapped"),
+    ("r:type=random,shard=re0,entity=re0,reg_type=elastic_net", "vmapped"),
+    ("r:type=random,shard=re0,entity=re0,optimizer=newton_cg", "newton_cg"),
+])
+def test_formerly_unported_coordinate_keys_train(tmp_path, spec, route):
+    """The coordinate keys that raised before the rest of GAME training was
+    ported now train, each bin on the reference's route."""
+    args = ["--input", "synthetic-game:10:3:4:3", "--coordinate", spec,
+            "--output-dir", str(tmp_path), "--backend", "cpu"]
+    summary = train_game.run(train_game.build_parser().parse_args(args))
+    bins = summary["sweep"][0]["history"][0]["solver"]["r"]["bins"]
+    assert bins and {b["route"] for b in bins} == {route}
 
 
 def test_gpu_backend_without_a_card_raises(tmp_path):
