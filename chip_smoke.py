@@ -147,12 +147,33 @@ Phases (any failure exits non-zero and prints no result line):
    bin routed ``newton_cg``, the routes within p99 5e-3 and max 5e-2 of
    each other, solves/s per route and ms per lane Hv beside its bytes
    bound, and at the first three points the card held to the host.
+10. fault-tolerant resident training and online learning at config 4's
+   width, every launch count set to 0 just before each run and read
+   after: (a) ``train_game`` on phase 6's file and split, three descent
+   iterations, on ``fused`` and ``pallas``: uninterrupted, checkpointed
+   (the descent's host syncs the same as without, the staged bytes and ms
+   an iteration beside their PCIe bound, the publish ms), stopped by
+   ``--faults preempt:iter=1`` (a subprocess on ``fused``, which must exit
+   75 with iteration 0 published; in this process on ``pallas``) and by
+   ``descent:kill:iter=2`` in a subprocess, and resumed (``--resume latest``
+   / ``auto``): each resumed card model within 1e-6 of the uninterrupted
+   card run of its route (metrics 1e-7), K1 launched on the ``fused``
+   resumes and K2 on the ``pallas`` one; (b) ``bench.py``'s online fixture
+   (2,000 entities, two random effects, linear, 3 iterations a refresh):
+   two refresh rounds into a two-replica fleet, the refreshed model
+   within 1e-4 of a full retrain on the merged data, no random-effect
+   layout rebuilt and rows grown in place, no capture and no allocator
+   segment added by either publish; (c) ``online_game`` on phase 6's file
+   cut into an initial part and three appends (~10% of the rows each, 5%
+   of the users in the appends only) on the card (K1 must launch) and the
+   host, the final models held to each other under phase 6's gates.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
 that the training paths launch none of them; K1's and K2's
 ``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's,
-``phase9_launches`` phase 9's); the last line is ``{"ok": true, "device":
+``phase9_launches`` phase 9's, ``phase10_launches`` phase 10's); the last
+line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -3203,6 +3224,501 @@ def run_hidim(dev) -> list:
             for i, (dim, n) in enumerate(HIDIM_POINTS)]
 
 
+# Phase 10: fault-tolerant resident training and online learning at config
+# 4's width, on phase 6's Avro file and split.  (a) train_game runs of three
+# descent iterations on `fused` and `pallas`: uninterrupted, checkpointed
+# (staging measured), stopped by an injected preemption (exit 75) and by an
+# injected kill in a subprocess, and resumed; each resumed card model held
+# to the uninterrupted card run of its route.  (b) bench.py's online
+# fixture (bench.py:2834-2925): two refresh rounds into a two-replica fleet.
+# (c) online_game on phase 6's file cut into an initial part and three
+# appends, on the card and the host.
+PHASE10_ITERATIONS = 3
+# The publish paths' timing runs (plain, async and sync, interleaved): more
+# iterations, so each run has several warm ones.
+PHASE10_TIMED_ITERATIONS = 8
+# The reference's kill/resume bound (tests/test_fault_injection.py:242) on
+# coefficients; the validation metrics to 1e-7.
+RESUME_ATOL = 1e-6
+RESUME_METRIC_ATOL = 1e-7
+# PCIe Gen5 x16, one direction (the H100 SXM data sheet's 128 GB/s is both
+# directions): the bound of a checkpoint's device-to-host copy.
+PCIE_BYTES_PER_S = 64e9
+# bench.py's online fixture (bench.py:2864-2881).
+ONLINE_ENTITIES = 2000
+ONLINE_RETRAIN_TOL = 1e-4
+# online_game on phase 6's file: three appends of ~10% of the rows each,
+# 5% of the users in the appends only.
+ONLINE_PARTS = 3
+ONLINE_PART_SHARE = 0.1
+ONLINE_LATE_USERS = 0.05
+
+
+def phase10_args(avro: str, out: str, backend: str = "gpu") -> list:
+    args = game_cli_args(avro, out, backend)
+    args[args.index("--descent-iterations") + 1] = str(PHASE10_ITERATIONS)
+    return args
+
+
+def run_report_metrics(out_dir: str) -> dict:
+    with open(os.path.join(out_dir, "telemetry", "run_report.json")) as f:
+        return json.load(f)["metrics"]
+
+
+def metric(metrics: dict, section: str, name: str, **labels):
+    rows = [m for m in metrics[section] if m["name"] == name
+            and all(m["labels"].get(k) == v for k, v in labels.items())]
+    return rows[0] if rows else None
+
+
+def resumed_agrees(name: str, run_dir: str, ref_dir: str, summary: dict,
+                   ref_summary: dict) -> dict:
+    """A resumed card model against the uninterrupted card run: every
+    coefficient within RESUME_ATOL (rtol 0), every best metric within
+    RESUME_METRIC_ATOL; returns the largest differences."""
+    from photon_tpu_torch.game.model_io import load_game_model
+
+    model = load_game_model(os.path.join(run_dir, "best_model"), device="cpu")[0]
+    ref = load_game_model(os.path.join(ref_dir, "best_model"), device="cpu")[0]
+    coef = {}
+    for coord, m in model.coordinates.items():
+        r = ref.coordinate(coord)
+        got, want = ((m.coefficients.means, r.coefficients.means)
+                     if hasattr(m, "coefficients") else (m.table, r.table))
+        coef[coord] = float((got - want).abs().max())
+    metrics = {k: abs(summary["best_metrics"][k] - v)
+               for k, v in ref_summary["best_metrics"].items()}
+    log(f"  {name}: coefficients max |diff| {coef}, metrics |diff| {metrics}")
+    if (max(coef.values()) > RESUME_ATOL
+            or max(metrics.values()) > RESUME_METRIC_ATOL):
+        raise AssertionError(f"{name}: the resumed model differs from the uninterrupted "
+                             f"run (coefficients {coef}, metrics {metrics})")
+    return {"coefficients": coef, "metrics": metrics}
+
+
+def run_fault_tolerance(game: dict) -> dict:
+    """Phase 10 (a): every run's launch counts set to 0 just before it and
+    read after; the stopped runs publish a checkpoint, the preempted one
+    exits 75, and each resume matches the uninterrupted run of its route."""
+    from photon_tpu_torch.drivers import train_game
+    from photon_tpu_torch.fault.checkpoint import DescentCheckpointer
+
+    counters = kernel_wrappers()
+    root = os.path.join(os.path.dirname(game["avro"]), "phase10")
+    out = {"runs": {}}
+
+    def in_process(name, route, *extra, expect_exit=None):
+        run_dir = os.path.join(root, name)
+        for c in counters:
+            c.launches = 0
+        with env_set({"PHOTON_SPARSE_GRAD": route}):
+            t0 = time.monotonic()
+            try:
+                train_game.main([*phase10_args(game["avro"], run_dir), *extra])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        launches = {c.__name__: c.launches for c in counters if c.launches}
+        if code != (expect_exit or 0):
+            raise AssertionError(f"phase 10 {name}: exit {code}, expected {expect_exit or 0}")
+        run = {"wall_s": wall, "launches": launches, "exit": code, "dir": run_dir}
+        if code == 0:
+            with open(os.path.join(run_dir, "training_summary.json")) as f:
+                run["summary"] = json.load(f)
+        out["runs"][name] = run
+        log(f"  {name} ({route}): exit {code}, {wall:.2f} s, launches {launches}")
+        return run
+
+    def subprocess_run(name, route, *extra):
+        run_dir = os.path.join(root, name)
+        env = dict(os.environ, PHOTON_SPARSE_GRAD=route,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "photon_tpu_torch.drivers.train_game",
+             *phase10_args(game["avro"], run_dir), *extra],
+            capture_output=True, text=True, timeout=300, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.monotonic() - t0
+        out["runs"][name] = {"wall_s": wall, "exit": proc.returncode, "dir": run_dir}
+        log(f"  {name} ({route}, a subprocess): exit {proc.returncode}, {wall:.2f} s; "
+            f"{proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ''}")
+        return proc
+
+    def published(ckpt, expect):
+        chains = [os.path.join(ckpt, d, "cfg-000") for d in os.listdir(ckpt)]
+        latest = DescentCheckpointer(chains[0]).latest_path()
+        if latest is None or not latest.endswith(expect):
+            raise AssertionError(f"phase 10: {ckpt} holds {latest}, expected {expect}")
+        DescentCheckpointer.load_path(latest, device="cpu")  # the manifest verifies
+
+    for route in ("fused", "pallas"):
+        in_process(f"{route}_plain", route)
+    in_process("fused_checkpointed", "fused", "--checkpoint-dir",
+               os.path.join(root, "ckpt_full"))
+    # A preemption: exit 75 after the last completed iteration's checkpoint
+    # is published; then --resume latest completes the run.
+    ck1 = os.path.join(root, "ckpt_preempt")
+    proc = subprocess_run("fused_preempted", "fused", "--checkpoint-dir", ck1,
+                          "--faults", "preempt:iter=1")
+    if proc.returncode != 75:
+        raise AssertionError(f"phase 10: the preempted run exited {proc.returncode}, "
+                             f"not 75: {proc.stderr[-2000:]}")
+    published(ck1, "ckpt-000000")
+    in_process("fused_resumed_preempt", "fused", "--checkpoint-dir", ck1, "--resume", "latest")
+    # A kill at the top of iteration 2, in a process of its own; --resume
+    # auto completes it.
+    ck2 = os.path.join(root, "ckpt_kill")
+    proc = subprocess_run("fused_killed", "fused", "--checkpoint-dir", ck2,
+                          "--faults", "descent:kill:iter=2")
+    if proc.returncode in (0, 75) or "InjectedKillError" not in proc.stderr:
+        raise AssertionError(f"phase 10: the killed run exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    published(ck2, "ckpt-000001")
+    in_process("fused_resumed_kill", "fused", "--checkpoint-dir", ck2, "--resume", "auto")
+    # On pallas (K2): a preemption in this process, then the resume.
+    ck3 = os.path.join(root, "ckpt_pallas")
+    in_process("pallas_preempted", "pallas", "--checkpoint-dir", ck3, "--faults",
+               "preempt:iter=1", expect_exit=75)
+    published(ck3, "ckpt-000000")
+    in_process("pallas_resumed", "pallas", "--checkpoint-dir", ck3, "--resume", "latest")
+    runs = out["runs"]
+    for name, ref in (("fused_checkpointed", "fused_plain"),
+                      ("fused_resumed_preempt", "fused_plain"),
+                      ("fused_resumed_kill", "fused_plain"),
+                      ("pallas_resumed", "pallas_plain")):
+        runs[name]["vs_uninterrupted"] = resumed_agrees(
+            f"phase 10 {name}", runs[name]["dir"], runs[ref]["dir"],
+            runs[name]["summary"], runs[ref]["summary"])
+    for name, kernel in (("fused_resumed_preempt", "fused_value_and_grad"),
+                         ("fused_resumed_kill", "fused_value_and_grad"),
+                         ("pallas_resumed", "position_partial_sums")):
+        if not runs[name]["launches"].get(kernel):
+            raise AssertionError(f"phase 10 {name}: {kernel} never launched")
+    # Staging: the descent's host syncs with checkpointing on and off, the
+    # staged bytes and ms an iteration beside the PCIe bound, the publish.
+    on, off = (run_report_metrics(runs[n]["dir"]) for n in ("fused_checkpointed",
+                                                            "fused_plain"))
+    syncs_on = metric(on, "counters", "descent.host_syncs", kind="stats")["value"]
+    syncs_off = metric(off, "counters", "descent.host_syncs", kind="stats")["value"]
+    saves = metric(on, "counters", "checkpoint.saves")["value"]
+    ckpt_syncs_on = metric(on, "counters", "descent.host_syncs", kind="checkpoint")
+    ckpt_syncs_off = metric(off, "counters", "descent.host_syncs", kind="checkpoint")
+    # The device-to-host bytes (none on the host, where staging clones).
+    staged = (metric(on, "counters", "descent.host_transfer_bytes", path="checkpoint")
+              or {"value": 0})["value"]
+    snapshot_bytes = metric(on, "gauges", "checkpoint.staged_bytes")["value"]
+    stage = metric(on, "histograms", "checkpoint.stage_seconds")
+    publish = metric(on, "histograms", "checkpoint.publish_seconds")
+    loop_side = metric(on, "histograms", "checkpoint.write_seconds")
+    per_save = staged / saves
+    out["staging"] = {
+        "host_syncs_per_iteration": {
+            "stats": {"on": syncs_on / PHASE10_ITERATIONS,
+                      "off": syncs_off / PHASE10_ITERATIONS},
+            "checkpoint": {"on": (ckpt_syncs_on or {"value": 0})["value"]
+                           / PHASE10_ITERATIONS,
+                           "off": (ckpt_syncs_off or {"value": 0})["value"]
+                           / PHASE10_ITERATIONS}},
+        "saves": saves, "d2h_bytes_per_iteration": per_save,
+        "snapshot_bytes": snapshot_bytes,
+        "stage_ms": {k: 1e3 * stage[k] for k in ("mean", "min", "max")},
+        "bound_ms": 1e3 * per_save / PCIE_BYTES_PER_S,
+        "loop_side_ms": {k: 1e3 * loop_side[k] for k in ("mean", "max")},
+        "publish_ms": {k: 1e3 * publish[k] for k in ("mean", "min", "max")},
+    }
+    log(f"  staging: {json.dumps(out['staging'])}")
+    if syncs_on != syncs_off or syncs_on != PHASE10_ITERATIONS:
+        raise AssertionError(f"phase 10: the descent synced {syncs_on} times with "
+                             f"checkpoints and {syncs_off} without")
+    if (ckpt_syncs_off is not None or ckpt_syncs_on is None
+            or ckpt_syncs_on["value"] != saves or saves != PHASE10_ITERATIONS):
+        raise AssertionError(f"phase 10: {ckpt_syncs_on} checkpoint staging waits for "
+                             f"{saves} saves ({ckpt_syncs_off} without checkpoints)")
+    out["publish_paths"] = run_publish_paths(in_process, root)
+    for run in runs.values():
+        run.pop("summary", None)
+    return out
+
+
+def loop_walls(run_dir: str, summary: dict) -> tuple:
+    """``(walls, drain)``: each descent iteration's loop wall, s, its
+    history seconds (start to the metrics read) plus its checkpoint save on
+    the loop (staging, and the publish itself on the sync path); and the
+    end's wait for the last publish, s."""
+    saves, drain = {}, 0.0
+    with open(os.path.join(run_dir, "telemetry", "spans.jsonl")) as f:
+        for line in f:
+            sp = json.loads(line)
+            if sp["name"] == "descent.checkpoint.save":
+                saves[sp["attributes"]["iteration"]] = sp["duration_s"]
+            elif sp["name"] == "descent.checkpoint.drain":
+                drain += sp["duration_s"]
+    return ([h["seconds"] + saves.get(h["iteration"], 0.0)
+             for h in summary["sweep"][0]["history"]], drain)
+
+
+def run_publish_paths(in_process, root: str) -> dict:
+    """The async and the sync publish path timed beside plain runs, in the
+    order plain, async, sync, sync, async, plain, each of
+    PHASE10_TIMED_ITERATIONS iterations; both paths' models held to the
+    plain run's, and the sync path's staging counted like the async one's."""
+    runs = {}
+    for name, mode in (("plain_a", None), ("async_a", "on"), ("sync_a", "off"),
+                       ("sync_b", "off"), ("async_b", "on"), ("plain_b", None)):
+        extra = ["--descent-iterations", str(PHASE10_TIMED_ITERATIONS)]
+        if mode is not None:
+            extra += ["--checkpoint-dir", os.path.join(root, f"ckpt_{name}"),
+                      "--checkpoint-async", mode]
+        runs[name] = in_process(f"timed_{name}", "fused", *extra)
+    for name in ("async_a", "sync_a"):
+        resumed_agrees(f"phase 10 timed_{name}", runs[name]["dir"], runs["plain_a"]["dir"],
+                       runs[name]["summary"], runs["plain_a"]["summary"])
+    sync = run_report_metrics(runs["sync_a"]["dir"])
+    ckpt_syncs = metric(sync, "counters", "descent.host_syncs", kind="checkpoint")
+    if ckpt_syncs is None or ckpt_syncs["value"] != PHASE10_TIMED_ITERATIONS:
+        raise AssertionError(f"phase 10: the sync path staged {ckpt_syncs} times in "
+                             f"{PHASE10_TIMED_ITERATIONS} iterations")
+    out = {"iterations": PHASE10_TIMED_ITERATIONS, "loop_wall_s": {}}
+    for path in ("plain", "async", "sync"):
+        walls, drains = zip(*(loop_walls(runs[f"{path}_{r}"]["dir"],
+                                         runs[f"{path}_{r}"]["summary"]) for r in "ab"))
+        warm = sorted(w for run in walls for w in run[1:])
+        out["loop_wall_s"][path] = {
+            "per_run": walls, "warm_median": warm[len(warm) // 2],
+            "warm_mean": sum(warm) / len(warm), "final_drain": drains}
+    publish = metric(sync, "histograms", "checkpoint.publish_seconds")
+    out["sync_publish_ms"] = {k: 1e3 * publish[k] for k in ("mean", "min", "max")}
+    log(f"  publish paths: {json.dumps(out)}")
+    return out
+
+
+def phase10_launches(fault: dict, kernel: str) -> dict:
+    """A kernel's launches in each phase-10 run."""
+    runs = {name: run["launches"].get(kernel, 0)
+            for name, run in fault["resume"]["runs"].items() if "launches" in run}
+    runs["online_fixture"] = fault["online_fixture"]["launches"].get(kernel, 0)
+    for backend in ("gpu", "cpu"):
+        runs[f"online_game_{backend}"] = fault["online_game"][backend]["launches"].get(kernel, 0)
+    return runs
+
+
+def run_online_fixture(dev) -> dict:
+    """Phase 10 (b): bench.py's online fixture and its in-bench checks."""
+    from photon_tpu_torch.core.objective import RegularizationContext
+    from photon_tpu_torch.core.optimizers import OptimizerConfig
+    from photon_tpu_torch.core.problem import ProblemConfig
+    from photon_tpu_torch.data.synthetic import make_game_data
+    from photon_tpu_torch.game.coordinate import (
+        FixedEffectCoordinateConfig,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_tpu_torch.game.data import DenseShard, GameDataset
+    from photon_tpu_torch.game.estimator import (
+        GameEstimator,
+        GameOptimizationConfiguration,
+    )
+    from photon_tpu_torch.game.model import GameModel
+    from photon_tpu_torch.online import OnlineLearningService, QueueFeed, RefreshPolicy
+    from photon_tpu_torch.serving import ServingFleet, request_spec_for_dataset
+    from photon_tpu_torch.telemetry import TelemetrySession
+
+    def problem(lam, iters):
+        return ProblemConfig(regularization=RegularizationContext("l2", lam),
+                             optimizer_config=OptimizerConfig(max_iterations=iters))
+
+    coords = {"fixed": FixedEffectCoordinateConfig("global", problem(0.01, 5))}
+    for i in range(2):
+        coords[f"re{i}"] = RandomEffectCoordinateConfig(f"re{i}", f"re{i}", problem(1.0, 4))
+    config = GameOptimizationConfiguration(coordinates=coords, descent_iterations=3)
+    task = "linear_regression"
+
+    def cut(n_ent, seed, keep=None):
+        raw = make_game_data(n_ent, 6, 32, 8, seed=seed, n_random_coords=2)
+        sel = slice(None) if keep is None else keep(raw["entity_ids"]["re0"])
+        return GameDataset.create(raw["label"][sel], {
+            "global": DenseShard(raw["x_fixed"][sel]),
+            "re0": DenseShard(raw["x_random"]["re0"][sel]),
+            "re1": DenseShard(raw["x_random"]["re1"][sel]),
+        }, id_columns={c: raw["entity_ids"][c][sel] for c in ("re0", "re1")})
+
+    n = ONLINE_ENTITIES
+    base = cut(n, 0)
+    session = TelemetrySession("online")
+    counters = kernel_wrappers()
+    for c in counters:
+        c.launches = 0
+    estimator = GameEstimator(task, base, device=dev, telemetry=session)
+    model0 = estimator.fit([config])[0].model
+    fleet = ServingFleet(model0, replicas=2, device=dev,
+                         request_spec=request_spec_for_dataset(model0, base),
+                         telemetry=session, table_capacity_factor=2).warmup()
+    captures = fleet.compilations
+    # Allocator segments each publish adds (every pool: a swap copies into
+    # the captured tables and allocates nothing that stays).
+    publish_segments = []
+    rollout = fleet.rollout
+
+    def counted_rollout(model, **kw):
+        torch.cuda.synchronize()
+        before = allocator_segments(dev)
+        rollout(model, **kw)
+        torch.cuda.synchronize()
+        publish_segments.append(allocator_segments(dev) - before)
+
+    fleet.rollout = counted_rollout
+    feed = QueueFeed()
+    service = OnlineLearningService(estimator, config, feed, model=model0, fleet=fleet,
+                                    policy=RefreshPolicy(refresh_iterations=3),
+                                    telemetry=session)
+    grow = int(n * 1.05)
+    keep = lambda ids: (ids < n // 10) | (ids >= n)  # noqa: E731
+    rounds = []
+    try:
+        for seed in (1, 2):
+            feed.append(cut(grow, seed, keep))
+            t0 = time.monotonic()
+            result = service.refresh_once()
+            torch.cuda.synchronize()
+            rounds.append({"latency_s": result.latency_s,
+                           "host_s": time.monotonic() - t0,
+                           "rows": result.rows, "locked": result.locked,
+                           "published": result.published})
+            if seed == 1:
+                merged1, model1 = estimator.training_data, result.model
+        captures_after = fleet.compilations
+    finally:
+        fleet.close()
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    fresh = GameEstimator(task, merged1, device=dev)
+    warm = GameModel({name: (m.with_entities(fresh.device_layout(config.coordinates[name])
+                                             .dataset.keys)
+                             if hasattr(m, "with_entities") else m)
+                      for name, m in model0.coordinates.items()}, task)
+    full = fresh.fit([config], initial_model=warm)[0].model
+    parity = float(np.abs(model1.score(merged1) - full.score(merged1)).max())
+    random_rebuilds = counter_total_labeled(session, "estimator.device_data_rebuilds",
+                                            kind="random")
+    in_place = counter_total(session, "onboard.rows_in_place")
+    out = {"rounds": rounds, "parity_vs_full_retrain": parity,
+           "random_rebuilds": random_rebuilds, "rows_in_place": in_place,
+           "rows_migrated": counter_total(session, "onboard.rows_migrated"),
+           "entities_new": counter_total(session, "onboard.entities_new"),
+           "captures": [captures, captures_after],
+           "segments_added_by_publish": publish_segments,
+           "launches": launches}
+    log(f"  (b) bench.py's online fixture: {json.dumps(out)}")
+    if not all(r["published"] for r in rounds) or parity > ONLINE_RETRAIN_TOL:
+        raise AssertionError(f"phase 10 (b): refresh parity {parity} vs a full retrain")
+    if random_rebuilds or not in_place:
+        raise AssertionError("phase 10 (b): a random-effect layout was rebuilt, or no row "
+                             "grew in place")
+    if captures_after != captures or len(publish_segments) != 2 or any(publish_segments):
+        raise AssertionError(f"phase 10 (b): serving captured ({captures} -> "
+                             f"{captures_after}) or allocated segments "
+                             f"({publish_segments}) across the publishes")
+    return out
+
+
+def counter_total_labeled(session, name: str, **labels) -> float:
+    return sum(m["value"] for m in session.registry.snapshot()["counters"]
+               if m["name"] == name and all(m["labels"].get(k) == v
+                                            for k, v in labels.items()))
+
+
+def run_online_game(game: dict) -> dict:
+    """Phase 10 (c): ``online_game`` on phase 6's file cut into an initial
+    part and ONLINE_PARTS appends, on the card (K1 must launch) and on the
+    host; the final models held to each other under phase 6's gates (their
+    metrics over the whole file within GAME_METRIC_ATOL, coefficients
+    GAME_COEF_TOL)."""
+    from photon_tpu_torch.data.game_io import read_game_avro, write_game_avro
+    from photon_tpu_torch.drivers import online_game
+    from photon_tpu_torch.evaluation.evaluators import get_evaluator
+    from photon_tpu_torch.game.data import take_rows
+    from photon_tpu_torch.game.model_io import load_game_model
+
+    root = os.path.join(os.path.dirname(game["avro"]), "phase10_online")
+    data, maps = read_game_avro(game["avro"], {"global": "global", "per_user": "per_user"},
+                                ["userId", "itemId"])
+    rng = np.random.default_rng(10)
+    users = data.id_columns["userId"]
+    uniq = np.unique(users)
+    late = np.isin(users, rng.choice(uniq, int(len(uniq) * ONLINE_LATE_USERS), replace=False))
+    part = np.where(rng.random(len(users)) < ONLINE_PARTS * ONLINE_PART_SHARE,
+                    rng.integers(1, ONLINE_PARTS + 1, len(users)), 0)
+    part = np.where(late, rng.integers(1, ONLINE_PARTS + 1, len(users)), part)
+    t0 = time.monotonic()
+    os.makedirs(root, exist_ok=True)
+    write_game_avro(os.path.join(root, "initial.avro"), take_rows(data, np.nonzero(part == 0)[0]),
+                    maps)
+    out = {"rows": {"initial": int((part == 0).sum()),
+                    "appends": [int((part == k).sum()) for k in range(1, ONLINE_PARTS + 1)],
+                    "late_users": int(len(np.unique(users[late])))}}
+    for backend in ("gpu", "cpu"):
+        appends = os.path.join(root, f"appends_{backend}")
+        os.makedirs(appends, exist_ok=True)
+        for k in range(1, ONLINE_PARTS + 1):
+            path = os.path.join(appends, f"part-{k:03d}.avro")
+            if backend == "gpu":
+                write_game_avro(path, take_rows(data, np.nonzero(part == k)[0]), maps)
+            else:
+                shutil.copy(os.path.join(root, "appends_gpu", f"part-{k:03d}.avro"), path)
+    out["write_s"] = time.monotonic() - t0
+    counters = kernel_wrappers()
+    models = {}
+    for backend in ("gpu", "cpu"):
+        run_dir = os.path.join(root, backend)
+        args = ["--input", os.path.join(root, "initial.avro"),
+                "--append-dir", os.path.join(root, f"appends_{backend}"), *GAME_BAGS,
+                "--coordinate", "fixed:type=fixed,shard=global,max_iters=30",
+                "--coordinate", "per_user:type=random,shard=per_user,entity=userId,"
+                "max_iters=20", "--replicas", "2",
+                "--checkpoint-dir", os.path.join(root, f"ckpt_{backend}"),
+                "--output-dir", run_dir, "--backend", backend]
+        for c in counters:
+            c.launches = 0
+        # Both on `fused` (the host runs K1's plain version): the two runs
+        # differ in the card's arithmetic only, not in the route.
+        with env_set({"PHOTON_SPARSE_GRAD": "fused"}):
+            t0 = time.monotonic()
+            summary = online_game.run(online_game.build_parser().parse_args(args))
+            wall = time.monotonic() - t0
+        launches = {c.__name__: c.launches for c in counters if c.launches}
+        models[backend] = load_game_model(summary["model_dir"], device="cpu")[0]
+        out[backend] = {"wall_s": wall, "launches": launches,
+                        **{k: summary[k] for k in ("rounds", "rows_ingested", "published",
+                                                   "refresh_latency_s", "compiled_programs",
+                                                   "phase_times", "locked_per_round")}}
+        log(f"  (c) online_game ({backend}): {wall:.2f} s, {summary['rounds']} rounds, "
+            f"{summary['rows_ingested']} rows, refresh latency "
+            f"{summary['refresh_latency_s']}, launches {launches}")
+        # The three parts wait in the directory together: one round drains
+        # them all.
+        if (summary["rounds"] != 1 or summary["published"] != 1
+                or summary["rows_ingested"] != sum(out["rows"]["appends"])):
+            raise AssertionError(f"phase 10 (c) {backend}: {summary['rounds']} rounds, "
+                                 f"{summary['rows_ingested']} rows ingested")
+    if not out["gpu"]["launches"].get("fused_value_and_grad"):
+        raise AssertionError("phase 10 (c): K1 never launched in online_game on the card")
+    metrics = {}
+    for name in ("AUC", "LOGISTIC_LOSS"):
+        ev = get_evaluator(name)
+        vals = [float(ev.fn(torch.as_tensor(models[b].score(data)), torch.as_tensor(data.label),
+                            torch.as_tensor(data.weight))) for b in ("gpu", "cpu")]
+        metrics[name] = vals
+        if abs(vals[0] - vals[1]) > GAME_METRIC_ATOL:
+            raise AssertionError(f"phase 10 (c): {name} card {vals[0]} host {vals[1]}")
+    out["metrics"] = metrics
+    out["coefficients_vs_cpu"] = models_agree("phase 10 (c)", models["gpu"], models["cpu"],
+                                              GAME_COEF_TOL)
+    log(f"  (c) card vs host: metrics {metrics}, coefficients max |diff| "
+        f"{out['coefficients_vs_cpu']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3298,6 +3814,15 @@ def main() -> int:
         rest["hidim"] = run_hidim(dev)
         rest["seconds"] = time.monotonic() - t9
         log(f"  phase 9 took {rest['seconds']:.1f} s")
+
+        t10 = time.monotonic()
+        log("phase 10: fault-tolerant resident training (checkpoints, preemption, kill "
+            "and resume) and online learning with onboarding")
+        fault = {"resume": run_fault_tolerance(game)}
+        fault["online_fixture"] = run_online_fixture(dev)
+        fault["online_game"] = run_online_game(game)
+        fault["seconds"] = time.monotonic() - t10
+        log(f"  phase 10 took {fault['seconds']:.1f} s")
     finally:
         shutil.rmtree(game_tmp, ignore_errors=True)
 
@@ -3323,6 +3848,7 @@ def main() -> int:
                                 for name, run in rest.items() if name[:2] in ("9a", "9b")
                                 and "launches" in run},
             "config2": k_config2["fused_sparse"],
+            "phase10_launches": phase10_launches(fault, "fused_value_and_grad"),
             "card": card,
         },
         {
@@ -3357,6 +3883,7 @@ def main() -> int:
                                 for name, run in rest.items() if name[:2] in ("9a", "9b")
                                 and "launches" in run},
             "phase9_note": "phase 9 drives K2 nowhere: 9b's one fixed effect is locked",
+            "phase10_launches": phase10_launches(fault, "position_partial_sums"),
             "config2": {"grad": k_config2["position_reduce[grad]"],
                         "forward": k_config2["position_reduce[forward]"]},
         },
@@ -3418,6 +3945,7 @@ def main() -> int:
     log(f"config 2: {json.dumps(config2, default=str)}")
     log(f"serving: {json.dumps(serving, default=str)}")
     log(f"phase 9: {json.dumps(rest, default=str)}")
+    log(f"phase 10: {json.dumps(fault, default=str)}")
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

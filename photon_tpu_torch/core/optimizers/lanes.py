@@ -179,6 +179,7 @@ def armijo_lanes(trial: Callable[[Tensor], tuple[Tensor, Tensor]], t0: Tensor,
         ls_ok = ls_ok | (searching & found)
         searching = searching & ~found
         state, any_active = finish(t, ls_ok, f_try, level)
+        # host-sync: the solver's one read a decision (counted in host_reads)
         more, any_active = torch.stack([searching.any(), any_active]).tolist()
         reads += 1
         if not more:

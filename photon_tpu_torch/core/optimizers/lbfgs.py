@@ -94,6 +94,7 @@ def lbfgs(
 
     w = w0
     f, g = fun(w)
+    # host-sync: the solver's one read a decision (counted in host_reads)
     f_h, gnorm0 = torch.stack([f, torch.linalg.vector_norm(g)]).tolist()
     reads = evaluations = 1
     gnorm_h = gnorm0
@@ -123,7 +124,7 @@ def lbfgs(
             f_t, g_t = fun(w_t)
             ok = (f_t <= f + (_ARMIJO_C1 * t) * dir_deriv) & torch.isfinite(f_t)
             s, y = w_t - w, g_t - g
-            packed = torch.stack([
+            packed = torch.stack([  # host-sync: the solver's read
                 f_t, ok.to(f_t.dtype), torch.dot(s, y), torch.dot(y, y),
                 torch.linalg.vector_norm(g_t),
             ]).tolist()
@@ -159,7 +160,7 @@ def lbfgs(
     # small relative to the iterate, finite, and not growing the gradient.
     for _ in range(2):
         step = hist.direction(g)
-        finite, step_norm, w_norm = torch.stack([
+        finite, step_norm, w_norm = torch.stack([  # host-sync: the solver's read
             torch.isfinite(step).all().to(step.dtype),
             torch.linalg.vector_norm(step), torch.linalg.vector_norm(w),
         ]).tolist()
@@ -168,7 +169,7 @@ def lbfgs(
             continue
         w_p = w + step
         f_p, g_p = fun(w_p)
-        f_ph, g_finite, gnorm_p = torch.stack([
+        f_ph, g_finite, gnorm_p = torch.stack([  # host-sync: the solver's read
             f_p, torch.isfinite(g_p).all().to(f_p.dtype),
             torch.linalg.vector_norm(g_p),
         ]).tolist()

@@ -68,6 +68,7 @@ def _pcg(hv: Callable[[Tensor], Tensor], g: Tensor, mdiag: Tensor,
     r = -g
     z = r / mdiag
     rz_t = torch.dot(r, z)
+    # host-sync: the solver's one read a decision (counted in host_reads)
     b_norm, rz = (f32(x) for x in torch.stack([_norm(r), rz_t]).tolist())
     p = torch.zeros_like(g)
     dvec = z
@@ -80,7 +81,7 @@ def _pcg(hv: Callable[[Tensor], Tensor], g: Tensor, mdiag: Tensor,
         r_new = r - alpha * hd
         z_new = r_new / mdiag
         rz_new_t = torch.dot(r_new, z_new)
-        dhd_h, r_norm, rz_new = (f32(x) for x in torch.stack(
+        dhd_h, r_norm, rz_new = (f32(x) for x in torch.stack(  # host-sync: the solver's read
             [dhd, _norm(r_new), rz_new_t]).tolist())
         reads += 1
         it += 1
@@ -122,6 +123,7 @@ def newton_cg(
 
     w = w0
     f, g = fun(w)
+    # host-sync: the solver's one read a decision (counted in host_reads)
     f_h, gnorm0 = (f32(x) for x in torch.stack([f, _norm(g)]).tolist())
     reads = 1
     hv_hist[0], hg[0], hvalid[0] = f_h, gnorm0, True
@@ -137,7 +139,7 @@ def newton_cg(
         step, cg_it, cg_reads = _pcg(hvp_at(w), g, mdiag, eta * gnorm, max_cg)
         cg_total += cg_it
         dir_deriv_t = torch.dot(g, step)
-        finite, dir_deriv = torch.stack([
+        finite, dir_deriv = torch.stack([  # host-sync: the solver's read
             torch.isfinite(step).all().to(step.dtype), dir_deriv_t]).tolist()
         reads += cg_reads + 1
         # A non-finite or non-descent CG result falls back to steepest descent.
@@ -150,7 +152,7 @@ def newton_cg(
         while True:
             f_t, g_t = fun(w + t * step)
             ok = (f_t <= f + (_ARMIJO_C1 * t) * dir_deriv_t) & torch.isfinite(f_t)
-            f_t_h, ok_h, gnorm_t = torch.stack(
+            f_t_h, ok_h, gnorm_t = torch.stack(  # host-sync: the solver's read
                 [f_t, ok.to(f_t.dtype), _norm(g_t)]).tolist()
             reads += 1
             if ok_h or halvings >= config.max_line_search:
@@ -179,14 +181,14 @@ def newton_cg(
             hvp_at(w), g, mdiag, f32(_POLISH_ETA) * gnorm, max_cg
         )
         cg_total += cg_it
-        finite, step_norm, w_norm = torch.stack([
+        finite, step_norm, w_norm = torch.stack([  # host-sync: the solver's read
             torch.isfinite(step).all().to(step.dtype), _norm(step), _norm(w),
         ]).tolist()
         reads += cg_reads + 1
         if not (finite and step_norm <= 1e-3 * max(w_norm, 1.0)):
             continue
         f_p, g_p = fun(w + step)
-        f_ph, g_finite, gnorm_p = torch.stack([
+        f_ph, g_finite, gnorm_p = torch.stack([  # host-sync: the solver's read
             f_p, torch.isfinite(g_p).all().to(f_p.dtype), _norm(g_p),
         ]).tolist()
         reads += 1

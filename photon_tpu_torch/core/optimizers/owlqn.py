@@ -98,6 +98,7 @@ def owlqn(
     w = w0
     f, g = fun(w)
     pg = _pseudo_gradient(w, g, l1)
+    # host-sync: the solver's one read a decision (counted in host_reads)
     f_h, gnorm0 = torch.stack([total(w, f), torch.linalg.vector_norm(pg)]).tolist()
     reads = evaluations = 1
     gnorm_h = gnorm0
@@ -129,7 +130,7 @@ def owlqn(
                   & torch.isfinite(f_t))
             s, y = w_t - w, g_t - g
             pg_t = _pseudo_gradient(w_t, g_t, l1)
-            packed = torch.stack([
+            packed = torch.stack([  # host-sync: the solver's read
                 tot_t, ok.to(f_t.dtype), torch.dot(s, y), torch.dot(y, y),
                 torch.linalg.vector_norm(pg_t),
             ]).tolist()
@@ -166,7 +167,7 @@ def owlqn(
     # the pseudo-gradient.
     for _ in range(2):
         step = _project_direction(hist.direction(pg), pg)
-        finite, step_norm, w_norm = torch.stack([
+        finite, step_norm, w_norm = torch.stack([  # host-sync: the solver's read
             torch.isfinite(step).all().to(step.dtype),
             torch.linalg.vector_norm(step), torch.linalg.vector_norm(w),
         ]).tolist()
@@ -176,7 +177,7 @@ def owlqn(
         w_p = _orthant_project(w + step, _orthant(w, pg))
         f_p, g_p = fun(w_p)
         pg_p = _pseudo_gradient(w_p, g_p, l1)
-        f_ph, g_finite, gnorm_p = torch.stack([
+        f_ph, g_finite, gnorm_p = torch.stack([  # host-sync: the solver's read
             total(w_p, f_p), torch.isfinite(g_p).all().to(f_p.dtype),
             torch.linalg.vector_norm(pg_p),
         ]).tolist()

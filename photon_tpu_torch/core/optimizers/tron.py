@@ -77,10 +77,10 @@ def _trcg(hvp: Callable[[Tensor], Tensor], g: Tensor, gnorm: float,
         s_try = s + alpha * d
         r_in = r - alpha * hd
         rtr_new_t = torch.dot(r_in, r_in)
+        # host-sync: the solver's one read a CG step (counted in host_reads)
         dhd_h, s_try_norm, rtr, rtr_new, std, sts, dtd = (f32(x) for x in torch.stack([
             dhd, _norm(s_try), rtr_t, rtr_new_t, torch.dot(s, d), torch.dot(s, s),
-            torch.dot(d, d),
-        ]).tolist())
+            torch.dot(d, d)]).tolist())
         reads += 1
         it += 1
         if s_try_norm > f32(delta) or dhd_h <= _TINY:
@@ -129,6 +129,7 @@ def tron(
 
     w = w0
     f, g = fun(w)
+    # host-sync: the solver's one read a decision (counted in host_reads)
     f_h, gnorm0 = (f32(x) for x in torch.stack([f, _norm(g)]).tolist())
     reads = 1
     hv[0], hg[0], hvalid[0] = f_h, gnorm0, True
@@ -145,10 +146,10 @@ def tron(
         cg_total += cg_it
         w_new = w + step
         f_new, g_new = fun(w_new)
+        # host-sync: the solver's one read a decision (counted in host_reads)
         gs, s_r, f_new_h, snorm, gnorm_new = (f32(x) for x in torch.stack([
             torch.dot(g, step), torch.dot(step, resid), f_new, _norm(step),
-            _norm(g_new),
-        ]).tolist())
+            _norm(g_new)]).tolist())
         reads += cg_reads + 1
         prered = f32(-0.5) * (gs - s_r)
         actred = f_h - f_new_h

@@ -18,8 +18,10 @@ a missing id column), an unbuilt host library, or
 ``PHOTON_TPU_NO_NATIVE_AVRO=1`` take the Python reader: one pass over the
 records, decoded lazily and never kept, host memory bounded by the flat CSR
 accumulators.  ``last_reader`` names the reader of the last
-:func:`read_game_avro` (``"native"`` or ``"python"``).  The reference's
-retry and fault-injection sites wait in ROADMAP.md queue 1, item 6.
+:func:`read_game_avro` (``"native"`` or ``"python"``).  Each file's read
+sits behind the ``io:read`` fault site and retries transient IO errors
+with backoff, as the reference's does (a whole-file decode changes nothing
+when it fails).
 """
 
 from __future__ import annotations
@@ -217,9 +219,17 @@ def read_game_avro(
     flat_vals: Dict[str, array] = {s: array("f") for s in feature_bags}
     nnz: Dict[str, array] = {s: array("i") for s in feature_bags}
 
+    from photon_tpu_torch.fault.injection import fault_point
+    from photon_tpu_torch.fault.retry import retry_call
+
+    def open_records(fpath):
+        fault_point("io:read", path=fpath)
+        return avro_codec.open_container(fpath)
+
     i = 0
     for fpath in files:
-        fh, schema, named, sync = avro_codec.open_container(fpath)
+        fh, schema, named, sync = retry_call(lambda p=fpath: open_records(p),
+                                             site="avro:read")
         with fh:
             for rec in avro_codec.iter_records(fh, schema, named, sync, fpath):
                 label.append(rec["response"])
@@ -323,8 +333,16 @@ def _read_native(files, feature_bags, id_columns, index_maps, intercept):
     gvocab = {s: {} for s in feature_bags} if build_maps else None
     skip = -2  # a removed entry: the intercept in the data, or off a fixed map
     n_total = 0
+    from photon_tpu_torch.fault.injection import fault_point
+    from photon_tpu_torch.fault.retry import retry_call
+
+    def decode(fp, data_offset, sync, compiled):
+        fault_point("io:read", path=fp)
+        return avro_native.decode_file(fp, data_offset, sync, compiled)
+
     for fp, data_offset, sync, compiled, id_field_of in plans:
-        decoded = avro_native.decode_file(fp, data_offset, sync, compiled)
+        decoded = retry_call(lambda: decode(fp, data_offset, sync, compiled),
+                             site="avro:read")
         if decoded is None:
             return None
         n = decoded.n

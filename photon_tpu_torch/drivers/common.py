@@ -80,29 +80,99 @@ def add_telemetry_arg(parser: argparse.ArgumentParser) -> None:
                         "disables process-wide")
 
 
+def add_fault_args(parser: argparse.ArgumentParser) -> None:
+    """The fault-tolerance flags of the training drivers: fault injection
+    (overrides ``PHOTON_FAULTS``), preemption handling and the watchdog."""
+    parser.add_argument("--faults", default=None, metavar="SPEC",
+                        help="inject deterministic faults for recovery "
+                        "testing, e.g. 'io:read:p=0.3,descent:kill:iter=2,"
+                        "preempt:iter=1' (overrides PHOTON_FAULTS)")
+    parser.add_argument("--faults-seed", type=int, default=0,
+                        help="seed of the fault plan's RNG streams")
+    parser.add_argument("--on-preempt", default="checkpoint",
+                        choices=("checkpoint", "ignore"),
+                        help="SIGTERM/SIGINT: 'checkpoint' (default) stops at "
+                        "the next iteration boundary with its checkpoint "
+                        "published and exits with code 75; 'ignore' keeps "
+                        "the default signal behavior")
+    parser.add_argument("--stall-timeout", type=float, default=None,
+                        metavar="SECONDS",
+                        help="run watchdog: watchdog.stalled telemetry when "
+                        "iteration or IO heartbeats go silent this long, and "
+                        "a guarded-IO call hung past it becomes a retriable "
+                        "timeout.  Default: PHOTON_STALL_TIMEOUT_S, else off")
+
+
 @contextlib.contextmanager
-def telemetry_run(args: argparse.Namespace, driver: str, logger: RunLogger):
+def telemetry_run(args: argparse.Namespace, driver: str, logger: RunLogger,
+                  preemptible: bool = False):
     """Run-report bracket around a driver body: yields a telemetry session
     attached to ``logger`` (every timed phase becomes a span), then writes
-    ``<output-dir>/telemetry/run_report.json`` — with status "error" and the
-    exception when the body raises.  A ``PHOTON_FAULTS`` plan restarts
-    fresh for the run."""
-    from photon_tpu_torch.fault.injection import reset_env_plan
+    ``<output-dir>/telemetry/run_report.json`` — status "preempted" on a
+    preemption stop, "error" with the exception when the body raises.
+
+    It also installs the run-scoped fault machinery: the ``--faults`` plan
+    (or a fresh ``PHOTON_FAULTS`` plan), the ``--stall-timeout`` watchdog
+    and, for the training drivers (``preemptible``: their loops poll the
+    flag at iteration boundaries), the ``--on-preempt`` SIGTERM/SIGINT
+    handler.  All of it is undone on exit."""
+    from photon_tpu_torch.fault.injection import install_from_args, set_plan
+    from photon_tpu_torch.fault.preemption import PreemptedError, PreemptionHandler
+    from photon_tpu_torch.fault.watchdog import (
+        Watchdog,
+        clear_heartbeats,
+        set_stall_timeout,
+        stall_timeout,
+    )
     from photon_tpu_torch.telemetry import TelemetrySession, telemetry_enabled
 
-    reset_env_plan()
+    install_from_args(args)
     session = TelemetrySession(
         driver, enabled=telemetry_enabled(getattr(args, "telemetry", None))
     )
     session.attach(logger)
+    flag_timeout = getattr(args, "stall_timeout", None)
+    if flag_timeout is not None:
+        set_stall_timeout(flag_timeout)
+    watchdog = None
+    if stall_timeout() > 0:
+        watchdog = Watchdog(stall_timeout(), telemetry=session, logger=logger).start()
+    handler = PreemptionHandler(
+        (getattr(args, "on_preempt", None) or "checkpoint") if preemptible
+        else "ignore", logger=logger)
+    output_dir = getattr(args, "output_dir", None)
     try:
-        yield session
+        with handler:
+            yield session
+    except PreemptedError as e:
+        session.finalize(output_dir, status="preempted", error=str(e))
+        raise
     except BaseException as e:
-        session.finalize(getattr(args, "output_dir", None), status="error",
+        session.finalize(output_dir, status="error",
                          error=f"{type(e).__name__}: {e}")
         raise
     else:
-        session.finalize(getattr(args, "output_dir", None))
+        session.finalize(output_dir)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+        set_stall_timeout(None)
+        clear_heartbeats()
+        if getattr(args, "faults", None):
+            set_plan(None)
+
+
+def run_cli(run_fn, args: argparse.Namespace) -> None:
+    """Driver ``main()`` tail: a preemption stop exits with
+    :data:`~photon_tpu_torch.fault.preemption.PREEMPTED_EXIT_CODE` (75,
+    EX_TEMPFAIL), so a wrapper can resubmit it; everything else propagates."""
+    from photon_tpu_torch.fault.preemption import PREEMPTED_EXIT_CODE, PreemptedError
+
+    try:
+        run_fn(args)
+    except PreemptedError as e:
+        print(f"preempted: {e}", file=sys.stderr)
+        raise SystemExit(PREEMPTED_EXIT_CODE)
 
 
 def add_data_args(parser: argparse.ArgumentParser) -> None:

@@ -17,9 +17,19 @@ Usage:
         --reg-weights 1.0 --normalization standardization \\
         --output-dir out --backend gpu
 
-Not carried (ROADMAP.md queue 1): ``--dtype bfloat16`` (item 9), the
-diagnostic reports, streaming, checkpoints, multi-process runs, fault
-injection and telemetry (items 6, 9 and 10).
+``--checkpoint-dir`` publishes one completed snapshot per finished
+regularization weight (the reference's ``StreamState`` shape), written on
+the loop's thread before the next weight starts, and
+``--resume`` rebuilds finished weights from their snapshots without a
+refit; the preemption boundary (SIGTERM/SIGINT, the ``preempt`` fault site)
+sits between weights and exits with code 75.  ``--telemetry`` writes the
+run report, ``--faults`` injects faults.
+
+Not carried (ROADMAP.md queue 1): ``--dtype bfloat16``, ``--stream`` and
+``--checkpoint-every`` (item 9), the diagnostic reports and multi-process
+runs (item 10).  ``--checkpoint-async`` and ``--checkpoint-max-staged-mb``
+come with the streamed path (item 9): a resident sweep publishes once a
+weight, so a publisher thread would have nothing to overlap.
 """
 
 from __future__ import annotations
@@ -65,16 +75,54 @@ def build_parser() -> argparse.ArgumentParser:
                    "previous weight's solution")
     p.add_argument("--save-all-models", action="store_true",
                    help="write every sweep model, not just the best")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="one completed snapshot per finished regularization "
+                   "weight, published atomically here")
+    p.add_argument("--resume", default=None, metavar="auto|latest",
+                   help="rebuild finished weights from --checkpoint-dir "
+                   "without refitting; 'latest' requires a published "
+                   "snapshot")
+    p.add_argument("--stream", action="store_true",
+                   help="not ported: streamed training (ROADMAP.md queue 1, "
+                   "item 9)")
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="not ported: mid-fit streamed checkpoints (ROADMAP.md "
+                   "queue 1, item 9)")
+    common.add_fault_args(p)
+    common.add_telemetry_arg(p)
     return p
 
 
 def run(args: argparse.Namespace) -> dict:
+    for flag, what in (("stream", "--stream"),
+                       ("checkpoint_every", "--checkpoint-every")):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"{what}: streamed training waits in ROADMAP.md queue 1, item 9")
+    device = common.device_for_backend(args.backend)
+    logger = common.RunLogger("photon_tpu_torch.train")
+    os.makedirs(args.output_dir, exist_ok=True)
+    with common.telemetry_run(args, "train", logger, preemptible=True) as session:
+        if args.resume and not args.checkpoint_dir:
+            raise ValueError("--resume needs --checkpoint-dir")
+        if args.resume == "latest":
+            from photon_tpu_torch.fault.checkpoint import has_published_checkpoint
+
+            if not has_published_checkpoint(args.checkpoint_dir):
+                raise ValueError(
+                    f"--resume latest: no published checkpoint under "
+                    f"{args.checkpoint_dir!r}")
+        return _train(args, device, logger, session)
+
+
+def _train(args, device, logger, session) -> dict:
     from photon_tpu_torch.core.normalization import NormalizationContext
     from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
     from photon_tpu_torch.core.optimizers import (
         OptimizationStatesTracker,
         OptimizerConfig,
     )
+    from photon_tpu_torch.core.optimizers.base import OptimizerResult
     from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
     from photon_tpu_torch.core.stats import BasicStatisticalSummary
     from photon_tpu_torch.data.batch import SparseBatch, attach_feature_major
@@ -82,12 +130,20 @@ def run(args: argparse.Namespace) -> dict:
         MultiEvaluator,
         default_evaluators_for_task,
     )
-    from photon_tpu_torch.models.glm import model_for_task
+    from photon_tpu_torch.fault.checkpoint import (
+        StreamCheckpointer,
+        StreamState,
+        require_fingerprint,
+    )
+    from photon_tpu_torch.fault.preemption import (
+        PreemptedError,
+        consume_preempt_injection,
+        preemption_reason,
+        preemption_requested,
+    )
+    from photon_tpu_torch.models.glm import Coefficients, model_for_task
     from photon_tpu_torch.ops.sparse_grad_select import aligned_layout_wanted
 
-    device = common.device_for_backend(args.backend)
-    logger = common.RunLogger("photon_tpu_torch.train")
-    os.makedirs(args.output_dir, exist_ok=True)
     with logger.timed("load-data"):
         batch, dim, index_map = common.load_dataset(
             args.input, args.intercept, args.task, device,
@@ -127,18 +183,93 @@ def run(args: argparse.Namespace) -> dict:
         optimizer = "owlqn"
     sweep = []
     w_start = torch.zeros(dim, dtype=torch.float32, device=device)
-    for lam in common.parse_weights_list(args.reg_weights):
+    for i, lam in enumerate(common.parse_weights_list(args.reg_weights)):
+        # The preemption boundary: between weights.  Every finished weight
+        # is already checkpointed, so stopping here loses nothing.  The
+        # ``preempt`` fault site counts weights as its iterations.
+        consume_preempt_injection(i)
+        if preemption_requested():
+            hint = ("resume with --resume auto" if args.checkpoint_dir
+                    else "no --checkpoint-dir — a restart begins from scratch")
+            raise PreemptedError(
+                f"preempted ({preemption_reason()}) before lambda={lam:g}; {hint}")
         reg = RegularizationContext(args.reg_type, lam, args.elastic_net_alpha)
-        problem = GlmOptimizationProblem(
-            GlmObjective.create(args.task, reg, normalization=norm),
-            ProblemConfig(optimizer=optimizer, regularization=reg,
-                          optimizer_config=opt_config,
-                          variance_computation=args.variance_computation),
-        )
-        with logger.timed(f"train-lambda-{lam}"):
-            t0 = time.monotonic()
-            coefficients, result = problem.run(batch, w_start)
-            wall = time.monotonic() - t0
+        # What makes a snapshot this weight's completed fit (the
+        # reference's keys; max_iterations is pinned: only final states
+        # are saved, so a raised budget refits).
+        fingerprint = {
+            "kind": StreamCheckpointer.KIND, "path": "resident",
+            "task": args.task, "optimizer": optimizer, "reg_type": args.reg_type,
+            "lambda": lam, "alpha": args.elastic_net_alpha, "dim": int(dim),
+            "num_examples": int(batch.num_examples),
+            "intercept": bool(args.intercept),
+            "normalization": args.normalization, "dtype": "float32",
+            "variance": args.variance_computation,
+            "warm_start": bool(args.sweep_warm_start),
+            "max_iterations": int(opt_config.max_iterations),
+            "tolerance": float(opt_config.tolerance),
+        }
+        checkpointer = resume_state = None
+        if args.checkpoint_dir:
+            checkpointer = StreamCheckpointer(
+                os.path.join(args.checkpoint_dir, f"lam-{i:03d}"),
+                telemetry=session, logger=logger, async_publish=False,
+            )
+            if args.resume:
+                resume_state = require_fingerprint(
+                    checkpointer.load("auto"), fingerprint, f"lambda={lam:g}")
+        if resume_state is not None and resume_state.completed:
+            # A finished weight: the model and its convergence record from
+            # the snapshot, no solve; the solver-space iterate keeps the
+            # warm-start chain of the uninterrupted sweep.
+            saved = resume_state.arrays
+            result = OptimizerResult(
+                w=torch.as_tensor(saved["w_opt"], device=device),
+                value=float(resume_state.scalars["f"]),
+                grad_norm=float(resume_state.scalars["gnorm"]),
+                iterations=int(resume_state.iteration),
+                converged=bool(resume_state.scalars.get("converged", False)),
+                reason=int(resume_state.reason),
+                history_value=saved["hv"], history_grad_norm=saved["hg"],
+                history_valid=saved["hvalid"].astype(bool),
+                host_reads=0, evaluations=0,
+            )
+            wall = 0.0
+            coefficients = Coefficients(
+                torch.as_tensor(saved["means"], device=device),
+                (torch.as_tensor(saved["variances"], device=device)
+                 if "variances" in saved else None))
+            session.counter("train.lambdas_resumed").inc()
+            logger.info("lambda=%g restored from completed checkpoint (no refit)", lam)
+        else:
+            problem = GlmOptimizationProblem(
+                GlmObjective.create(args.task, reg, normalization=norm),
+                ProblemConfig(optimizer=optimizer, regularization=reg,
+                              optimizer_config=opt_config,
+                              variance_computation=args.variance_computation),
+            )
+            with logger.timed(f"train-lambda-{lam}"):
+                t0 = time.monotonic()
+                coefficients, result = problem.run(batch, w_start)
+                wall = time.monotonic() - t0
+            if checkpointer is not None:
+                saved = {
+                    # The solver-space iterate (the warm-start chain) and
+                    # the original-space model, with the history buffers.
+                    "w_opt": result.w, "means": coefficients.means,
+                    "hv": result.history_value, "hg": result.history_grad_norm,
+                    "hvalid": result.history_valid,
+                }
+                if coefficients.variances is not None:
+                    saved["variances"] = coefficients.variances
+                checkpointer.save(StreamState(
+                    iteration=int(result.iterations), arrays=saved,
+                    scalars={"f": float(result.value),
+                             "gnorm": float(result.grad_norm),
+                             "converged": bool(result.converged)},
+                    completed=True, reason=int(result.reason),
+                    fingerprint=fingerprint,
+                ))
         if args.sweep_warm_start:
             w_start = result.w  # the optimizer's (normalized) space
         tracker = OptimizationStatesTracker(result, wall)
@@ -173,7 +304,7 @@ def run(args: argparse.Namespace) -> dict:
 
 
 def main(argv=None) -> None:
-    run(build_parser().parse_args(argv))
+    common.run_cli(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -27,15 +27,24 @@ l1 and elastic_net, with ``alpha``, fit with OWL-QN), ``reg_weights`` (a
 ``downsampler`` (fixed: default|binary, by default the task's), ``seed``.
 The sweep is the cross product of every coordinate's ``reg_weights``.
 ``--initial-model`` warm-starts every fit from a saved GAME model and
-``--locked-coordinates`` keeps those coordinates at it.  ``--backend gpu``
+``--locked-coordinates`` keeps those coordinates at it.
+
+Fault tolerance: ``--checkpoint-dir`` publishes every descent's restart
+state after each outer iteration (one chain a sweep entry, the reference's
+format) and ``--resume auto|latest|PATH`` goes on from it; ``--checkpoint``
+writes each iteration's model under ``<output-dir>/checkpoint/latest``.
+``--faults`` injects faults at named sites, SIGTERM/SIGINT (or the
+``preempt`` site) stops at the next iteration boundary with the checkpoint
+published and exits with code 75, and ``--stall-timeout`` runs the
+watchdog.  ``--backend gpu``
 (the default) runs on the card and fails without one; ``--backend cpu``
 runs on the host.  The run report (``<output-dir>/telemetry/``) carries
 the entity solves' routes and bins.
 
 Flags of the reference that the port does not carry yet raise, naming
-their ROADMAP.md queue 1 item: streaming (9), checkpoints and fault flags
-(6), tuning and multi-process runs (10), ``--dtype`` other than float32
-(9), and the coordinate key ``row_split`` (10).
+their ROADMAP.md queue 1 item: streaming (9), tuning and multi-process runs
+(10), ``--dtype`` other than float32 (9), and the coordinate key
+``row_split`` (10).
 """
 
 from __future__ import annotations
@@ -57,11 +66,6 @@ _NOT_PORTED = (
     ("max_host_mb", 9, "the disk-backed tile store"),
     ("spill_dir", 9, "the disk-backed tile store"),
     ("tile_dtype", 9, "the disk-backed tile store"),
-    ("checkpoint", 6, "per-iteration model checkpoints"),
-    ("checkpoint_dir", 6, "descent checkpointing"),
-    ("resume", 6, "descent checkpointing"),
-    ("faults", 6, "fault injection"),
-    ("stall_timeout", 6, "the run watchdog"),
     ("tuning", 10, "hyperparameter tuning"),
     ("coordinator", 10, "multi-process runs"),
 )
@@ -122,6 +126,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--locked-coordinates", default=None,
                    help="comma-separated coordinates to keep at the initial "
                    "model (partial retraining)")
+    p.add_argument("--checkpoint", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="write each iteration's model under <output-dir>/"
+                   "checkpoint/latest and each sweep entry's as it finishes "
+                   "(resume via --initial-model)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="descent checkpointing: after every outer iteration "
+                   "the full restart state is published atomically here "
+                   "(one subdirectory a sweep entry)")
+    p.add_argument("--checkpoint-async", default=None, choices=("on", "off"),
+                   help="publish checkpoints from a background thread "
+                   "(default on, or PHOTON_CHECKPOINT_ASYNC): the loop "
+                   "stages the copies, the write runs behind the next "
+                   "iteration; 'off' writes inline")
+    p.add_argument("--checkpoint-max-staged-mb", type=float, default=None,
+                   help="a staged snapshot over this many MB publishes "
+                   "blocking.  Default: PHOTON_CHECKPOINT_MAX_STAGED_MB, "
+                   "else unbounded")
+    p.add_argument("--resume", default=None, metavar="auto|latest|PATH",
+                   help="go on from --checkpoint-dir: 'auto' resumes what is "
+                   "there (a fresh start otherwise), 'latest' requires a "
+                   "published checkpoint, a path names one version; "
+                   "finished sweep entries are rebuilt without a fit")
+    common.add_fault_args(p)
     common.add_telemetry_arg(p)
     for flag, item, what in _NOT_PORTED:
         p.add_argument("--" + flag.replace("_", "-"), default=None,
@@ -313,11 +341,55 @@ def _reject_not_ported(args) -> None:
             "in ROADMAP.md queue 1, item 9")
 
 
+def _validate_resume(args, specs) -> None:
+    """The reference's checks (``train_game.py:442-465``), before any data
+    is read."""
+    from photon_tpu_torch.fault.checkpoint import has_published_checkpoint
+
+    if args.resume and not args.checkpoint_dir:
+        raise ValueError("--resume needs --checkpoint-dir")
+    if args.resume == "latest" and not has_published_checkpoint(args.checkpoint_dir):
+        raise ValueError(
+            f"--resume latest: no published checkpoint under {args.checkpoint_dir!r}")
+    if (args.resume and args.resume not in ("auto", "latest")
+            and len(_build_sweep(specs, args.task)) > 1):
+        raise ValueError(
+            "an explicit --resume path applies to a single sweep entry; use "
+            "--resume auto for sweeps")
+
+
+def _model_checkpoint_fn(args, index_maps, logger):
+    """``--checkpoint``: each iteration's model goes into the slot that
+    ``<output-dir>/checkpoint/latest`` does not point to, then the link is
+    replaced atomically, so ``latest`` always names a whole model."""
+    import shutil
+
+    from photon_tpu_torch.game.model_io import save_game_model
+
+    base = os.path.join(args.output_dir, "checkpoint")
+    latest = os.path.join(base, "latest")
+
+    def checkpoint_fn(iteration, model):
+        live = (os.path.basename(os.path.realpath(latest))
+                if os.path.islink(latest) else None)
+        slot = os.path.join(base, "slot-1" if live == "slot-0" else "slot-0")
+        shutil.rmtree(slot, ignore_errors=True)
+        save_game_model(slot, model, index_maps, fmt=args.model_format)
+        tmp_link = os.path.join(base, ".latest.tmp")
+        if os.path.lexists(tmp_link):
+            os.remove(tmp_link)
+        os.symlink(os.path.basename(slot), tmp_link)
+        os.replace(tmp_link, latest)
+        logger.info("checkpoint: iteration %d -> %s", iteration, latest)
+
+    return checkpoint_fn
+
+
 def run(args: argparse.Namespace) -> dict:
     _reject_not_ported(args)
     logger = common.RunLogger("photon_tpu_torch.train_game")
     os.makedirs(args.output_dir, exist_ok=True)
-    with common.telemetry_run(args, "train_game", logger) as session:
+    with common.telemetry_run(args, "train_game", logger, preemptible=True) as session:
         return _train(args, logger, session)
 
 
@@ -336,6 +408,7 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
 
     device = common.device_for_backend(args.backend)
     specs = _coordinate_specs(args)
+    _validate_resume(args, specs)
     sweep = _build_sweep(specs, args.task)
 
     prebuilt_maps = None
@@ -379,17 +452,31 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
         validation_mode=args.validation_pipeline, telemetry=session,
     )
     max_quarantined = None if args.max_quarantined < 0 else args.max_quarantined
+    checkpoint_fn = (_model_checkpoint_fn(args, index_maps, logger)
+                     if args.checkpoint else None)
     results = []
-    for label, coords in sweep:
+    for seq, (label, coords) in enumerate(sweep):
         config = GameOptimizationConfiguration(
             coordinates=coords, descent_iterations=args.descent_iterations,
             name=label)
+        ckpt_dir = resume = None
+        if args.checkpoint_dir:
+            # One chain a sweep entry (sequence number and label, the
+            # reference's naming); entries the interrupted run never
+            # reached start fresh.
+            slug = "".join(c if c.isalnum() else "-" for c in label)[:80]
+            ckpt_dir = os.path.join(args.checkpoint_dir, f"{seq:03d}-{slug}")
+            resume = args.resume if args.resume != "latest" else "auto"
         with logger.timed(f"fit-{label}"):
-            result = estimator.fit([config], initial_model=initial_model,
-                                   locked_coordinates=locked,
-                                   max_quarantined=max_quarantined)[0]
+            result = estimator.fit(
+                [config], initial_model=initial_model, locked_coordinates=locked,
+                checkpoint_fn=checkpoint_fn, checkpoint_dir=ckpt_dir,
+                resume=resume, max_quarantined=max_quarantined,
+                checkpoint_async=args.checkpoint_async,
+                checkpoint_max_staged_mb=args.checkpoint_max_staged_mb,
+            )[0]
         results.append(result)
-        if args.save_all_models:
+        if args.save_all_models or args.checkpoint:
             save_game_model(os.path.join(args.output_dir, f"model_{label}"),
                             result.model, index_maps, fmt=args.model_format)
     best = estimator.select_best(results)
@@ -404,9 +491,12 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
             {
                 "configuration": r.configuration.name,
                 "metrics": r.metrics,
+                # A history resumed from the JAX package's checkpoint lacks
+                # the port's per-iteration keys.
                 "history": [
-                    {key: h[key] for key in ("iteration", "metrics", "seconds", "solver",
-                                             "residual_updates", "host_syncs")}
+                    {key: h.get(key) for key in ("iteration", "metrics", "seconds",
+                                                 "solver", "residual_updates",
+                                                 "host_syncs")}
                     for h in r.descent.history
                 ],
             }
@@ -425,7 +515,7 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
 
 
 def main(argv=None) -> None:
-    run(build_parser().parse_args(argv))
+    common.run_cli(run, build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -37,8 +37,15 @@ disk) joins the two by key on the host, once per keys object
 (:func:`_foreign_src_idx`), and may be scheduled while the fixed effect
 trains (:func:`prefetch_warm_joins`).
 
+Onboarding (``RandomEffectDeviceData.onboard``) grows a random-effect
+layout in place for rows appended between fits: rows of an existing entity
+scatter into its bin's row-capacity headroom on the host and the device (no
+shape changes), an entity past its headroom migrates to an appended bin at
+the next power-of-two capacity, and new entities arrive as appended bins.
+The fixed-effect batch is rebuilt at its exact row count.
+
 Not carried: the mesh and row-split placement (they raise, naming
-ROADMAP.md queue 1, item 10) and onboarding (item 8).
+ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from photon_tpu_torch.game.batched_solve import (
 )
 from photon_tpu_torch.game.data import (
     DenseShard,
+    EntityBucket,
     GameDataset,
     RandomEffectDataset,
     _gather_shard_rows,
@@ -393,11 +401,12 @@ class FixedEffectDeviceData:
                 offsets = offsets[self.train_rows]
             return torch.as_tensor(np.asarray(offsets, np.float32), device=self.device)
         offsets = offsets.to(self.device)
-        if self.train_rows is None:
-            return offsets
-        if self._train_rows_dev is None:
-            self._train_rows_dev = torch.as_tensor(self.train_rows, device=self.device)
-        return offsets.index_select(0, self._train_rows_dev)
+        if self.train_rows is not None:
+            if self._train_rows_dev is None:
+                self._train_rows_dev = torch.as_tensor(self.train_rows,
+                                                       device=self.device)
+            offsets = offsets.index_select(0, self._train_rows_dev)
+        return offsets
 
 
 class RandomEffectDeviceData:
@@ -410,8 +419,6 @@ class RandomEffectDeviceData:
 
     def __init__(self, data: GameDataset, config: RandomEffectCoordinateConfig,
                  device=None):
-        from photon_tpu_torch.game.batched_solve import bin_layout
-
         self.device = resolve_device(device)
         self.config = config
         self.dataset: RandomEffectDataset = build_random_effect_dataset(
@@ -431,9 +438,19 @@ class RandomEffectDeviceData:
         self.buckets: list = []
         self.device_buckets: list = []
         self.bin_stats: list = []
-        raw = self.dataset.buckets
-        for group in bin_layout(raw):
-            merged = merge_buckets([raw[i] for i in group])
+        # Per-entity placement (bin, slot, used rows) for onboarding, built
+        # lazily and dropped whenever the layout changes.
+        self._locator = None
+        self._append_bins(self.dataset.buckets)
+
+    def _append_bins(self, raw_buckets) -> None:
+        """Bin ``raw_buckets`` (host buckets over this dataset's entity
+        indices), upload them and append them to the layout: the shared
+        path of ``__init__`` and :meth:`onboard`."""
+        from photon_tpu_torch.game.batched_solve import bin_layout
+
+        for group in bin_layout(raw_buckets):
+            merged = merge_buckets([raw_buckets[i] for i in group])
             live_entities = merged.num_entities
             live_rows = int((merged.row_weight > 0).sum())
             merged = pad_bucket_entities(merged, 1, self.dataset.num_entities)
@@ -529,6 +546,329 @@ class RandomEffectDeviceData:
             return DenseBatch(dev["feats"][0], dev["label"], offsets_b, dev["weight"])
         return SparseBatch(dev["feats"][0], dev["feats"][1], dev["label"],
                            offsets_b, dev["weight"])
+
+    # -- onboarding ----------------------------------------------------------
+    def check_onboard(self, data: GameDataset, absent_tail=None) -> None:
+        """Validate :meth:`onboard`'s preconditions without changing
+        anything, so a caller growing several layouts can reject a batch
+        before any is grown."""
+        old = self.dataset
+        n_old = len(old.entity_idx_per_row)
+        if data.num_examples < n_old:
+            raise ValueError(
+                f"onboard() needs the GROWN dataset: got {data.num_examples} "
+                f"rows, the layout was built from {n_old}")
+        if self.config.entity_column not in data.id_columns:
+            raise KeyError(
+                f"grown dataset lacks id column {self.config.entity_column!r}")
+        shard = data.shard(self.config.shard_name)
+        if shard.dim != self.dim:
+            raise ValueError(
+                f"appended shard {self.config.shard_name!r} has dim "
+                f"{shard.dim}; the layout was built at dim {self.dim}")
+        if self.buckets:
+            built_dense = isinstance(self.buckets[0].features, DenseShard)
+            if isinstance(shard, DenseShard) != built_dense:
+                raise ValueError(
+                    f"grown shard {self.config.shard_name!r} is "
+                    f"{'dense' if not built_dense else 'sparse'} but the "
+                    f"layout was built {'dense' if built_dense else 'sparse'}; "
+                    "coerce the appended rows to the layout's storage (the "
+                    "online merge does) or rebuild")
+        n_tail = data.num_examples - n_old
+        if absent_tail is not None and len(absent_tail) != n_tail:
+            raise ValueError(
+                f"absent_tail mask covers {len(absent_tail)} rows, the "
+                f"appended tail has {n_tail}")
+
+    def _entity_locator(self):
+        """``[bin_of, slot_of, used]`` per entity of the current layout:
+        the bin holding it, its slot there and its live (weight > 0) rows."""
+        if self._locator is None:
+            n_entities = self.dataset.num_entities
+            bin_of = np.full(n_entities, -1, np.int32)
+            slot_of = np.zeros(n_entities, np.int32)
+            used = np.zeros(n_entities, np.int32)
+            for i, bucket in enumerate(self.buckets):
+                idx = bucket.entity_index
+                live = idx < n_entities  # skip padded and migrated-away slots
+                if not live.any():
+                    continue
+                slots = np.nonzero(live)[0].astype(np.int32)
+                bin_of[idx[live]] = i
+                slot_of[idx[live]] = slots
+                used[idx[live]] = (bucket.row_weight[slots] > 0).sum(axis=1)
+            self._locator = [bin_of, slot_of, used]
+        return self._locator
+
+    def _plan_append_buckets(self, data, entities, rows_by_entity, corrections):
+        """Host buckets for appended entities (new or migrating):
+        ``entities`` in the merged vocabulary, ``rows_by_entity[i]`` their
+        kept row ids, ``corrections[i]`` the active-cap weight correction.
+        Capacities are the next power of two past each row count."""
+        from photon_tpu_torch.game.model import pow2_at_least
+
+        if not entities:
+            return []
+        shard = data.shard(self.config.shard_name)
+        counts = np.array([len(r) for r in rows_by_entity], np.int64)
+        caps = np.array([pow2_at_least(int(c)) for c in counts], np.int64)
+        buckets = []
+        for capacity in np.unique(caps):
+            members = np.nonzero(caps == capacity)[0]
+            n_e = len(members)
+            row_index = np.zeros((n_e, capacity), np.int64)
+            mask = np.zeros((n_e, capacity), np.float32)
+            corr = np.ones(n_e, np.float32)
+            for k, m in enumerate(members):
+                rr = rows_by_entity[m]
+                row_index[k, : len(rr)] = rr
+                mask[k, : len(rr)] = 1.0
+                corr[k] = corrections[m]
+            buckets.append(EntityBucket(
+                row_capacity=int(capacity),
+                entity_index=np.array([entities[m] for m in members], np.int32),
+                row_index=row_index,
+                row_weight=(data.weight[row_index] * mask
+                            * corr[:, None]).astype(np.float32),
+                label=(data.label[row_index] * mask).astype(np.float32),
+                features=_gather_shard_rows(shard, row_index),
+            ))
+        return buckets
+
+    def _grow_bin_in_place(self, i: int, slots, pos, rows, data) -> None:
+        """Write appended rows into bin ``i``'s row-capacity headroom, on
+        the host and on the device: no shape changes."""
+        bucket = self.buckets[i]
+        shard = data.shard(self.config.shard_name)
+        w = data.weight[rows].astype(np.float32)
+        lab = data.label[rows].astype(np.float32)
+        bucket.row_index[slots, pos] = rows
+        bucket.row_weight[slots, pos] = w
+        bucket.label[slots, pos] = lab
+        feats = bucket.features
+        if isinstance(feats, DenseShard):
+            new_x = shard.x[rows]
+            feats.x[slots, pos] = new_x
+        else:
+            # Wider rows were routed to migration; narrower rows pad up
+            # (zero ids and values are inert).
+            k_block, k_shard = feats.ids.shape[-1], shard.ids.shape[1]
+            new_ids, new_vals = shard.ids[rows], shard.vals[rows]
+            if k_shard < k_block:
+                widths = [(0, 0), (0, k_block - k_shard)]
+                new_ids, new_vals = np.pad(new_ids, widths), np.pad(new_vals, widths)
+            feats.ids[slots, pos] = new_ids
+            feats.vals[slots, pos] = new_vals
+        dev = self.device_buckets[i]
+        put = lambda a: torch.as_tensor(np.asarray(a), device=self.device)  # noqa: E731
+        sl, po = put(slots.astype(np.int64)), put(pos.astype(np.int64))
+        dev["label"][sl, po] = put(lab)
+        dev["weight"][sl, po] = put(w)
+        if dev["dense"]:
+            dev["feats"][0][sl, po] = put(new_x.astype(np.float32))
+        else:
+            dev["feats"][0][sl, po] = put(new_ids.astype(np.int64))
+            dev["feats"][1][sl, po] = put(new_vals.astype(np.float32))
+        if "row_index" in dev:
+            dev["row_index"][sl, po] = put(rows.astype(np.int64))
+            dev["row_mask"][sl, po] = 1.0
+        self.bin_stats[i]["live_rows"] += int(len(rows))
+
+    def _neutralize_slot(self, i: int, slot: int, dummy: int, used: int) -> None:
+        """Retire a migrated entity's old slot: the dummy entity index (its
+        scatter lands on the table's absorbing row) and zero row weights."""
+        bucket = self.buckets[i]
+        bucket.entity_index[slot] = dummy
+        bucket.row_weight[slot, :] = 0.0
+        dev = self.device_buckets[i]
+        dev["entity_index"][slot] = dummy
+        dev["weight"][slot] = 0.0
+        if "row_mask" in dev:
+            dev["row_mask"][slot] = 0.0
+        self.bin_stats[i]["live_rows"] -= int(used)
+        self.bin_stats[i]["live_entities"] -= 1
+
+    def _record_headroom(self, telemetry) -> None:
+        """Per bin: padded row cells, live rows and the headroom between."""
+        col = self.config.entity_column
+        for i, st in enumerate(self.bin_stats):
+            cells = st["capacity"] * st["total_entities"]
+            telemetry.gauge("onboard.bin_row_capacity", column=col, bin=i).set(cells)
+            telemetry.gauge("onboard.bin_rows_live", column=col, bin=i).set(
+                st["live_rows"])
+            telemetry.gauge("onboard.bin_row_headroom", column=col, bin=i).set(
+                cells - st["live_rows"])
+
+    def onboard(self, data: GameDataset, telemetry=None, absent_tail=None) -> None:
+        """Extend the layout with rows appended to the training data, for
+        new and existing entities, without a full rebuild (the reference's
+        ``coordinate.py:1043-1374``).  ``data``'s first rows are the rows
+        the layout was built from.  Existing entities' rows land in their
+        bin's headroom in place; an entity past its headroom or the active
+        row cap, or under a projection, migrates (its old slot neutralized,
+        its rows re-bucketed at the next power of two); new entities arrive
+        as appended bins.  ``absent_tail`` marks appended rows that carry
+        no id for this column.  A batch that fails validation changes
+        nothing: every rejection comes before the first write."""
+        telemetry = telemetry or NULL_SESSION
+        self.check_onboard(data, absent_tail=absent_tail)
+        old = self.dataset
+        n_old = len(old.entity_idx_per_row)
+        n_tail = data.num_examples - n_old
+        if n_tail == 0:
+            return
+        col = self.config.entity_column
+        raw_tail = data.id_columns[col][n_old:]
+        present = np.ones(n_tail, bool)
+        if absent_tail is not None:
+            present &= ~np.asarray(absent_tail).astype(bool)
+        sel = np.nonzero(present)[0]
+        raw_present = raw_tail[sel]
+
+        # ---- plan: nothing changes until every input is validated ----
+        old_idx = (entity_index_for(raw_present, old.keys)
+                   if len(raw_present) else np.zeros(0, np.int32))
+        new_mask = old_idx < 0
+        new_raw = raw_present[new_mask]
+        merged_keys = (np.unique(np.concatenate([old.keys, np.unique(new_raw)]))
+                       if len(new_raw) else old.keys)
+        grew = len(merged_keys) != len(old.keys)
+        dummy = len(merged_keys)
+        remap_full = None
+        if grew:
+            # Old index -> merged index; the old dummy slot -> the new one.
+            remap_full = np.concatenate(
+                [entity_index_for(old.keys, merged_keys), [dummy]]).astype(np.int32)
+        tail_idx = np.full(n_tail, -1, np.int32)
+        if len(raw_present):
+            tail_idx[sel] = entity_index_for(raw_present, merged_keys)
+        tail_global = n_old + sel
+
+        bin_of, slot_of, used_of = self._entity_locator()
+        cap = self.config.active_row_cap
+        shard = data.shard(self.config.shard_name)
+        shard_k = None if isinstance(shard, DenseShard) else shard.ids.shape[1]
+
+        def width_fits(i: int) -> bool:
+            return shard_k is None or shard_k <= self.buckets[i].features.ids.shape[-1]
+
+        append_entities: list = []
+        append_rows: list = []
+        append_corr: list = []
+        in_place: dict = {}  # bin -> [(slot, used, rows)]
+        neutralize: list = []  # (bin, slot, used)
+        in_place_rows = migrated_rows = n_migrated = 0
+        exist_pos = np.nonzero(~new_mask)[0]
+        if len(exist_pos):
+            ents_old = old_idx[exist_pos]
+            order = np.argsort(ents_old, kind="stable")
+            ents_sorted = ents_old[order]
+            rows_sorted = tail_global[exist_pos[order]]
+            uniq, starts = np.unique(ents_sorted, return_index=True)
+            bounds = np.append(starts, len(ents_sorted))
+            # True base row counts (a bin may hold a subsample of them).
+            full_counts = np.bincount(
+                old.entity_idx_per_row[old.entity_idx_per_row >= 0],
+                minlength=len(old.keys))
+            migrating: list = []
+            for j, e_old in enumerate(uniq):
+                rr = rows_sorted[bounds[j]: bounds[j + 1]]
+                i = int(bin_of[e_old])
+                u = int(used_of[e_old])
+                total = int(full_counts[e_old]) + len(rr)
+                fits = (i >= 0 and int(full_counts[e_old]) <= u
+                        and (cap is None or total <= cap)
+                        and u + len(rr) <= self.buckets[i].row_capacity
+                        and self.config.projection == "none"
+                        and width_fits(i))
+                if fits:
+                    in_place.setdefault(i, []).append((int(slot_of[e_old]), u, rr))
+                    in_place_rows += len(rr)
+                else:
+                    migrating.append((int(e_old), rr, i, int(slot_of[e_old]), u))
+            n_migrated = len(migrating)
+            for e_old, rr, i, slot, u in migrating:
+                all_rows = np.concatenate(
+                    [np.nonzero(old.entity_idx_per_row == e_old)[0], rr])
+                corr = 1.0
+                if cap is not None and len(all_rows) > cap:
+                    rng = np.random.default_rng((self.config.seed, 0x6F6E6C, e_old))
+                    keep = np.sort(rng.choice(len(all_rows), size=cap, replace=False))
+                    corr = len(all_rows) / cap
+                    all_rows = all_rows[keep]
+                append_entities.append(int(remap_full[e_old]) if grew else e_old)
+                append_rows.append(all_rows)
+                append_corr.append(corr)
+                migrated_rows += len(rr)
+                if i >= 0:
+                    neutralize.append((i, slot, u))
+        n_new_entities = 0
+        if new_mask.any():
+            ents_new = tail_idx[sel[new_mask]]
+            rows_new = tail_global[new_mask]
+            order = np.argsort(ents_new, kind="stable")
+            es, rs = ents_new[order], rows_new[order]
+            uniq, starts = np.unique(es, return_index=True)
+            bounds = np.append(starts, len(es))
+            n_new_entities = len(uniq)
+            for j, e in enumerate(uniq):
+                rr = rs[bounds[j]: bounds[j + 1]]
+                corr = 1.0
+                if cap is not None and len(rr) > cap:
+                    rng = np.random.default_rng((self.config.seed, 0x6F6E6C, int(e)))
+                    keep = np.sort(rng.choice(len(rr), size=cap, replace=False))
+                    corr = len(rr) / cap
+                    rr = rr[keep]
+                append_entities.append(int(e))
+                append_rows.append(rr)
+                append_corr.append(corr)
+        append_buckets = self._plan_append_buckets(
+            data, append_entities, append_rows, append_corr)
+
+        # ---- apply: writes only, nothing below rejects input ----
+        if grew:
+            remap_dev = torch.as_tensor(remap_full, device=self.device).long()
+            for i, bucket in enumerate(self.buckets):
+                self.buckets[i] = dataclasses.replace(
+                    bucket, entity_index=remap_full[bucket.entity_index])
+                dev = self.device_buckets[i]
+                dev["entity_index"] = remap_dev[dev["entity_index"]]
+            old_per_row = np.where(
+                old.entity_idx_per_row >= 0,
+                remap_full[np.maximum(old.entity_idx_per_row, 0)], -1,
+            ).astype(np.int32)
+        else:
+            old_per_row = old.entity_idx_per_row
+        for i, writes in sorted(in_place.items()):
+            slots = np.concatenate([np.full(len(rr), s, np.int32) for s, _, rr in writes])
+            pos = np.concatenate([u + np.arange(len(rr), dtype=np.int32)
+                                  for _, u, rr in writes])
+            rows = np.concatenate([rr for _, _, rr in writes])
+            self._grow_bin_in_place(i, slots, pos, rows, data)
+        for i, slot, u in neutralize:
+            self._neutralize_slot(i, slot, dummy, u)
+        self.dataset = dataclasses.replace(
+            old, keys=merged_keys, buckets=tuple(self.buckets),
+            entity_idx_per_row=np.concatenate([old_per_row, tail_idx]),
+        )
+        if append_buckets:
+            self._append_bins(append_buckets)
+            self.dataset = dataclasses.replace(self.dataset, buckets=tuple(self.buckets))
+        # The row count and vocabulary changed: drop the scoring caches, the
+        # warm-start joins and the placement index (rebuilt lazily).
+        self.score_feats = None
+        self.score_entity_idx = None
+        self._warm_join_cache.clear()
+        self._locator = None
+        for name, value in (("onboard.rows_in_place", in_place_rows),
+                            ("onboard.rows_migrated", migrated_rows),
+                            ("onboard.entities_migrated", n_migrated),
+                            ("onboard.entities_new", n_new_entities),
+                            ("onboard.rows_absent", n_tail - len(sel))):
+            if value:
+                telemetry.counter(name, column=col).inc(value)
+        self._record_headroom(telemetry)
 
 
 class _CountingObjective:

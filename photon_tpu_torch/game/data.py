@@ -224,6 +224,11 @@ def entity_index_for(raw_keys: np.ndarray, vocab_keys: np.ndarray) -> np.ndarray
     return np.where(found, pos, -1).astype(np.int32)
 
 
+#: Missing-id marker of int64 entity columns (narrower int columns use
+#: their own dtype's minimum, strings ""; see :func:`missing_key`).
+MISSING_INT64 = np.int64(np.iinfo(np.int64).min)
+
+
 def missing_key(dtype):
     """The missing-id fill value for an entity column of ``dtype``: the
     dtype's OWN minimum for signed ints, its maximum for unsigned ints (0 is a real id), "" for strings."""
@@ -233,6 +238,17 @@ def missing_key(dtype):
     if dt.kind == "u":
         return dt.type(np.iinfo(dt).max)
     return ""
+
+
+def missing_mask(values: np.ndarray) -> np.ndarray:
+    """Bool mask of the values that carry the missing-id marker of their
+    dtype (:func:`missing_key`)."""
+    v = np.asarray(values)
+    if len(v) == 0:
+        return np.zeros(0, bool)
+    if v.dtype.kind in "iu":
+        return v == missing_key(v.dtype)
+    return v == ""
 
 
 def keys_match(keys, ref, ref_array: Optional[np.ndarray] = None) -> bool:

@@ -18,8 +18,16 @@ run may absorb.
 
 A run may start from an initial model (its coordinates seed the score
 tables and warm-start the first pass) and keep some coordinates locked at
-it: a locked coordinate is never trained again.  Descent checkpoints
-(ROADMAP.md queue 1, item 6) raise.
+it: a locked coordinate is never trained again.
+
+A ``checkpointer`` (``fault/checkpoint.DescentCheckpointer``) snapshots the
+full restart state after every outer iteration, and ``resume_state``
+restores one: the score table is rebuilt from the saved rows, the
+validation rows are re-scored from the saved models, and the loop goes on
+at the next iteration, so a resumed run repeats an uninterrupted one.  The
+top of each outer iteration is the preemption boundary: a SIGTERM (or the
+``preempt`` fault site) drains the last checkpoint and raises
+``PreemptedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,13 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from photon_tpu_torch.fault import QuarantineBudgetError
+from photon_tpu_torch.fault.checkpoint import (
+    DescentState,
+    descent_fingerprint,
+    require_fingerprint,
+)
+from photon_tpu_torch.fault.injection import fault_point
 from photon_tpu_torch.game.coordinate import DeferredSolveStats
 from photon_tpu_torch.game.data import GameDataset
 from photon_tpu_torch.game.model import DeviceScoringCache, GameModel
@@ -42,10 +57,7 @@ from photon_tpu_torch.game.residuals import (
     resolve_residual_mode,
     resolve_validation_mode,
 )
-
-
-class QuarantineBudgetError(RuntimeError):
-    """More non-finite solves or score rows than ``max_quarantined``."""
+from photon_tpu_torch.telemetry import NULL_SESSION
 
 
 @dataclasses.dataclass
@@ -102,7 +114,7 @@ class CoordinateDescent:
             validation_mode, self.residual_mode)
         self.device = next(iter(self.coordinates.values())).device
         self._validation_cache = validation_cache
-        self.telemetry = telemetry
+        self.telemetry = telemetry or NULL_SESSION
 
     def _build_residuals(self):
         cls = ResidualEngine if self.residual_mode == "device" else HostResiduals
@@ -136,11 +148,24 @@ class CoordinateDescent:
         """Every metric of the composite margin in one host read."""
         composite = engine.composite()
         evs = self.evaluators.evaluators
+        # host-sync: the validation metrics, one read an outer iteration
         values = torch.stack([
             torch.as_tensor(ev.fn(composite, cache.label, cache.weight)).float()
-            for ev in evs
-        ]).tolist()
+            for ev in evs]).tolist()
         return {ev.name: v for ev, v in zip(evs, values)}
+
+    def _fingerprint(self, config_key: Optional[str] = None, locked=(),
+                     warm_start: bool = False) -> dict:
+        has_validation = (self.validation_data is not None
+                          and self.evaluators is not None)
+        return descent_fingerprint(
+            self.task_type, self.coordinates, self.training_data.num_examples,
+            self.residual_mode, config_key=config_key,
+            validation_key=self.evaluators.primary.name if has_validation else None,
+            locked=locked, warm_start=warm_start,
+            coordinate_kinds={name: getattr(c, "kind", type(c).__name__)
+                              for name, c in self.coordinates.items()},
+        )
 
     def run(
         self,
@@ -149,13 +174,47 @@ class CoordinateDescent:
         locked_coordinates: Sequence[str] = (),
         checkpoint_fn=None,
         checkpointer=None,
-        resume_state=None,
+        resume_state: Optional[DescentState] = None,
         max_quarantined: Optional[int] = None,
+        config_key: Optional[str] = None,
     ) -> DescentResult:
         """``checkpoint_fn(iteration, model)``, when given, is called after
         every pass with the composite model.  ``initial_model``'s
         coordinates seed the score tables and warm-start the first pass;
-        ``locked_coordinates`` stay at the initial model's."""
+        ``locked_coordinates`` stay at the initial model's.
+        ``checkpointer`` saves the restart state after every iteration and
+        ``resume_state`` restores one (its fingerprint, with ``config_key``
+        the configuration's digest, must match this run's).  A completed
+        run returns after its last checkpoint is published."""
+        from photon_tpu_torch.fault.watchdog import complete
+
+        try:
+            result = self._run(num_iterations, initial_model, locked_coordinates,
+                               checkpoint_fn, checkpointer, resume_state,
+                               max_quarantined, config_key)
+        except BaseException:
+            # Quiesce the publisher without masking the real error.
+            if checkpointer is not None:
+                checkpointer.drain(reraise=False)
+            raise
+        finally:
+            complete("descent.iteration")
+        if checkpointer is not None:
+            with self.telemetry.span("descent.checkpoint.drain"):
+                checkpointer.drain()
+        return result
+
+    def _run(self, num_iterations, initial_model, locked_coordinates,
+             checkpoint_fn, checkpointer, resume_state, max_quarantined,
+             config_key) -> DescentResult:
+        from photon_tpu_torch.fault.preemption import (
+            PreemptedError,
+            consume_preempt_injection,
+            preemption_reason,
+            preemption_requested,
+        )
+        from photon_tpu_torch.fault.watchdog import heartbeat
+
         locked = set(locked_coordinates)
         unknown = locked - set(self.coordinates)
         if unknown:
@@ -165,11 +224,8 @@ class CoordinateDescent:
         for name in locked:
             if name not in initial_model.coordinates:
                 raise KeyError(f"locked coordinate {name!r} missing from initial model")
-        if checkpointer is not None or resume_state is not None:
-            raise NotImplementedError(
-                "descent checkpoints and resume wait with fault/checkpoint.py "
-                "in ROADMAP.md queue 1, item 6"
-            )
+        fingerprint = self._fingerprint(config_key, locked=locked,
+                                        warm_start=initial_model is not None)
         models: Dict[str, object] = {}
         residuals = self._build_residuals()
         val_engine = val_cache = None
@@ -179,10 +235,31 @@ class CoordinateDescent:
             val_engine, val_cache = self._build_validation()
         best_model: Optional[GameModel] = None
         best_metrics: Dict[str, float] = {}
+        best_iteration = -1
         history = []
         quarantined_total = 0
+        start_iteration = 0
         game_model = None
-        if initial_model is not None:
+        if resume_state is not None:
+            require_fingerprint(resume_state, fingerprint, "this descent")
+            with self.telemetry.span("descent.resume", iteration=resume_state.iteration):
+                models = dict(resume_state.models)
+                residuals.load_rows(resume_state.residual_rows)
+                if val_engine is not None:
+                    # The validation table is not saved: the saved models
+                    # re-score it exactly as the uninterrupted run did.
+                    for name, model in models.items():
+                        val_engine.update(name, val_cache.score(model))
+                best_model = GameModel(dict(resume_state.best_models), self.task_type)
+                best_metrics = dict(resume_state.best_metrics)
+                best_iteration = resume_state.best_iteration
+                history = list(resume_state.history)
+                quarantined_total = resume_state.quarantined
+                start_iteration = resume_state.iteration + 1
+            self.telemetry.counter("descent.resumes").inc()
+            self.logger.info("resumed descent after iteration %d",
+                             resume_state.iteration)
+        elif initial_model is not None:
             for name, coord_model in initial_model.coordinates.items():
                 if name not in self.coordinates:
                     continue
@@ -217,7 +294,29 @@ class CoordinateDescent:
                 f"{quarantined_total} quarantined solves/score rows exceed "
                 f"--max-quarantined {max_quarantined}"
             )
-        for it in range(num_iterations):
+        if start_iteration >= num_iterations:
+            # A completed descent: nothing left to run.
+            last = GameModel(dict(models), self.task_type)
+            return DescentResult(
+                best_model=best_model if best_model is not None else last,
+                last_model=last, best_metrics=best_metrics, history=history)
+        for it in range(start_iteration, num_iterations):
+            # The kill site and the preemption boundary: between outer
+            # iterations, where the last checkpoint is consistent.
+            fault_point("descent:kill", iteration=it)
+            consume_preempt_injection(it)
+            if preemption_requested():
+                self.telemetry.counter("descent.preempted").inc()
+                if checkpointer is not None:
+                    with self.telemetry.span("descent.checkpoint.drain"):
+                        checkpointer.drain()
+                    hint = "resume with --resume auto"
+                else:
+                    hint = ("no checkpointer configured — a restart begins "
+                            "from scratch (set --checkpoint-dir)")
+                raise PreemptedError(
+                    f"preempted ({preemption_reason()}) before iteration {it}; {hint}")
+            heartbeat("descent.iteration")
             t0 = time.perf_counter()
             coord_logs: Dict[str, object] = {}
             prev_iterates: Dict[str, object] = {}
@@ -245,7 +344,12 @@ class CoordinateDescent:
                      (("res", res_flags), ("val", val_flags)) for name, ok in pending]
             on_device = [ds.device.long() for ds in deferred.values()] + [
                 ok.reshape(1).long() for _, _, ok in flags if isinstance(ok, torch.Tensor)]
-            host = torch.cat(on_device).tolist() if on_device else []
+            host = []
+            if on_device:
+                # host-sync: the iteration's one read of the deferred solve
+                # statistics and the score tables' guard flags.
+                host = torch.cat(on_device).tolist()
+                self.telemetry.counter("descent.host_syncs", kind="stats").inc()
             for i, (name, ds) in enumerate(deferred.items()):
                 info = ds.resolve(host[6 * i: 6 * i + 6])
                 quarantined_total += info["quarantined"]
@@ -303,12 +407,23 @@ class CoordinateDescent:
                                "validation": int(val_engine is not None)},
             })
             if not metrics:
-                best_model, best_metrics = game_model, metrics
+                best_model, best_metrics, best_iteration = game_model, metrics, it
             else:
                 primary = self.evaluators.primary
                 if best_model is None or primary.better_than(
                         metrics[primary.name], best_metrics[primary.name]):
-                    best_model, best_metrics = game_model, metrics
+                    best_model, best_metrics, best_iteration = game_model, metrics, it
+            if checkpointer is not None:
+                state = DescentState(
+                    iteration=it, num_iterations=num_iterations,
+                    task_type=self.task_type, models=dict(models),
+                    best_models=dict(best_model.coordinates),
+                    best_metrics=dict(best_metrics), best_iteration=best_iteration,
+                    history=list(history), residual_rows=residuals.snapshot_rows(),
+                    quarantined=quarantined_total, fingerprint=fingerprint,
+                )
+                with self.telemetry.span("descent.checkpoint.save", iteration=it):
+                    checkpointer.save(state)
         assert best_model is not None
         return DescentResult(best_model=best_model, last_model=game_model,
                              best_metrics=best_metrics, history=history)

@@ -10,15 +10,20 @@ shared by every sweep entry; so is the validation scoring cache.
 fixed-effect coordinates on that shard.
 
 ``fit`` may start every descent run from an initial model and keep some
-coordinates locked at it.  Streamed and out-of-core fits (ROADMAP.md queue
-1, item 9), descent checkpoints (item 6) and the mesh (item 10) raise;
-onboarding waits with item 8.
+coordinates locked at it, checkpoint every descent run under
+``checkpoint_dir`` (one ``cfg-NNN`` chain a configuration) and resume from
+there; a configuration whose checkpoint covers its last iteration is
+rebuilt from it without a fit.  :meth:`GameEstimator.onboard_training_data`
+grows the cached device layouts in place for rows appended between fits
+(the online loop's growth step).  Streamed and out-of-core fits (ROADMAP.md
+queue 1, item 9) and the mesh (item 10) raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Dict, List, Optional, Sequence
 
 from photon_tpu_torch.core.normalization import NormalizationContext
@@ -164,6 +169,64 @@ class GameEstimator:
             coord.telemetry = self.telemetry
         return coords
 
+    def entity_vocabularies(self) -> Dict[str, object]:
+        """The current entity vocabulary per id column, from the live
+        random-effect layouts (the onboarded state)."""
+        return {
+            dd.config.entity_column: dd.dataset.keys
+            for dd in self._device_data_cache.values()
+            if isinstance(dd, RandomEffectDeviceData)
+        }
+
+    def onboard_training_data(self, data: GameDataset, absent_tail=None) -> None:
+        """Swap in a grown training dataset (rows appended, for new and
+        existing entities) between fits.  Every cached random-effect layout
+        grows in place (:meth:`RandomEffectDeviceData.onboard`: in-place
+        row scatters within a bin's capacity, migrations past it, appended
+        bins for new entities; no full rebuild).  Fixed-effect layouts are
+        dropped for a lazy rebuild at the grown row count, counted as
+        ``estimator.device_data_rebuilds{kind=fixed}``.  ``absent_tail``
+        maps an id column to the appended rows that carry no id for it.
+        Every layout is validated before any is changed, so a rejected
+        batch changes nothing."""
+        if data.num_examples < self.training_data.num_examples:
+            raise ValueError(
+                "onboard_training_data() needs the grown dataset (rows are "
+                "append-only)")
+        absent_tail = absent_tail or {}
+        with self.telemetry.span("estimator.onboard", rows=data.num_examples):
+            for dd in self._device_data_cache.values():
+                if isinstance(dd, RandomEffectDeviceData):
+                    dd.check_onboard(
+                        data, absent_tail=absent_tail.get(dd.config.entity_column))
+            for key, dd in list(self._device_data_cache.items()):
+                if isinstance(dd, RandomEffectDeviceData):
+                    before = dd.dataset.num_entities
+                    dd.onboard(data, telemetry=self.telemetry,
+                               absent_tail=absent_tail.get(dd.config.entity_column))
+                    self.telemetry.counter("estimator.entities_onboarded").inc(
+                        dd.dataset.num_entities - before)
+                else:
+                    del self._device_data_cache[key]
+                    self.telemetry.counter(
+                        "estimator.device_data_rebuilds", kind="fixed").inc()
+        self.training_data = data
+
+    def _expected_fingerprint(self, config: GameOptimizationConfiguration,
+                              config_key: str, locked, warm_start: bool) -> dict:
+        from photon_tpu_torch.fault.checkpoint import descent_fingerprint
+
+        has_validation = (self.validation_data is not None
+                          and self.evaluators is not None)
+        return descent_fingerprint(
+            self.task_type, config.coordinates, self.training_data.num_examples,
+            resolve_residual_mode(self.residual_mode), config_key=config_key,
+            validation_key=self.evaluators.primary.name if has_validation else None,
+            locked=locked, warm_start=warm_start,
+            coordinate_kinds={name: getattr(cc, "kind", type(cc).__name__)
+                              for name, cc in config.coordinates.items()},
+        )
+
     def fit(
         self,
         configurations: Sequence[GameOptimizationConfiguration],
@@ -173,16 +236,75 @@ class GameEstimator:
         checkpoint_dir: Optional[str] = None,
         resume: Optional[str] = None,
         max_quarantined: Optional[int] = None,
+        checkpoint_async=None,
+        checkpoint_max_staged_mb: Optional[float] = None,
     ) -> List[GameResult]:
         """One descent run per configuration, each from ``initial_model``
         when given, with ``locked_coordinates`` kept at it;
-        ``checkpoint_fn(iteration, model)`` is passed to each run."""
+        ``checkpoint_fn(iteration, model)`` is passed to each run.
+
+        ``checkpoint_dir`` checkpoints every run (``cfg-NNN`` a
+        configuration, the async publisher unless ``checkpoint_async`` is
+        off, ``checkpoint_max_staged_mb`` capping its staged copies);
+        ``resume`` is ``auto`` (whatever is saved, else a fresh start),
+        ``latest`` (a saved checkpoint required) or one version's path (a
+        single configuration).  A mismatched checkpoint raises
+        ``CheckpointError``."""
+        from photon_tpu_torch.fault.checkpoint import (
+            DescentCheckpointer,
+            configuration_key,
+            require_fingerprint,
+        )
+
         if not configurations:
             raise ValueError("fit() needs at least one configuration")
-        if checkpoint_dir is not None or resume:
-            raise _not_ported("descent checkpointing (with resume)", 6)
+        if resume and checkpoint_dir is None and resume in ("auto", "latest"):
+            raise ValueError(f"resume={resume!r} needs checkpoint_dir")
+        if resume and resume not in ("auto", "latest") and len(configurations) > 1:
+            raise ValueError(
+                "an explicit checkpoint path resumes a single-configuration "
+                "fit; use resume='auto' for sweeps")
         results = []
-        for config in configurations:
+        for i, config in enumerate(configurations):
+            label = config.name or f"config-{i}"
+            config_key = configuration_key(config.coordinates)
+            checkpointer = resume_state = None
+            if checkpoint_dir is not None:
+                checkpointer = DescentCheckpointer(
+                    os.path.join(checkpoint_dir, f"cfg-{i:03d}"),
+                    telemetry=self.telemetry, logger=self.logger,
+                    async_publish=checkpoint_async,
+                    max_staged_mb=checkpoint_max_staged_mb,
+                )
+            if resume:
+                if resume in ("auto", "latest"):
+                    resume_state = checkpointer.load(resume, device=self.device)
+                else:
+                    resume_state = DescentCheckpointer.load_path(
+                        resume, device=self.device)
+            if resume_state is not None:
+                # Checked here, before a completed checkpoint could be
+                # returned as this configuration's result.
+                require_fingerprint(
+                    resume_state,
+                    self._expected_fingerprint(config, config_key,
+                                               locked_coordinates,
+                                               initial_model is not None),
+                    f"configuration {label!r}")
+            if (resume_state is not None
+                    and resume_state.iteration + 1 >= config.descent_iterations):
+                best = GameModel(dict(resume_state.best_models), self.task_type)
+                descent = DescentResult(
+                    best_model=best,
+                    last_model=GameModel(dict(resume_state.models), self.task_type),
+                    best_metrics=dict(resume_state.best_metrics),
+                    history=list(resume_state.history),
+                )
+                self.telemetry.counter("estimator.configurations_resumed").inc()
+                self.logger.info("fit-%s restored from completed checkpoint", label)
+                results.append(GameResult(model=best, metrics=descent.best_metrics,
+                                          configuration=config, descent=descent))
+                continue
             loop = CoordinateDescent(
                 self._build_coordinates(config), self.task_type,
                 self.training_data, self.validation_data, self.evaluators,
@@ -194,7 +316,9 @@ class GameEstimator:
             descent = loop.run(
                 config.descent_iterations, initial_model=initial_model,
                 locked_coordinates=locked_coordinates,
-                checkpoint_fn=checkpoint_fn, max_quarantined=max_quarantined,
+                checkpoint_fn=checkpoint_fn, checkpointer=checkpointer,
+                resume_state=resume_state, max_quarantined=max_quarantined,
+                config_key=config_key,
             )
             results.append(GameResult(
                 model=descent.best_model, metrics=descent.best_metrics,

@@ -46,6 +46,11 @@ from photon_tpu_torch.models.glm import (
 
 Tensor = torch.Tensor
 
+#: The words of a serving table's refusal of a vocabulary past its capacity
+#: (a scorer's ``swap_model`` raises it): the online loop rebuilds the
+#: fleet's scorers when a publish meets it.
+CAPACITY_REFUSAL = "rebuild the scorer instead of hot-swapping"
+
 
 def pow2_at_least(n: int) -> int:
     """Smallest power of two >= n (>= 1)."""
@@ -192,6 +197,28 @@ class RandomEffectModel:
     def dim(self) -> int:
         return int(self.table.shape[1])
 
+    def with_entities(self, keys: np.ndarray) -> "RandomEffectModel":
+        """This model grown to the superset vocabulary ``keys`` on the
+        device (the onboarding warm start): existing entities keep their
+        rows at their new sorted positions, new entities start at zero."""
+        merged = np.asarray(keys)
+        idx = entity_index_for(self.keys, merged)
+        if (idx < 0).any():
+            raise ValueError(
+                "with_entities() grows the vocabulary: every existing "
+                "entity key must appear in the merged keys")
+        idx_dev = torch.as_tensor(idx, device=self.table.device).long()
+
+        def scatter(table):
+            grown = torch.zeros(len(merged), self.dim, dtype=torch.float32,
+                                device=table.device)
+            grown[idx_dev] = table.float()
+            return grown
+
+        return dataclasses.replace(
+            self, table=scatter(self.table), keys=merged,
+            variances=None if self.variances is None else scatter(self.variances))
+
     def model_for_entity(self, key) -> Optional[GeneralizedLinearModel]:
         """One entity's GLM, or None for an unseen key."""
         idx = entity_index_for(np.asarray([key]), self.keys)[0]
@@ -239,8 +266,7 @@ class RandomEffectModel:
             raise ValueError(
                 f"serving_table: vocabulary ({self.num_entities} entities "
                 f"+ zero row) exceeds the table capacity {capacity}; "
-                "capacity growth is a layout-shape change — rebuild the "
-                "scorer instead of hot-swapping"
+                f"capacity growth is a layout-shape change — {CAPACITY_REFUSAL}"
             )
         dev = self.table.device if device is None else resolve_device(device)
         table = torch.zeros(capacity, self.dim, dtype=torch.float32, device=dev)

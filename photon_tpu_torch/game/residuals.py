@@ -156,6 +156,20 @@ class _DeviceScoreTable:
         self.record_rejected(bad)
         return bad
 
+    def snapshot_rows(self) -> dict:
+        """Device row views ``{name: [n]}`` for a checkpoint: the
+        checkpointer stages them with the model tables in one pass, before
+        the next in-place ``update`` can overwrite them."""
+        return {name: self.scores[self._row[name]] for name in self.names}
+
+    def load_rows(self, rows: dict) -> None:
+        """Rebuild the table from checkpointed rows (resume): one guarded
+        update a coordinate, the state an uninterrupted run holds after the
+        same iterations."""
+        for name, row in rows.items():
+            if name in self._row:
+                self.update(name, np.asarray(row, np.float32))
+
 
 class ResidualEngine(_DeviceScoreTable):
     """Training-side score table (see the module docstring)."""
@@ -226,3 +240,20 @@ class HostResiduals:
         bad = [name for name, _ in self.drain_guard_flags()]
         self.record_rejected(bad)
         return bad
+
+    def snapshot_rows(self) -> dict:
+        """Host float64 copies of every row: a resumed host-mode fit starts
+        from the exact state."""
+        return {name: s.copy() for name, s in self.scores.items()}
+
+    def load_rows(self, rows: dict) -> None:
+        """Restore checkpointed float64 rows directly (no update: nothing
+        crossed from the device)."""
+        for name, row in rows.items():
+            host = np.asarray(row, np.float64)
+            if host.shape != self.base.shape:
+                raise ValueError(
+                    f"checkpointed row for {name!r} has shape {host.shape}, "
+                    f"want {self.base.shape}"
+                )
+            self.scores[name] = host

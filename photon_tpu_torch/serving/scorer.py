@@ -364,6 +364,7 @@ class _Program:
         else:
             self.host_in, host_inputs = self.dev_in, self.inputs
             self.host_out, host_outputs = self.dev_out, self.outputs
+        # host-sync: numpy views of host (pinned) staging buffers; no device read
         self.staging = {k: v.numpy() for k, v in host_inputs.items()}
         self.results = {k: v.numpy() for k, v in host_outputs.items()}
         self.arange = torch.arange(rows, dtype=torch.int32, device=dev)
@@ -399,6 +400,7 @@ class _Program:
         on the capture stream (lazy initialization stays out of the graph)."""
         with torch.cuda.stream(stream):
             self.body()
+        # host-sync: warmup, before the capture: the eager run lands first
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool, stream=stream,
@@ -497,6 +499,7 @@ class GameScorer:
         ``"error"`` mode any other sync on the serving path raises."""
         if self._stream is not None:
             self._done.record(self._stream)
+            # host-sync: the batch's one event wait
             self._done.synchronize()
 
     def _build_tables(self, model: GameModel,

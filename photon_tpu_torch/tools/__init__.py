@@ -6,4 +6,6 @@
 
 and each probe is a function of ``(E, device)`` that prints its row and
 returns its seconds, so a script can call it directly.
+``check_host_sync`` guards the hot loops against unmarked device reads
+(``python -m photon_tpu_torch.tools.check_host_sync``).
 """

@@ -8,6 +8,7 @@ reference's model round trips (``tests/test_game_drivers.py``).
 """
 
 import dataclasses
+import os
 import types
 
 import jax.numpy as jnp
@@ -324,7 +325,7 @@ def test_index_maps_read_back_across_packages(tmp_path):
     assert back.intercept_id == imap.intercept_id
 
 
-def test_unported_library_paths_raise():
+def test_unported_library_paths_raise(tmp_path):
     """Each path the port leaves out raises, naming its ROADMAP item."""
     from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
     from photon_tpu_torch.core.optimizers import OptimizerConfig
@@ -365,14 +366,20 @@ def test_unported_library_paths_raise():
                                     normalization=NormalizationContext())
     est = GameEstimator("logistic_regression", data, device="cpu")
     config = GameOptimizationConfiguration({"fixed": fixed, "re0": rand})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        est.fit([config], checkpoint_dir="ckpt")
-    model = est.fit([config])[0].model
+    # Descent checkpoints and resume are ported (item 6).
+    ckpt = str(tmp_path / "ckpt")
+    model = est.fit([config], checkpoint_dir=ckpt)[0].model
+    restored = est.fit([config], checkpoint_dir=ckpt, resume="latest")[0].model
+    assert torch.equal(restored.coordinate("fixed").coefficients.means,
+                       model.coordinate("fixed").coefficients.means)
     coords = est._build_coordinates(config)
     loop = CoordinateDescent(coords, "logistic_regression", data)
     loop.run(1, initial_model=model)  # warm starts are ported (item 5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        loop.run(1, resume_state=object())
+    from photon_tpu_torch.fault.checkpoint import CheckpointError, DescentCheckpointer
+
+    state = DescentCheckpointer(os.path.join(ckpt, "cfg-000")).load("latest", device="cpu")
+    with pytest.raises(CheckpointError):  # a warm-started run is another descent
+        loop.run(1, initial_model=model, resume_state=state)
     # A foreign vocabulary joins by key (item 5): no entity overlaps, so
     # the warm start is the cold one.
     foreign = dataclasses.replace(model.coordinate("re0"), keys=model.coordinate("re0").keys + 100)

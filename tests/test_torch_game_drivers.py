@@ -231,9 +231,6 @@ def test_game_fits_match_reference(slice_runs, tmp_path, task, extra_coords):
 @pytest.mark.parametrize("extra,match", [
     (["--stream-chunks", "100"], "item 9"),
     (["--max-resident-mb", "1"], "item 9"),
-    (["--checkpoint-dir", "x"], "item 6"),
-    (["--resume", "auto"], "item 6"),
-    (["--faults", "io:read:p=1"], "item 6"),
     (["--tuning", "random"], "item 10"),
     (["--coordinator", "localhost:1"], "item 10"),
     (["--dtype", "bfloat16"], "item 9"),
@@ -244,6 +241,22 @@ def test_unported_flags_raise(tmp_path, extra, match):
             "--backend", "cpu", *extra]
     with pytest.raises(NotImplementedError, match=match):
         train_game.run(train_game.build_parser().parse_args(args))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--checkpoint-dir", "ckpt"],
+    ["--checkpoint-dir", "ckpt", "--resume", "auto"],
+    ["--faults", "io:read:p=1:times=1", "--checkpoint"],
+])
+def test_formerly_unported_flags_run(tmp_path, monkeypatch, extra):
+    """The item 6 flags, which raised before, now train."""
+    monkeypatch.setenv("PHOTON_IO_RETRY_BASE_S", "0")
+    monkeypatch.chdir(tmp_path)
+    args = ["--input", "synthetic-game:10:3:4:3", "--coordinate",
+            "fixed:type=fixed,shard=global", "--output-dir", str(tmp_path / "out"),
+            "--backend", "cpu", *extra]
+    summary = train_game.run(train_game.build_parser().parse_args(args))
+    assert summary["best_configuration"]
 
 
 @pytest.mark.parametrize("spec,match", [
