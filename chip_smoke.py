@@ -39,7 +39,11 @@ Phases (any failure exits non-zero and prints no result line):
    draws' gradient layouts; the ``benes`` route of the uniform batch: its
    two Clos directions composed to the identity and its slot products bit
    for bit against the ``pallas`` route's, its gradient and forward under
-   the gradient gate;
+   the gradient gate; CS, the compensated scan of the ``cumsum`` reduce, and
+   its plain version each held to a float64 prefix (``|hi + lo - c64| <=
+   2^-40 C``, C the float64 prefix of |x|) at 2^25 elements and the edge
+   lengths 1, 31, 32, 33, 4095, 4096, 4097 and 2^25 + 3, timed beside
+   ``torch.cumsum`` and its bound;
 3. the main path: ``GlmOptimizationProblem.run`` (L-BFGS, logistic + L2) at
    the headline GLM shape n=2^20, k=32, d=2^18 on the ``fused``, ``pallas``
    and ``xchg`` routes, uniform and zipf ids (and one ``value_and_grad`` on
@@ -167,12 +171,34 @@ Phases (any failure exits non-zero and prints no result line):
    cut into an initial part and three appends (~10% of the rows each, 5%
    of the users in the appends only) on the card (K1 must launch) and the
    host, the final models held to each other under phase 6's gates.
+11. streamed GLM training and scoring on the JAX package's stream scenario
+   (``bench.py``'s ``_stream_scale_spec``: 64 LIBSVM part files, k = 16, d =
+   2^17, logistic + L2 1.0) cut from 10,000,000 rows to 2^21 (2^25 entries
+   a pass), every launch count set to 0 just before each run and read
+   after: (a) the whole set on ``autodiff`` and its first 32 files (2^20
+   rows) on ``pallas``, a warm pass and two timed passes equal bit for bit
+   under the sync debug mode "warn": rows/s, seconds a pass, the consumer's
+   wait for parses, the copies' device time and the compute stream's wait
+   for them, the host RSS, and an ``autodiff`` pass with the reference's
+   window of 2 chunks; (b) on the first 8 files (2^18 rows), ``fm``,
+   ``pallas``, ``xchg`` aligned and ``xchg``
+   ``cumsum`` against ``autodiff`` under the reference's gates, the layout
+   builds of the first pass and none for a fresh source, each route's
+   launches (K2, K4, CS), and a 10-iteration streamed L-BFGS on ``pallas``
+   and ``xchg`` ``cumsum`` against the resident L-BFGS on the same rows; (c)
+   ``train --stream`` on ``pallas`` uninterrupted, preempted (exit 75) and
+   resumed to the uninterrupted model exactly, ``score --stream`` over four
+   part files against ``score`` on their rows, and ``score_game --stream``
+   over phase 6's Avro file in four parts against phase 8's resident
+   ``score_game``, each within 1e-6.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
 that the training paths launch none of them; K1's and K2's
 ``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's,
-``phase9_launches`` phase 9's, ``phase10_launches`` phase 10's); the last
+``phase9_launches`` phase 9's, ``phase10_launches`` phase 10's, every
+kernel's ``phase11_launches`` phase 11's; CS's ``launches`` count phase 11,
+its main path); the last
 line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -314,6 +340,81 @@ def gate_report(name, got, ref, rtol, mag=None) -> float:
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return float(err.max())
+
+
+# CS, the compensated scan of the xchg route's cumsum reduce, in phase 2: the
+# main path's length (a pass of phase 11 moves 2^25 products) and the edges:
+# one element, one warp and one more, one tile (4096) and either side of it,
+# and 2^25 + 3.  Gate: |hi + lo - c64| <= 2^-40 * C elementwise, c64 the
+# float64 prefix and C the float64 prefix of |x|; the kernel and its plain
+# version each, and a plain float32 cumsum must fail it at 2^25.
+SCAN_E = 1 << 25
+SCAN_EDGES = (1, 31, 32, 33, 4095, 4096, 4097, SCAN_E, SCAN_E + 3)
+SCAN_GATE = 2.0 ** -40
+
+
+def scan_input(n: int, seed: int, dev) -> torch.Tensor:
+    """Products like the cumsum reduce's (standard normal) on a mean of 1,
+    so that the prefix grows to n and a float32 running sum loses bits."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(n, generator=g, device=dev) + 1.0
+
+
+def scan_gate(name: str, hi, lo, c64, mag) -> float:
+    """Largest |hi + lo - c64| / (2^-40 * C); raises above 1."""
+    err = (hi.double() + lo.double() - c64).abs()
+    ratio = float((err / (SCAN_GATE * mag)).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: |hi + lo - c64| reaches {ratio:.3g} x 2^-40 C")
+    return ratio
+
+
+def check_compensated_scan(dev) -> dict:
+    from photon_tpu_torch.ops.vperm import compensated_cumsum, compensated_scan
+
+    worst, edges = 0.0, []
+    for i, n in enumerate(SCAN_EDGES):
+        x = scan_input(n, 40 + i, dev)
+        x64 = x.double()
+        c64, mag = torch.cumsum(x64, 0), torch.cumsum(x64.abs(), 0)
+        before = compensated_scan.launches
+        hi, lo = compensated_scan(x)
+        if compensated_scan.launches != before + 1:
+            raise AssertionError("compensated_scan did not launch its kernel")
+        phi, plo = compensated_cumsum(x)
+        kernel = scan_gate(f"CS n={n}", hi, lo, c64, mag)
+        plain = scan_gate(f"CS plain n={n}", phi, plo, c64, mag)
+        diff = float((hi.double() + lo.double() - phi.double() - plo.double()).abs().max())
+        worst = max(worst, diff)
+        row = {"n": n, "kernel_gate_ratio": kernel, "plain_gate_ratio": plain,
+               "max_abs_err": diff, "lo_nonzero": int((lo != 0).sum())}
+        if n >= SCAN_E:
+            f32 = torch.cumsum(x, 0)
+            row["float32_cumsum_gate_ratio"] = float(
+                ((f32.double() - c64).abs() / (SCAN_GATE * mag)).max())
+            if row["float32_cumsum_gate_ratio"] <= 1.0:
+                raise AssertionError("CS gate cannot tell a plain float32 cumsum apart")
+            if row["lo_nonzero"] == 0:
+                raise AssertionError("CS: lo is all zero, the compensation is gone")
+        edges.append(row)
+        log(f"  CS n={n:,}: |hi+lo-c64|/(2^-40 C) kernel {kernel:.3g}, plain {plain:.3g}; "
+            f"kernel vs plain max |diff| {diff:.3e}"
+            + (f"; float32 cumsum {row['float32_cumsum_gate_ratio']:.3g}"
+               if "float32_cumsum_gate_ratio" in row else ""))
+        del x, x64, c64, mag, hi, lo, phi, plo
+    x = scan_input(SCAN_E, 50, dev)
+    ms = cuda_ms(lambda: compensated_scan(x))
+    plain_ms = cuda_ms(lambda: compensated_cumsum(x), reps=3, warmup=1)
+    library_ms = cuda_ms(lambda: torch.cumsum(x, 0))
+    # Read 4 bytes and write 8 an element; 8 float adds an element.
+    bound_ms, bound_by = bound(12.0 * SCAN_E, 8.0 * SCAN_E)
+    del x
+    torch.cuda.empty_cache()
+    log(f"  CS at 2^25: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; "
+        f"{bound_ms / ms:.0%} of it), plain {plain_ms:.3f} ms, torch.cumsum "
+        f"{library_ms:.3f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "edges": edges}
 
 
 # The GAME fixed effect's batch (rows, nonzeros per row, d) in phase 6.
@@ -2465,7 +2566,8 @@ def kernel_wrappers() -> list:
     )
 
     return [fused_value_and_grad, row_scatter, position_partial_sums, vp.chunk_pass,
-            vp.lane_pass, vp.chunk_expand_pass, aligned_gather_products, *pk.KERNELS]
+            vp.lane_pass, vp.chunk_expand_pass, aligned_gather_products,
+            vp.compensated_scan, *pk.KERNELS]
 
 
 def counter_total(session, name: str) -> float:
@@ -3719,6 +3821,455 @@ def run_online_game(game: dict) -> dict:
     return out
 
 
+# Phase 11: streamed GLM training and scoring on the JAX package's stream
+# scenario (bench.py:3364-3375 _stream_scale_spec with the generator
+# _generate_stream_files, bench.py:3154): 64 LIBSVM part files, k = 16 ids a
+# row (one per stride of d / k), d = 2^17, logistic + L2 1.0.  Rows are cut
+# from the scenario's 10,000,000 to 2^21, so that one pass holds 2^25
+# entries, the headline's, and the phase fits the time limit.  Two more cuts
+# for the time limit (phase 11 took 193 s on an H100 with 16 files in (b)
+# and (c) and 64 on (a)'s `pallas`): (a)'s `pallas` passes run on the first
+# STREAM_RATE_PALLAS_FILES files (2^20 rows; each file's cached layout moves
+# 8x its entries), and (b) and (c) on the first STREAM_KERNEL_FILES files
+# (2^18 rows).
+STREAM_ROWS = 1 << 21
+STREAM_FILES, STREAM_K, STREAM_D = 64, 16, 1 << 17
+STREAM_RATE_PALLAS_FILES = 32
+STREAM_KERNEL_FILES = 8
+STREAM_ITERATIONS = 10
+STREAM_RSS_CAP = 4 << 30  # the scenario's host-memory bar (bench.py --stream-scale)
+# (b)'s gates, the reference's (tests/test_stream_kernels.py): the value to
+# rtol 2e-5, the gradient to rtol 2e-4 and atol 2e-4 x max |g|; L-BFGS
+# against the resident fit, tests/test_streaming.py:272-275's value rtol 1e-4
+# and coefficients rtol 5e-2 / atol 5e-3; (c)'s scores within 1e-6.
+STREAM_VALUE_RTOL = 2e-5
+STREAM_GRAD_RTOL = 2e-4
+STREAM_FIT_RTOL = 1e-4
+STREAM_COEF_RTOL, STREAM_COEF_ATOL = 5e-2, 5e-3
+STREAM_SCORE_ATOL = 1e-6
+# (b)'s routes: (name, PHOTON_SPARSE_GRAD, PHOTON_XCHG_REDUCE, the kernels it
+# must launch).  Streamed chunks carry no baked values, so the balanced
+# exchange moves the product stream through K4 (K6 expands baked dz only)
+# and K5 runs only on a colored route.
+STREAM_ROUTES = (
+    ("fm", "fm", None, ()),
+    ("pallas", "pallas", None, ("position_partial_sums",)),
+    ("xchg_aligned", "xchg", "aligned", ("chunk_pass", "position_partial_sums")),
+    ("xchg_cumsum", "xchg", "cumsum", ("chunk_pass", "compensated_scan")),
+)
+
+
+def write_stream_part(job) -> str:
+    """One part file, each row formatted by one %-format (a process-pool
+    job of :func:`write_stream_parts`)."""
+    path, label, ids, vals = job
+    k = ids.shape[1]
+    cols = np.empty((ids.shape[0], 1 + 2 * k), object)
+    cols[:, 0] = label.tolist()
+    cols[:, 1::2] = ids.tolist()
+    cols[:, 2::2] = vals.astype(np.float64).tolist()
+    fmt = "%d" + " %d:%.4f" * k
+    with open(path, "w") as f:
+        f.write("\n".join(fmt % tuple(r) for r in cols.tolist()))
+        f.write("\n")
+    return path
+
+
+def write_stream_parts(out_dir: str, total_rows: int, n_files: int, k: int,
+                       d: int, seed: int = 0) -> list:
+    """bench.py's _generate_stream_files draw for draw (ids one per stride,
+    standard-normal values, labels from a per-stride w_true, in its order),
+    the files formatted on a pool of processes instead of its np.char
+    loop."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    os.makedirs(out_dir, exist_ok=True)
+    rows_per_file = -(-total_rows // n_files)
+    stride = d // k
+    rng = np.random.default_rng(seed)
+    w_true = (rng.standard_normal(k) * 0.5).astype(np.float32)
+    jobs = []
+    for fi in range(n_files):
+        n = min(rows_per_file, total_rows - fi * rows_per_file)
+        if n <= 0:
+            break
+        ids = (np.arange(k, dtype=np.int64)[None, :] * stride
+               + rng.integers(0, stride, size=(n, k)) + 1)
+        vals = rng.standard_normal((n, k)).astype(np.float32)
+        margin = vals @ w_true
+        label = np.where(rng.random(n) < 1.0 / (1.0 + np.exp(-margin)), 1, -1)
+        jobs.append((os.path.join(out_dir, f"part-{fi:05d}.libsvm"), label, ids, vals))
+    # Spawned, not forked: this process holds a CUDA context and threads.
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(write_stream_part, jobs))
+
+
+def sync_warnings(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the synchronizing calls the mode reported."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message)[:120] for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def stream_pass(source, objective, w):
+    """One streamed evaluation: seconds (to the card's last kernel), value,
+    gradient, the pass's StreamStats and the sync warnings."""
+    t0 = time.monotonic()
+    (v, g), syncs = sync_warnings(lambda: objective.value_and_grad(w))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    stats = source.last_pass.resolve()
+    return seconds, v, g, stats, syncs
+
+
+def run_stream_rate(files: list, dev) -> dict:
+    """(a): the whole scenario on ``autodiff`` (the default), the first
+    STREAM_RATE_PALLAS_FILES files on ``pallas``: one warm pass, then two
+    timed passes, equal bit for bit; then one ``autodiff`` pass with the
+    reference's window of 2 chunks (``PHOTON_STREAM_PREFETCH=2``) beside the
+    port's default."""
+    from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
+    from photon_tpu_torch.data import stream_layouts as sl
+    from photon_tpu_torch.data.streaming import LibsvmFileSource, StreamingObjective
+
+    out = {}
+    counters = kernel_wrappers()
+    for route, route_files in (("autodiff", files),
+                               ("pallas", files[:STREAM_RATE_PALLAS_FILES])):
+        with env_set({"PHOTON_SPARSE_GRAD": route}):
+            for c in counters:
+                c.launches = 0
+            builds0 = dict(sl.build_stats)
+            source = LibsvmFileSource(route_files, device=dev)
+            objective = StreamingObjective(
+                GlmObjective.create("logistic", RegularizationContext("l2", 1.0)),
+                source.chunk_iter_factory)
+            w = torch.full((source.dim,), 0.01, device=dev)
+            warm_s, *_ = stream_pass(source, objective, w)
+            passes = [stream_pass(source, objective, w) for _ in range(2)]
+        (s1, v1, g1, st1, sy1), (s2, v2, g2, st2, sy2) = passes
+        if not (torch.equal(v1, v2) and torch.equal(g1, g2)):
+            raise AssertionError(f"phase 11 (a) {route}: two passes differ")
+        if not torch.isfinite(g1).all():
+            raise AssertionError(f"phase 11 (a) {route}: a non-finite gradient")
+        rss_growth = max(st.rss_peak_bytes - st.rss_start_bytes for st in (st1, st2))
+        if rss_growth > STREAM_RSS_CAP:
+            raise AssertionError(f"phase 11 (a) {route}: a pass grew the host RSS by "
+                                 f"{rss_growth / 2**30:.2f} GiB")
+        row = {
+            "rows": source.num_examples, "files": len(route_files), "last_kernel":
+            objective.last_kernel, "warm_pass_s": warm_s,
+            "pass_s": [s1, s2], "rows_per_s": [source.num_examples / s for s in (s1, s2)],
+            "parse_wait_s": [st1.parse_wait_s, st2.parse_wait_s],
+            "copy_ms": [st1.copy_ms, st2.copy_ms],
+            "copy_stall_ms": [st1.copy_stall_ms, st2.copy_stall_ms],
+            "copy_bytes": st1.copy_bytes, "rss_peak_bytes": max(st1.rss_peak_bytes,
+                                                                st2.rss_peak_bytes),
+            "rss_growth_bytes": rss_growth, "sync_warnings": sy1 + sy2,
+            "layout_builds": sl.build_stats["builds"] - builds0["builds"],
+            "layout_build_s": sl.build_stats["seconds"] - builds0["seconds"],
+            "launches": {c.__name__: c.launches for c in counters if c.launches},
+        }
+        if route != objective.last_kernel:
+            raise AssertionError(f"phase 11 (a): {route} ran {objective.last_kernel}")
+        if route == "pallas" and not row["launches"].get("position_partial_sums"):
+            raise AssertionError("phase 11 (a): K2 never launched on pallas")
+        out[route] = row
+        log(f"  (a) {route}: {source.num_examples:,} rows, passes {s1:.3f} / {s2:.3f} s "
+            f"({row['rows_per_s'][0]:,.0f} / {row['rows_per_s'][1]:,.0f} rows/s; warm "
+            f"{warm_s:.3f} s with {row['layout_builds']} layout builds in "
+            f"{row['layout_build_s']:.2f} s host), parse wait {st1.parse_wait_s:.3f} / "
+            f"{st2.parse_wait_s:.3f} s, copies {st1.copy_ms:.1f} / {st2.copy_ms:.1f} ms "
+            f"({st1.copy_bytes / 1e6:.0f} MB a pass), compute waited on copies "
+            f"{st1.copy_stall_ms:.1f} / {st2.copy_stall_ms:.1f} ms, RSS peak "
+            f"{row['rss_peak_bytes'] / 2**30:.2f} GiB (+{rss_growth / 2**30:.2f} GiB), "
+            f"sync warnings {len(row['sync_warnings'])}, launches {row['launches']}")
+        if route == "autodiff":
+            with env_set({"PHOTON_SPARSE_GRAD": route, "PHOTON_STREAM_PREFETCH": "2"}):
+                s2w, *_ = stream_pass(source, objective, w)
+            row["window2_pass_s"] = s2w
+            log(f"  (a) autodiff with the reference's window of 2 chunks: {s2w:.3f} s a pass")
+        del source, objective, passes, g1, g2
+    return out
+
+
+def run_stream_kernels(files: list, cache_dir: str, dev) -> dict:
+    """(b): each route's streamed pass against ``autodiff``'s, the layout
+    cache (built on the first pass, loaded by a fresh source), each route's
+    launches, then a streamed L-BFGS on ``pallas`` and ``xchg`` cumsum
+    against the resident fit on the same rows."""
+    from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
+    from photon_tpu_torch.core.optimizers import OptimizerConfig, lbfgs
+    from photon_tpu_torch.data import stream_layouts as sl
+    from photon_tpu_torch.data.batch import SparseBatch
+    from photon_tpu_torch.data.streaming import (
+        LibsvmFileSource,
+        StreamingObjective,
+        streaming_lbfgs,
+    )
+
+    counters = kernel_wrappers()
+    obj = GlmObjective.create("logistic", RegularizationContext("l2", 1.0))
+    out = {"routes": {}}
+
+    def objective_on(source):
+        return StreamingObjective(obj, source.chunk_iter_factory)
+
+    with env_set({"PHOTON_SPARSE_GRAD": "autodiff"}):
+        ref_source = LibsvmFileSource(files, device=dev)
+        rng = np.random.default_rng(11)
+        w = torch.as_tensor((rng.standard_normal(ref_source.dim) * 0.05).astype(np.float32),
+                            device=dev)
+        _, v_ref, g_ref, _, _ = stream_pass(ref_source, objective_on(ref_source), w)
+    scale = max(float(g_ref.abs().max()), 1.0)
+    for name, route, mode, must in STREAM_ROUTES:
+        with env_set({"PHOTON_SPARSE_GRAD": route, "PHOTON_XCHG_REDUCE": mode,
+                      "PHOTON_STREAM_LAYOUT_CACHE": cache_dir}):
+            for c in counters:
+                c.launches = 0
+            builds0 = dict(sl.build_stats)
+            source = LibsvmFileSource(files, device=dev)
+            objective = objective_on(source)
+            first_s, v, g, _, _ = stream_pass(source, objective, w)
+            built = sl.build_stats["builds"] - builds0["builds"]
+            build_s = sl.build_stats["seconds"] - builds0["seconds"]
+            launches = {c.__name__: c.launches for c in counters if c.launches}
+            builds1 = dict(sl.build_stats)
+            fresh = LibsvmFileSource(files, device=dev)  # as after a restart
+            again_s, v2, g2, stats, _ = stream_pass(fresh, objective_on(fresh), w)
+            rebuilt = sl.build_stats["builds"] - builds1["builds"]
+            loaded = sl.build_stats["loads"] - builds1["loads"]
+        value_err = abs(float(v) - float(v_ref)) / abs(float(v_ref))
+        grad_err = float(((g - g_ref).abs() - STREAM_GRAD_RTOL * g_ref.abs()).max())
+        row = {"last_kernel": objective.last_kernel, "first_pass_s": first_s,
+               "layout_builds": built, "layout_build_s": build_s,
+               "cached_pass_s": again_s, "fresh_source_builds": rebuilt,
+               "fresh_source_loads": loaded, "value_rel_err": value_err,
+               "grad_excess_over_rtol": grad_err, "grad_scale": scale,
+               "launches": launches, "fresh_equal": bool(torch.equal(g, g2))}
+        out["routes"][name] = row
+        log(f"  (b) {name}: ran {objective.last_kernel}, first pass {first_s:.3f} s "
+            f"({built} builds, {build_s:.2f} s host), a fresh source {again_s:.3f} s "
+            f"({rebuilt} builds, {loaded} loads), value rel err {value_err:.2e}, "
+            f"gradient excess over rtol {grad_err:.2e} (atol "
+            f"{STREAM_GRAD_RTOL * scale:.2e}), launches {launches}")
+        if objective.last_kernel != route:
+            raise AssertionError(f"phase 11 (b) {name}: ran {objective.last_kernel}")
+        if value_err > STREAM_VALUE_RTOL or grad_err > STREAM_GRAD_RTOL * scale:
+            raise AssertionError(f"phase 11 (b) {name}: disagrees with autodiff")
+        if route != "fm" and (built != len(files) or rebuilt or loaded != len(files)):
+            raise AssertionError(f"phase 11 (b) {name}: the layout cache was not used")
+        for kernel in must:
+            if not launches.get(kernel):
+                raise AssertionError(f"phase 11 (b) {name}: {kernel} never launched")
+        if launches.get("fused_value_and_grad"):
+            raise AssertionError(f"phase 11 (b) {name}: K1 launched on a streamed pass")
+        del source, fresh, objective, g, g2
+    # The streamed L-BFGS against the resident one on the same rows.
+    config = OptimizerConfig(max_iterations=STREAM_ITERATIONS)
+    with env_set({"PHOTON_SPARSE_GRAD": "autodiff"}):
+        parts = [ref_source.load_host_chunk(i) for i in range(len(files))]
+        flat = SparseBatch(*(torch.cat(cols).to(dev) for cols in zip(*(b[:5] for b in parts))))
+        del parts
+        t0 = time.monotonic()
+        resident = lbfgs(lambda x: obj.value_and_grad(x, flat), torch.zeros_like(w), config)
+        resident_s = time.monotonic() - t0
+        del flat
+    out["resident"] = {"value": resident.value, "iterations": resident.iterations,
+                       "seconds": resident_s}
+    out["lbfgs"] = {}
+    for name, route, mode in (("pallas", "pallas", None), ("xchg_cumsum", "xchg", "cumsum")):
+        with env_set({"PHOTON_SPARSE_GRAD": route, "PHOTON_XCHG_REDUCE": mode,
+                      "PHOTON_STREAM_LAYOUT_CACHE": cache_dir}):
+            for c in counters:
+                c.launches = 0
+            source = LibsvmFileSource(files, device=dev)
+            t0 = time.monotonic()
+            fit = streaming_lbfgs(objective_on(source), torch.zeros_like(w), config)
+            seconds = time.monotonic() - t0
+        rel = abs(fit.value - resident.value) / abs(resident.value)
+        coef = (fit.w - resident.w).abs() - STREAM_COEF_RTOL * resident.w.abs()
+        row = {"value": fit.value, "iterations": fit.iterations, "seconds": seconds,
+               "value_rel_err": rel, "coef_excess_over_rtol": float(coef.max()),
+               "launches": {c.__name__: c.launches for c in counters if c.launches}}
+        out["lbfgs"][name] = row
+        log(f"  (b) streamed L-BFGS {name}: {fit.iterations} iterations in {seconds:.2f} s, "
+            f"value {fit.value:.8g} vs resident {resident.value:.8g} (rel {rel:.2e}), "
+            f"coefficient excess over rtol {row['coef_excess_over_rtol']:.2e}, launches "
+            f"{row['launches']}")
+        if rel > STREAM_FIT_RTOL or row["coef_excess_over_rtol"] > STREAM_COEF_ATOL:
+            raise AssertionError(f"phase 11 (b) L-BFGS {name}: off the resident fit")
+    log(f"  (b) resident L-BFGS: {resident.iterations} iterations in {resident_s:.2f} s")
+    return out
+
+
+def stream_cli_args(parts_glob: str, out: str, *extra) -> list:
+    return ["--input", parts_glob, "--stream", "--reg-weights", "1.0",
+            "--max-iterations", str(STREAM_ITERATIONS), "--output-dir", out, *extra]
+
+
+def run_stream_cli(files: list, root: str, cache_dir: str, game: dict) -> dict:
+    """(c): ``train --stream`` uninterrupted, preempted (exit 75) and resumed
+    on ``pallas``; ``score --stream`` against ``score``; ``score_game
+    --stream`` over phase 6's Avro file in four parts against phase 8's
+    resident ``score_game`` of phase 6's model."""
+    from photon_tpu_torch.data.game_io import read_game_avro, write_game_avro
+    from photon_tpu_torch.drivers import score, score_game, train
+    from photon_tpu_torch.fault.preemption import PREEMPTED_EXIT_CODE, clear_preemption
+    from photon_tpu_torch.game.data import take_rows
+
+    counters = kernel_wrappers()
+    parts = os.path.join(root, "kernel_parts")
+    os.makedirs(parts, exist_ok=True)
+    for f in files:
+        os.symlink(f, os.path.join(parts, os.path.basename(f)))
+    glob = os.path.join(parts, "part-*.libsvm")
+    out = {"runs": {}}
+    ckpt = os.path.join(root, "ck")
+    runs = (("uninterrupted", ()), ("preempted", ("--checkpoint-dir", ckpt,
+                                                  "--checkpoint-every", "1",
+                                                  "--faults", "preempt:iter=3")),
+            ("resumed", ("--checkpoint-dir", ckpt, "--resume", "latest")))
+    with env_set({"PHOTON_SPARSE_GRAD": "pallas", "PHOTON_STREAM_LAYOUT_CACHE": cache_dir}):
+        for name, extra in runs:
+            for c in counters:
+                c.launches = 0
+            t0 = time.monotonic()
+            try:
+                train.main(stream_cli_args(glob, os.path.join(root, name), *extra))
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            finally:
+                clear_preemption()
+            run = {"exit": code, "wall_s": time.monotonic() - t0,
+                   "launches": {c.__name__: c.launches for c in counters if c.launches}}
+            if code == 0:
+                with open(os.path.join(root, name, "training_summary.json")) as f:
+                    summary = json.load(f)
+                run.update(final_value=summary["sweep"][0]["final_value"],
+                           iterations=summary["sweep"][0]["iterations"],
+                           last_kernel=summary["sweep"][0]["last_kernel"])
+            out["runs"][name] = run
+            log(f"  (c) train --stream {name}: exit {code} in {run['wall_s']:.2f} s, "
+                f"{ {k: v for k, v in run.items() if k not in ('exit', 'wall_s')} }")
+    if out["runs"]["preempted"]["exit"] != PREEMPTED_EXIT_CODE:
+        raise AssertionError("phase 11 (c): the preempted run did not exit 75")
+    if not out["runs"]["uninterrupted"]["launches"].get("position_partial_sums"):
+        raise AssertionError("phase 11 (c): K2 never launched in train --stream")
+    models = [read_glm_means(os.path.join(root, name)) for name in ("uninterrupted",
+                                                                     "resumed")]
+    out["resumed_max_abs_diff"] = float(np.abs(models[0] - models[1]).max())
+    log(f"  (c) resumed against uninterrupted: max |diff| {out['resumed_max_abs_diff']}")
+    if out["resumed_max_abs_diff"] != 0.0:
+        raise AssertionError("phase 11 (c): the resumed model differs")
+    # score --stream over four part files against score over their rows.
+    model = os.path.join(root, "uninterrupted", "best_model.avro")
+    joined = os.path.join(root, "four.libsvm")
+    with open(joined, "w") as f:
+        for path in files[:4]:
+            with open(path) as part:
+                f.write(part.read())
+    four = os.path.join(root, "four_parts")
+    os.makedirs(four, exist_ok=True)
+    for path in files[:4]:
+        os.symlink(path, os.path.join(four, os.path.basename(path)))
+    scored = {}
+    for name, spec, extra in (("resident", joined, ()), ("streamed", four, ("--stream",))):
+        t0 = time.monotonic()
+        res = score.run(score.build_parser().parse_args([
+            "--input", spec, "--model", model, "--evaluators", "AUC",
+            "--output-dir", os.path.join(root, f"score_{name}"), *extra]))
+        scored[name] = np.loadtxt(os.path.join(root, f"score_{name}", "scores.txt"))
+        out[f"score_{name}"] = {"rows": res["num_scored"], "metrics": res["metrics"],
+                                "wall_s": time.monotonic() - t0}
+    out["score_max_abs_diff"] = float(np.abs(scored["resident"] - scored["streamed"]).max())
+    log(f"  (c) score --stream against score: {out['score_streamed']} vs "
+        f"{out['score_resident']}, max |diff| {out['score_max_abs_diff']:.2e}")
+    if not out["score_max_abs_diff"] <= STREAM_SCORE_ATOL:
+        raise AssertionError("phase 11 (c): score --stream differs from score")
+    # score_game --stream: phase 6's file in four parts.
+    data, maps = read_game_avro(game["avro"], {"global": "global", "per_user": "per_user"},
+                                ["userId", "itemId"])
+    game_parts = os.path.join(root, "game_parts")
+    os.makedirs(game_parts, exist_ok=True)
+    n = data.num_examples
+    for i in range(4):
+        write_game_avro(os.path.join(game_parts, f"part-{i:05d}.avro"),
+                        take_rows(data, np.arange(i * n // 4, (i + 1) * n // 4)), maps)
+    del data
+    t0 = time.monotonic()
+    res = score_game.run(score_game.build_parser().parse_args([
+        "--input", game_parts, "--model",
+        os.path.join(game["run_dirs"]["fused"], "best_model"), *GAME_BAGS, "--stream",
+        "--evaluators", "AUC", "--output-dir", os.path.join(root, "score_game")]))
+    streamed = np.loadtxt(os.path.join(root, "score_game", "scores.txt"))
+    resident = np.loadtxt(os.path.join(os.path.dirname(game["avro"]), "score_gpu",
+                                       "scores.txt"))
+    diff = float(np.abs(streamed - resident).max())
+    out["score_game"] = {"rows": res["num_scored"], "scorers": res["scorers"],
+                         "metrics": res["metrics"], "wall_s": time.monotonic() - t0,
+                         "max_abs_diff": diff}
+    log(f"  (c) score_game --stream over 4 parts: {out['score_game']}")
+    if not diff <= STREAM_SCORE_ATOL:
+        raise AssertionError("phase 11 (c): score_game --stream differs from score_game")
+    return out
+
+
+def read_glm_means(run_dir: str) -> np.ndarray:
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.data.model_io import load_glm_model
+
+    imap = IndexMap.load(os.path.join(run_dir, "feature_index.json"))
+    model = load_glm_model(os.path.join(run_dir, "best_model.avro"), imap, device="cpu")
+    return model.coefficients.means.numpy()
+
+
+def run_streamed(dev, game: dict) -> dict:
+    """Phase 11; every launch count set to 0 just before each run and read
+    after it."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        t0 = time.monotonic()
+        files = write_stream_parts(os.path.join(root, "parts"), STREAM_ROWS, STREAM_FILES,
+                                   STREAM_K, STREAM_D)
+        out = {"generate_s": time.monotonic() - t0, "rows": STREAM_ROWS,
+               "files": len(files), "bytes": sum(os.path.getsize(f) for f in files)}
+        log(f"  wrote {len(files)} part files, {STREAM_ROWS:,} rows, "
+            f"{out['bytes'] / 1e6:.0f} MB in {out['generate_s']:.1f} s")
+        cache_dir = os.path.join(root, "layouts")
+        out["rate"] = run_stream_rate(files, dev)
+        out["kernels"] = run_stream_kernels(files[:STREAM_KERNEL_FILES], cache_dir, dev)
+        out["cli"] = run_stream_cli(files[:STREAM_KERNEL_FILES], root, cache_dir, game)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase11_launches(stream: dict, kernel: str) -> dict:
+    """A kernel's launches in each phase-11 run."""
+    runs = {f"rate_{name}": row["launches"].get(kernel, 0)
+            for name, row in stream["rate"].items()}
+    runs.update({f"pass_{name}": row["launches"].get(kernel, 0)
+                 for name, row in stream["kernels"]["routes"].items()})
+    runs.update({f"lbfgs_{name}": row["launches"].get(kernel, 0)
+                 for name, row in stream["kernels"]["lbfgs"].items()})
+    runs.update({f"train_{name}": row["launches"].get(kernel, 0)
+                 for name, row in stream["cli"]["runs"].items()})
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3760,6 +4311,9 @@ def main() -> int:
     edges = check_chunk_form_edges(dev)
     k3 = check_slab_gather_kernel(prepared, dev)
     kb = check_benes(prepared, dev)
+    log("  CS, the compensated scan of the cumsum reduce, against its plain version "
+        "and a float64 prefix:")
+    kcs = check_compensated_scan(dev)
 
     log(f"phase 3: main path, L-BFGS and TRON at n={N}, k={K}, d={D}")
     main_path = run_main_path(prepared, dev)
@@ -3823,6 +4377,13 @@ def main() -> int:
         fault["online_game"] = run_online_game(game)
         fault["seconds"] = time.monotonic() - t10
         log(f"  phase 10 took {fault['seconds']:.1f} s")
+
+        t11 = time.monotonic()
+        log(f"phase 11: streamed GLM training and scoring ({STREAM_FILES} part files, "
+            f"{STREAM_ROWS:,} rows, k={STREAM_K}, d={STREAM_D})")
+        stream = run_streamed(dev, game)
+        stream["seconds"] = time.monotonic() - t11
+        log(f"  phase 11 took {stream['seconds']:.1f} s")
     finally:
         shutil.rmtree(game_tmp, ignore_errors=True)
 
@@ -3924,6 +4485,17 @@ def main() -> int:
         "zipf": k3_rows["zipf"],
         "benes_gradient_max_abs_err": kb["gradient_max_abs_err"],
     })
+    kernels.append({
+        "name": "compensated_scan", "route": "cuda",
+        "source": "photon_tpu_torch/ops/csrc/compensated_scan.cu",
+        # An XLA associative_scan in the JAX package (no pl.pallas_call).
+        "replaces": "photon_tpu/ops/vperm.py:1332",
+        # Its main path is phase 11's cumsum route (phase 3 reduces aligned).
+        "launches": sum(phase11_launches(stream, "compensated_scan").values()),
+        **{key: kcs[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        "library_call": "torch.cumsum", "edges": kcs["edges"], "card": card,
+    })
     for name, row in pk_rows.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -3946,6 +4518,16 @@ def main() -> int:
     log(f"serving: {json.dumps(serving, default=str)}")
     log(f"phase 9: {json.dumps(rest, default=str)}")
     log(f"phase 10: {json.dumps(fault, default=str)}")
+    log(f"phase 11: {json.dumps(stream, default=str)}")
+    wrapper_names = {"fused_sparse": "fused_value_and_grad", "row_scatter": "row_scatter",
+                     "position_reduce": "position_partial_sums",
+                     "vperm_chunk": "chunk_pass", "vperm_lane": "lane_pass",
+                     "vperm_chunk_expand": "chunk_expand_pass",
+                     "slab_gather": "aligned_gather_products",
+                     "compensated_scan": "compensated_scan"}
+    for entry in kernels:
+        entry["phase11_launches"] = phase11_launches(
+            stream, wrapper_names.get(entry["name"], entry["name"]))
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

@@ -134,7 +134,11 @@ class GlmObjective:
         from photon_tpu_torch.ops.sparse_grad_select import select_kernel
 
         n, k = batch.ids.shape
-        has_xchg = batch.xchg is not None and batch.al is not None
+        # A cumsum route (``bounds`` set) reduces without the aligned layout,
+        # so a batch may carry it alone (the streamed chunks do); an aligned
+        # route reduces over ``al``.
+        has_xchg = batch.xchg is not None and (
+            batch.al is not None or batch.xchg.bounds is not None)
         kernel = select_kernel(
             n * k, dim, n,
             has_fm=batch.fm is not None, has_aligned=batch.al is not None,

@@ -202,8 +202,9 @@ def attach_feature_major(
     the inputs of the ``pallas`` route.  When the ``xchg`` route is wanted
     (forced with ``PHOTON_SPARSE_GRAD=xchg``, or ``auto`` on the card at or
     above its floor: ``ops/sparse_grad_select.xchg_route_wanted``) also the
-    exchange route into ``al``'s slot order with the values baked in, and
-    ``al_t`` whatever
+    exchange route with the values baked in — into ``al``'s slot order, or
+    under ``PHOTON_XCHG_REDUCE=cumsum`` into the feature-sorted stream —
+    and ``al_t`` whatever
     ``aligned_forward`` says: the route exists to remove the per-step
     gathers, and row-major margins would bring one back.  When the
     ``benes`` route is forced (``PHOTON_SPARSE_GRAD=benes``) also its Clos
@@ -248,10 +249,13 @@ def attach_feature_major(
         if want_xchg:
             from photon_tpu_torch.ops.vperm import build_xchg_aux
 
-            # The route needs the host layout's slot sources (``src``),
-            # which the device layout does not carry.
+            # The route follows PHOTON_XCHG_REDUCE: the aligned mode needs
+            # the host layout's slot sources (``src``), which the device
+            # layout does not carry; the cumsum mode the stable argsort the
+            # fm layout already paid for.
             batch = batch._replace(
-                xchg=build_xchg_aux(layout, ids2, vals=vals2, device=dev)
+                xchg=build_xchg_aux(layout, ids2, vals=vals2, device=dev,
+                                    dim=aligned_dim, order=order)
             )
         if want_benes:
             from photon_tpu_torch.ops.benes import build_benes_aux

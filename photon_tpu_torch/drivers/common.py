@@ -339,3 +339,50 @@ def select_and_save_sweep(sweep: list, evaluators, has_validation: bool,
                 best["lambda"], args.output_dir, ext)
     return summary
 
+
+def stream_score_parts(input_spec: str, load_chunk, score_chunk, scores_path: str,
+                       logger: RunLogger, on_chunk=None, telemetry=None) -> int:
+    """The file-at-a-time skeleton of both scoring drivers' ``--stream``:
+    list the part files first (a bad glob writes no empty ``scores.txt``),
+    skip empty parts (:class:`~photon_tpu_torch.data.game_io.NoRecordsError`
+    or a 0-row chunk), append each part's scores as it is scored, and drop
+    each chunk before the next file loads.  ``score_chunk(chunk) -> (raw,
+    out, n)``; ``on_chunk(chunk, raw)`` keeps what the caller's evaluators
+    need.  Returns the total row count (> 0, else NoRecordsError)."""
+    import numpy as np
+
+    from photon_tpu_torch.data.game_io import NoRecordsError, _input_files, narrow_avro_dir
+    from photon_tpu_torch.telemetry import NULL_SESSION
+
+    t = telemetry or NULL_SESSION
+    files = _input_files(narrow_avro_dir(input_spec))
+    n = 0
+    t0 = time.monotonic()
+    with open(scores_path, "w") as out_f, t.span("stream-score", files=len(files)):
+        for path in files:
+            chunk_t0 = time.monotonic()
+            try:
+                chunk = load_chunk(path)
+            except NoRecordsError:
+                chunk = None
+            if chunk is None or getattr(chunk, "num_examples", None) == 0:
+                # Part layouts often hold empty parts; only a zero-row total
+                # is an error.
+                logger.info("skipping empty part %s", path)
+                t.counter("stream.chunks_skipped_empty").inc()
+                continue
+            raw, out, real_n = score_chunk(chunk)
+            np.savetxt(out_f, out, fmt="%.8g")
+            if on_chunk is not None:
+                on_chunk(chunk, raw)
+            n += real_n
+            t.counter("stream.chunks_scored").inc()
+            t.counter("stream.rows_scored").inc(real_n)
+            t.histogram("stream.chunk_seconds").observe(time.monotonic() - chunk_t0)
+            del chunk, raw, out
+    if n == 0:
+        raise NoRecordsError(f"no rows in {input_spec!r}")
+    wall = time.monotonic() - t0
+    if wall > 0:
+        t.gauge("stream.rows_per_second").set(n / wall)
+    return n

@@ -12,8 +12,10 @@ Usage:
         --input val.libsvm --model out/best_model.avro \\
         --evaluators RMSE --output-dir scored --backend gpu
 
-``--stream`` (part files one at a time) waits with ROADMAP.md queue 1,
-item 9.
+``--stream`` scores part files (a directory or a glob of LIBSVM or Avro
+files) one at a time, appending each file's scores to ``scores.txt`` and
+dropping its features before the next file loads; with ``--evaluators``
+only the scores, labels and weights are kept for the metrics.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from photon_tpu_torch.drivers import common
 
@@ -43,8 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write mean predictions (sigmoid/exp link) instead of "
                    "raw scores")
     p.add_argument("--stream", action="store_true",
-                   help="not ported: score part files one at a time "
-                   "(ROADMAP.md queue 1, item 9)")
+                   help="score part files (LIBSVM or Avro) one at a time, "
+                   "dropping each chunk's features after scoring")
     return p
 
 
@@ -52,10 +55,6 @@ def run(args: argparse.Namespace) -> dict:
     from photon_tpu_torch.data.index_map import IndexMap
     from photon_tpu_torch.data.model_io import load_glm_model
 
-    if args.stream:
-        raise NotImplementedError(
-            "score --stream waits with streamed scoring in ROADMAP.md queue 1, item 9"
-        )
     device = common.device_for_backend(args.backend)
     logger = common.RunLogger("photon_tpu_torch.score")
     os.makedirs(args.output_dir, exist_ok=True)
@@ -75,33 +74,59 @@ def run(args: argparse.Namespace) -> dict:
                        intercept)
     evaluators = (common.build_flat_evaluators(args.evaluators)
                   if args.evaluators else None)
-    with logger.timed("load-data"):
-        batch = common.load_validation(
-            args.input, dim, intercept, model.task_type, device,
+
+    def load_chunk(spec: str):
+        return common.load_validation(
+            spec, dim, intercept, model.task_type, device,
             avro_field=args.avro_feature_field, index_map=index_map,
         )
-    with logger.timed("score"):
+
+    def score_chunk(batch):
         raw = model.compute_score(batch)
         out = model.loss.mean(raw) if args.predict_mean else raw
-        scores = out.cpu().numpy()
-    if args.predict_mean and model.task_type == "poisson_regression":
-        from photon_tpu_torch.core.losses import _POISSON_MAX_EXPONENT
+        if args.predict_mean and model.task_type == "poisson_regression":
+            from photon_tpu_torch.core.losses import _POISSON_MAX_EXPONENT
 
-        n_capped = int((raw > _POISSON_MAX_EXPONENT).sum())
-        if n_capped:
-            logger.info("%d scoring margins exceed the Poisson exp cap (%g); their "
-                        "predicted means are clamped to e^cap",
-                        n_capped, _POISSON_MAX_EXPONENT)
-    np.savetxt(os.path.join(args.output_dir, "scores.txt"), scores, fmt="%.8g")
+            n_capped = int((raw > _POISSON_MAX_EXPONENT).sum())
+            if n_capped:
+                logger.info("%d scoring margins exceed the Poisson exp cap (%g); "
+                            "their predicted means are clamped to e^cap",
+                            n_capped, _POISSON_MAX_EXPONENT)
+        return raw, out.cpu().numpy()
+
+    scores_path = os.path.join(args.output_dir, "scores.txt")
+    if args.stream:
+        kept = []  # (raw, label, weight) a part, for the evaluators only
+
+        def on_chunk(batch, raw):
+            if evaluators is not None:
+                kept.append((raw, batch.label, batch.weight))
+
+        with logger.timed("stream-score"):
+            n = common.stream_score_parts(
+                args.input, load_chunk,
+                lambda b: (*score_chunk(b), b.num_examples),
+                scores_path, logger, on_chunk,
+            )
+        if evaluators is not None:
+            raw, labels, weights = (torch.cat(part) for part in zip(*kept))
+    else:
+        with logger.timed("load-data"):
+            batch = load_chunk(args.input)
+        with logger.timed("score"):
+            raw, scores = score_chunk(batch)
+        np.savetxt(scores_path, scores, fmt="%.8g")
+        n = int(scores.shape[0])
+        labels, weights = batch.label, batch.weight
     metrics = {}
     if evaluators is not None:
         with logger.timed("evaluate"):
-            metrics = evaluators.evaluate(raw, batch.label, batch.weight)
+            metrics = evaluators.evaluate(raw, labels, weights)
         logger.info("metrics %s", metrics)
         with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
             json.dump(metrics, f, indent=1)
-    return {"num_scored": int(scores.shape[0]), "metrics": metrics,
-            "input_reader": common.input_reader(args.input),
+    return {"num_scored": n, "metrics": metrics, "streamed": bool(args.stream),
+            "input_reader": None if args.stream else common.input_reader(args.input),
             "phase_times": logger.phase_times}
 
 

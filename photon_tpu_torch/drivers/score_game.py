@@ -16,8 +16,12 @@ with ``--evaluators``, ``metrics.json``:
 ``PHOTON_BATCH_SCORER=host`` scores through ``GameModel.score`` instead
 (float64 accumulation on the host: the oracle the serving path is held
 to).  ``--backend gpu`` (the default) runs on the card and fails without
-one.  ``--stream`` waits in ROADMAP.md queue 1, item 9; the sharded
-evaluators in item 4.
+one.  ``--stream`` scores Avro part files (a directory or a glob) one at a
+time through the same scorer (one per request layout the parts give),
+appending each part's scores to ``scores.txt`` and dropping its features
+before the next part loads; with ``--evaluators`` only the scores, labels
+and weights are kept.  The sharded evaluators wait in ROADMAP.md queue 1,
+item 4.
 """
 
 from __future__ import annotations
@@ -51,8 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write mean predictions (inverse link) instead of "
                    "raw scores")
     p.add_argument("--stream", action="store_true",
-                   help="not ported: score Avro part files one at a time "
-                   "(ROADMAP.md queue 1, item 9)")
+                   help="score Avro part files one at a time, dropping each "
+                   "part's features after scoring")
     return p
 
 
@@ -89,29 +93,29 @@ def publish_text(output_dir: str, name: str, write_fn, session, logger,
     retry_call(attempt, site=site, telemetry=session, logger=logger)
 
 
-def score_dataset(model, data, device, logger, session) -> np.ndarray:
+def score_dataset(model, data, device, logger, session,
+                  scorers: dict | None = None) -> np.ndarray:
     """Raw scores through the serving :class:`GameScorer` on ``device``
     (the dataset's own padded layout, one program), or through the host
-    oracle under ``PHOTON_BATCH_SCORER=host``."""
+    oracle under ``PHOTON_BATCH_SCORER=host``.  ``scorers`` keeps one
+    scorer per request layout across calls (the streamed parts)."""
     if os.environ.get("PHOTON_BATCH_SCORER", "device") == "host":
         logger.info("PHOTON_BATCH_SCORER=host: host scoring path")
         return model.score(data)
     from photon_tpu_torch.serving import GameScorer, request_spec_for_dataset
 
-    scorer = GameScorer(
-        model, device=device,
-        request_spec=request_spec_for_dataset(model, data),
-        telemetry=session,
-    )
+    spec = request_spec_for_dataset(model, data)
+    key = repr(sorted(spec.items()))
+    scorer = None if scorers is None else scorers.get(key)
+    if scorer is None:
+        scorer = GameScorer(model, device=device, request_spec=spec,
+                            telemetry=session)
+        if scorers is not None:
+            scorers[key] = scorer
     return scorer.score_dataset(data)
 
 
 def run(args: argparse.Namespace) -> dict:
-    if args.stream:
-        raise NotImplementedError(
-            "score_game --stream waits with streamed scoring in ROADMAP.md "
-            "queue 1, item 9"
-        )
     device = common.device_for_backend(args.backend)
     logger = common.RunLogger("photon_tpu_torch.score_game")
     os.makedirs(args.output_dir, exist_ok=True)
@@ -136,6 +140,9 @@ def _run(args, device, logger, session) -> dict:
         )
         logger.info("model: %s, coordinates %s on %s", model.task_type,
                     list(model.coordinates), device)
+    if args.stream:
+        return _run_streaming(args, model, index_maps, device, evaluators,
+                              logger, session)
     with logger.timed("load-data"):
         data, _ = _load_game_data(args.input, args, index_maps=index_maps)
         logger.info("scoring %d examples", data.num_examples)
@@ -163,6 +170,61 @@ def _run(args, device, logger, session) -> dict:
             json.dump(metrics, f, indent=1)
     return {"num_scored": int(data.num_examples), "metrics": metrics,
             "phase_times": logger.phase_times}
+
+
+def _run_streaming(args, model, index_maps, device, evaluators, logger,
+                   session) -> dict:
+    """File-at-a-time scoring: each Avro part file is read and indexed
+    through the model's maps, scored, written, and dropped before the next
+    file loads (``common.stream_score_parts``)."""
+    from photon_tpu_torch.core.losses import get_loss
+    from photon_tpu_torch.data.game_io import read_game_avro
+    from photon_tpu_torch.drivers.train_game import parse_feature_bags
+
+    if args.input.startswith("synthetic-game:"):
+        raise ValueError("--stream needs Avro part-file input")
+    if not args.feature_bags or not args.id_columns:
+        raise ValueError("Avro input needs --feature-bags and --id-columns")
+    bags = parse_feature_bags(args.feature_bags)
+    id_cols = [c.strip() for c in args.id_columns.split(",") if c.strip()]
+    scorers: dict = {}
+    kept = []  # (raw, label, weight) a part, for the evaluators only
+
+    def load_chunk(path):
+        return read_game_avro(path, bags, id_cols, index_maps=index_maps)[0]
+
+    def score_chunk(chunk):
+        raw = score_dataset(model, chunk, device, logger, session, scorers)
+        out = raw
+        if args.predict_mean:
+            out = get_loss(model.task_type).mean(torch.as_tensor(raw)).numpy()
+        return raw, out, int(chunk.num_examples)
+
+    def on_chunk(chunk, raw):
+        if evaluators is not None:
+            kept.append((raw, np.asarray(chunk.label, np.float32),
+                         np.asarray(chunk.weight, np.float32)))
+
+    with logger.timed("stream-score"):
+        n = common.stream_score_parts(
+            args.input, load_chunk, score_chunk,
+            os.path.join(args.output_dir, "scores.txt"), logger, on_chunk,
+            telemetry=session,
+        )
+    session.gauge("score.num_scored").set(n)
+    metrics = {}
+    if evaluators is not None:
+        raw, labels, weights = (np.concatenate(part) for part in zip(*kept))
+        with logger.timed("evaluate"):
+            metrics = evaluators.evaluate(
+                *(torch.as_tensor(a, device=device) for a in (raw, labels, weights)))
+        for name, value in metrics.items():
+            session.gauge("score.metric", metric=name).set(value)
+        logger.info("metrics %s", metrics)
+        with open(os.path.join(args.output_dir, "metrics.json"), "w") as f:
+            json.dump(metrics, f, indent=1)
+    return {"num_scored": n, "metrics": metrics, "streamed": True,
+            "scorers": len(scorers), "phase_times": logger.phase_times}
 
 
 def main(argv=None) -> None:

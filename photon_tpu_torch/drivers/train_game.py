@@ -61,11 +61,11 @@ from photon_tpu_torch.drivers import common
 # (flag, its ROADMAP.md queue 1 item, what waits there): given at all,
 # each raises.
 _NOT_PORTED = (
-    ("stream_chunks", 9, "streamed GAME training"),
-    ("max_resident_mb", 9, "streamed GAME training"),
-    ("max_host_mb", 9, "the disk-backed tile store"),
-    ("spill_dir", 9, "the disk-backed tile store"),
-    ("tile_dtype", 9, "the disk-backed tile store"),
+    ("stream_chunks", 9.2, "streamed GAME training"),
+    ("max_resident_mb", 9.2, "streamed GAME training"),
+    ("max_host_mb", 9.3, "the disk-backed tile store"),
+    ("spill_dir", 9.3, "the disk-backed tile store"),
+    ("tile_dtype", 9.3, "the disk-backed tile store"),
     ("tuning", 10, "hyperparameter tuning"),
     ("coordinator", 10, "multi-process runs"),
 )
@@ -338,7 +338,7 @@ def _reject_not_ported(args) -> None:
     if args.dtype != "float32":
         raise NotImplementedError(
             f"--dtype {args.dtype}: feature storage other than float32 waits "
-            "in ROADMAP.md queue 1, item 9")
+            "in ROADMAP.md queue 1, item 9.3")
 
 
 def _validate_resume(args, specs) -> None:

@@ -34,8 +34,10 @@ over runs that disagreed (PERF.md, fault tolerance).
 
 :class:`StreamState`/:class:`StreamCheckpointer` carry the state shape the
 resident GLM sweep snapshots once per finished regularization weight
-(``drivers/train.py``).  The streamed (out-of-core) loop and the mesh
-argument of the loads wait in ROADMAP.md queue 1, items 9 and 10.
+(``drivers/train.py``) and the streamed L-BFGS loop publishes every
+``checkpoint_every`` iterations and at its end (``data/streaming.py``).  The
+streamed GAME cursor waits in ROADMAP.md queue 1, item 9.2, the mesh
+argument of the loads in item 10.
 """
 
 from __future__ import annotations
@@ -324,7 +326,7 @@ class DescentState:
     residual_rows: Dict[str, object]
     quarantined: int
     fingerprint: dict
-    # The streamed loop's mid-epoch cursor (ROADMAP.md queue 1, item 9);
+    # The streamed GAME loop's mid-epoch cursor (ROADMAP.md queue 1, item 9.2);
     # None for resident descents, and kept so the payload is the
     # reference's.
     stream: Optional[dict] = None
@@ -715,10 +717,12 @@ class DescentCheckpointer(CheckpointPublisherBase):
 
 @dataclasses.dataclass
 class StreamState:
-    """A GLM fit's state in the reference's streamed-L-BFGS shape.  The
+    """A GLM fit's state in the reference's streamed-L-BFGS shape: the
     resident sweep saves one per finished regularization weight
-    (``completed`` True); the streamed loop's mid-fit states wait with
-    ROADMAP.md queue 1, item 9."""
+    (``completed`` True); the streamed loop (``data/streaming.
+    streaming_lbfgs``) saves its mid-fit states (iterate, gradient, pair
+    ring buffer, history and host scalars; ``completed`` False) and a final
+    one, so either package resumes the other's."""
 
     iteration: int
     arrays: Dict[str, object]

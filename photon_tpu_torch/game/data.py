@@ -15,7 +15,7 @@ nothing of the JAX package).  Host-side and columnar:
 Entity order, bucket capacities, the size-bin plan and the cap's draws are
 the reference's exactly: the port's tests hold every array to it.  Feature
 values stay float32 (``dataset_astype`` waits with bf16 storage in
-ROADMAP.md queue 1, item 9).
+ROADMAP.md queue 1, item 9.3).
 """
 
 from __future__ import annotations

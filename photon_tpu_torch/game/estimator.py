@@ -15,8 +15,8 @@ coordinates locked at it, checkpoint every descent run under
 there; a configuration whose checkpoint covers its last iteration is
 rebuilt from it without a fit.  :meth:`GameEstimator.onboard_training_data`
 grows the cached device layouts in place for rows appended between fits
-(the online loop's growth step).  Streamed and out-of-core fits (ROADMAP.md
-queue 1, item 9) and the mesh (item 10) raise.
+(the online loop's growth step).  Streamed and out-of-core GAME fits
+(ROADMAP.md queue 1, items 9.2 and 9.3) and the mesh (item 10) raise.
 """
 
 from __future__ import annotations
@@ -107,8 +107,10 @@ class GameEstimator:
         # Keyed by feature shard; applies to the fixed-effect coordinates on
         # that shard (random-effect coordinates refuse it).
         self.normalization = normalization or {}
-        if stream_chunks is not None or spill_dir is not None:
-            raise _not_ported("streamed (out-of-core) GAME training", 9)
+        if stream_chunks is not None:
+            raise _not_ported("streamed GAME training", 9.2)
+        if spill_dir is not None:
+            raise _not_ported("the disk-backed tile store", 9.3)
         self.task_type = task_type
         self.training_data = training_data
         self.validation_data = validation_data

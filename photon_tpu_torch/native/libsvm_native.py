@@ -3,7 +3,7 @@
 Counterpart of ``photon_tpu/native/libsvm_native.py`` for its flat-CSR
 parse (``parse_file_csr``): one C++ pass into flat labels, row offsets,
 ids and values, the rows that :mod:`photon_tpu_torch.data.libsvm` pads
-vectorized.
+vectorized; and its metadata scan (``scan_meta``).
 """
 
 from __future__ import annotations
@@ -46,6 +46,20 @@ def _open_indexed(path: str):
         # allocation failure here must not leak the mmap + fd.
         lib.svm_close(handle)
         raise
+
+
+def scan_meta(path: str) -> Optional[tuple[int, int]]:
+    """(row count, max nnz per row) from the native line indexer alone, no
+    value parsing: the metadata pass of a streamed source with a known
+    feature dimension; None when the native library is unavailable."""
+    opened = _open_indexed(path)
+    if opened is None:
+        return None
+    lib, handle, n, nnz = opened
+    try:
+        return (n, int(nnz.max())) if n else (0, 0)
+    finally:
+        lib.svm_close(handle)
 
 
 def parse_file_csr(path: str, zero_based: bool = False) -> Optional[tuple]:

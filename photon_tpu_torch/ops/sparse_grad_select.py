@@ -259,7 +259,8 @@ def _measure(e: int, d: int, n: int, with_pallas: bool,
         # step; unbaked moves the product stream: the probe times the
         # variant the batch carries.
         aux = vperm.build_xchg_aux(layout, ids2d,
-                                   vals=vals2d if xchg_baked else None, device=dev)
+                                   vals=vals2d if xchg_baked else None, device=dev,
+                                   dim=d)
         batch = batch._replace(xchg=aux)
         got = vperm.xchg_segment_grad(dz_t, batch.vals, batch.al, aux, d)
         if _gate("xchg", got, ref, rec):
@@ -308,8 +309,10 @@ def select_kernel(
     dev = _device(device)
     on_card = _on_card(dev)
     with_pallas = has_aligned and on_card
-    # xchg needs the card but not the aligned layout, as in the reference
-    # (the port's route reduces over al, which has_xchg implies).
+    # xchg needs the card but not the aligned layout, as in the reference:
+    # an aligned route reduces over al, which has_xchg then implies; a cumsum
+    # route carries its own feature bounds.  The reduce mode (the route's
+    # kind) and the baking enter the probe's key.
     with_xchg = has_xchg and on_card
     if not (has_fm or with_pallas or with_xchg):
         return base  # one candidate: nothing to measure

@@ -1,14 +1,23 @@
 """vperm: static permutations of the sparse GLM's entry stream, routed once on
 the host and applied by three permutation kernels; the ``xchg`` route.
 
-Counterpart of ``photon_tpu/ops/vperm.py`` in the reduce mode the JAX package
-takes by default (``PHOTON_XCHG_REDUCE=aligned``).  The ``xchg`` gradient
-``g[f] = sum_e per_row[row_e] * val_e`` reduces slot products over the
-batch's slab-aligned layout through the position-reduce (K2,
-``ops/slab_reduce.py``), as the ``pallas`` route does; where the ``pallas``
-route gathers ``per_row[rows]`` for every slot at every step, ``xchg``
-carries the row-major stream into slot order through a permutation routed
-once on the host.
+Counterpart of ``photon_tpu/ops/vperm.py`` in both reduce modes
+(``PHOTON_XCHG_REDUCE``, read when the route is built):
+
+- ``aligned`` (the default): the ``xchg`` gradient ``g[f] = sum_e
+  per_row[row_e] * val_e`` reduces slot products over the batch's
+  slab-aligned layout through the position-reduce (K2,
+  ``ops/slab_reduce.py``), as the ``pallas`` route does; where the
+  ``pallas`` route gathers ``per_row[rows]`` for every slot at every step,
+  ``xchg`` carries the row-major stream into slot order through a
+  permutation routed once on the host.
+- ``cumsum``: the route carries the stream into the COMPACT feature-sorted
+  order instead (:func:`build_xchg_sorted_route`,
+  :func:`build_balanced_sorted_route`) and the reduce is a compensated
+  prefix scan (:func:`compensated_scan`, the hand-written kernel CS) read at
+  the ``[d + 1]`` feature boundaries ``bounds``: ``g[f]`` is the difference
+  of the scan's ``(hi, lo)`` pair across feature f's segment, differenced as
+  a pair before the two halves are added.  No aligned layout is read.
 
 Two route kinds (:func:`build_xchg_aux` picks):
 
@@ -56,11 +65,15 @@ PyTorch version on CPU tensors; all are pure data movement and equal bit for
 bit.  Index planes are int8 (lanes) and int16 (chunk rows) tensors on the
 route's device.
 
-Not ported (``ROADMAP.md`` queue 2): the ``cumsum`` reduce mode
-(``PHOTON_XCHG_REDUCE=cumsum``, the compensated prefix scan over the
-feature-sorted stream; its scan is :func:`compensated_cumsum`) and the bf16
-payload (``PHOTON_XCHG_DTYPE=bfloat16``) raise ``NotImplementedError``; the route disk cache and the sharded,
-stacked routes (``balanced_blk_census``) are not carried.
+Routes serialize to ``npz`` (:func:`_aux_to_npz`, :func:`_aux_from_npz`,
+the reference's keys) for the streamed chunks' layout cache
+(``data/stream_layouts.py``).
+
+Not ported (``ROADMAP.md`` queue 2): the bf16 payload
+(``PHOTON_XCHG_DTYPE=bfloat16``) raises ``NotImplementedError``; the
+resident route disk cache (``_route_cache_path``) and the sharded, stacked
+routes are not carried (:func:`balanced_blk_census` and ``blk_override``
+are, for the streamed chunks' pow2-padded geometry).
 """
 
 from __future__ import annotations
@@ -179,19 +192,25 @@ class BalancedRoute:
 @dataclasses.dataclass(frozen=True)
 class XchgAux:
     """The batch's exchange: ``route`` carries the row-major per-entry stream
-    into the aligned layout's slot order.  On a balanced route,
-    ``vals_dest`` is the static value stream already in slot order (baked
-    at attach, one K4 pass), so each evaluation moves only dz, and
-    ``vals_fp`` a strided sample of the row-major values it was baked from,
-    which :func:`xchg_segment_grad` holds the caller's values to."""
+    into the reduce's order — the aligned layout's slot order, or with
+    ``bounds`` (the ``cumsum`` mode, ``[dim + 1]`` int32) the compact
+    feature-sorted order, where feature f's entries lie in
+    ``[bounds[f], bounds[f + 1])`` of the moved stream.  With baked values
+    (a balanced route, or any ``cumsum`` route), ``vals_dest`` is the static
+    value stream already in that order (baked at attach, one exchange), so
+    each evaluation moves only dz, and ``vals_fp`` a strided sample of the
+    row-major values it was baked from, which :func:`xchg_segment_grad`
+    holds the caller's values to."""
 
     route: Union[VpermRoute, BalancedRoute]
+    bounds: Optional[Tensor] = None
     vals_dest: Optional[Tensor] = None
     vals_fp: Optional[np.ndarray] = None
 
     def to(self, device) -> "XchgAux":
         return dataclasses.replace(
             self, route=self.route.to(device),
+            bounds=None if self.bounds is None else self.bounds.to(device),
             vals_dest=None if self.vals_dest is None else self.vals_dest.to(device),
         )
 
@@ -437,13 +456,16 @@ def _balanced_windows(dest_src: np.ndarray, n_src_stream: int, k: int):
 
 
 def _build_balanced_core(dest_src: np.ndarray, n_src_stream: int, k: int,
-                         device) -> Optional[BalancedRoute]:
+                         device, blk_override: Optional[int] = None
+                         ) -> Optional[BalancedRoute]:
     """Factor an exchange into the balanced form, for a destination stream
     that tolerates zero pads between real entries.
 
     ``dest_src[d]`` is the row-major source index feeding destination ``d``
     (< 0 for pad destinations; each source at most once); ``n_src_stream``
-    is the full row-major stream length (n * k).  Returns None when the
+    is the full row-major stream length (n * k).  ``blk_override`` forces a
+    block capacity at least the natural census (:func:`balanced_blk_census`),
+    so that chunks of one shape share one geometry.  Returns None when the
     data defeats the balance assumption or the geometry limits (the caller
     falls back to the colored route).
     """
@@ -451,6 +473,11 @@ def _build_balanced_core(dest_src: np.ndarray, n_src_stream: int, k: int,
     if win is None:
         return None
     nc, cs_win, ds_win, k_expand, d_real, src_of, src_win, dest_win, blk = win
+    if blk_override is not None:
+        if blk_override < blk:
+            raise ValueError(f"blk_override {blk_override} < the natural block "
+                             f"census {blk}")
+        blk = blk_override
     e = d_real.size
     cs_base = -(-n_src_stream // nc)
     # Quantum 128 * lcm(nc, 8): the block stride cs_pad / nc is whole and
@@ -513,28 +540,98 @@ def _build_balanced_core(dest_src: np.ndarray, n_src_stream: int, k: int,
     )
 
 
-def build_balanced_aligned_route(layout, ids: np.ndarray,
-                                 device=None) -> Optional[BalancedRoute]:
+def build_balanced_aligned_route(layout, ids: np.ndarray, device=None,
+                                 blk_override: Optional[int] = None
+                                 ) -> Optional[BalancedRoute]:
     """The balanced route of the row-major stream into ``layout``'s slot
     order (slot pads pair with zero-valued unused sources by chunk-local
     completion); None -> the colored route."""
     k = int(ids.shape[-1]) if ids.ndim == 2 else 0
     slots_src = np.ascontiguousarray(layout.src.reshape(-1), dtype=np.int64)
     return _build_balanced_core(
-        slots_src, int(ids.size), k, resolve_device(device)
+        slots_src, int(ids.size), k, resolve_device(device),
+        blk_override=blk_override,
     )
+
+
+def _sorted_order(flat: np.ndarray, order: Optional[np.ndarray]) -> np.ndarray:
+    """The stable argsort of the flat id stream (``order`` when the caller
+    already holds it)."""
+    if order is None:
+        return np.argsort(flat, kind="stable")
+    return np.ascontiguousarray(order, dtype=np.int64)
+
+
+def build_xchg_sorted_route(ids: np.ndarray, dim: int,
+                            order: Optional[np.ndarray] = None,
+                            device=None) -> XchgAux:
+    """The colored route of the row-major entries (``[n, k]`` ``ids``) into
+    the COMPACT feature-sorted stream, with its ``[dim + 1]`` feature
+    boundaries.  Pads (id 0, value 0) land in feature 0's segment and add
+    zero.  The destination is as long as the source, so the only padding is
+    the chunk-multiple tail, which maps to itself.  ``order`` is the stable
+    argsort of the flat ids when the caller already holds it."""
+    dev = resolve_device(device)
+    flat = ids.reshape(-1).astype(np.int64)
+    order = _sorted_order(flat, order)
+    n_rm = flat.size
+    ch, nc = pick_geometry(n_rm)
+    total = nc * ch * LANES
+    perm = np.arange(total, dtype=np.int64)
+    perm[:n_rm] = order
+    route = route_vperm_full(perm, n_rm, n_rm, ch, dev)
+    bounds = np.searchsorted(flat[order], np.arange(dim + 1, dtype=np.int64))
+    return XchgAux(route=route, bounds=_put(bounds.astype(np.int32), dev))
+
+
+def build_balanced_sorted_route(ids: np.ndarray, dim: int,
+                                order: Optional[np.ndarray] = None,
+                                blk_override: Optional[int] = None,
+                                device=None):
+    """``(BalancedRoute, bounds)`` of the row-major stream into the
+    feature-sorted stream, or None when the data defeats the balance
+    assumption.  The sorted destination rank r lies in destination window
+    ``r // ds_win``, front-packed in its chunk, so ``bounds`` are ranks
+    mapped into the padded ``[NC * CS]`` stream (the pads between chunk
+    fronts carry zeros, which a prefix scan skips)."""
+    dev = resolve_device(device)
+    flat = ids.reshape(-1).astype(np.int64)
+    k = int(ids.shape[-1]) if ids.ndim == 2 else 0
+    order = _sorted_order(flat, order)
+    route = _build_balanced_core(order, flat.size, k, dev,
+                                 blk_override=blk_override)
+    if route is None:
+        return None
+    rank = np.searchsorted(flat[order], np.arange(dim + 1, dtype=np.int64))
+    bw = np.minimum(rank // route.ds_win, route.nc - 1)
+    bounds = bw * route.cs + (rank - bw * route.ds_win)
+    return route, _put(bounds.astype(np.int32), dev)
+
+
+def balanced_blk_census(dest_src: np.ndarray, n_src_stream: int,
+                        k: int) -> Optional[int]:
+    """The natural per-(source, destination)-window block census of a
+    balanced exchange, or None when its streams exceed the balanced
+    geometry limits; a caller rounds it up (``blk_override``) to give
+    chunks of one shape one geometry."""
+    win = _balanced_windows(
+        np.ascontiguousarray(dest_src, dtype=np.int64), n_src_stream, k
+    )
+    return None if win is None else win[-1]
+
+
+def xchg_reduce_mode() -> str:
+    """``PHOTON_XCHG_REDUCE`` (``aligned`` or ``cumsum``)."""
+    mode = os.environ.get("PHOTON_XCHG_REDUCE", "aligned")
+    if mode not in ("aligned", "cumsum"):
+        raise ValueError(
+            f"PHOTON_XCHG_REDUCE={mode!r}; the port supports aligned or cumsum")
+    return mode
 
 
 def _check_xchg_env() -> None:
     """Refuse the JAX package's xchg variants the port does not carry."""
-    mode = os.environ.get("PHOTON_XCHG_REDUCE", "aligned")
-    if mode == "cumsum":
-        raise NotImplementedError(
-            "PHOTON_XCHG_REDUCE=cumsum (the compensated prefix-scan reduce) "
-            f"is not ported; it waits in {_QUEUE}"
-        )
-    if mode != "aligned":
-        raise ValueError(f"PHOTON_XCHG_REDUCE={mode!r}; the port supports aligned")
+    xchg_reduce_mode()
     dtype = os.environ.get("PHOTON_XCHG_DTYPE", "float32")
     if dtype == "bfloat16":
         raise NotImplementedError(
@@ -546,26 +643,42 @@ def _check_xchg_env() -> None:
 
 
 def build_xchg_aux(layout, ids: np.ndarray, vals: Optional[np.ndarray] = None,
-                   force_colored: bool = False, device=None) -> XchgAux:
-    """The exchange of a batch with ``[n, k]`` host ``ids`` into the slot
-    order of its gradient layout ``layout`` (host ``AlignedLayout``), on
-    ``device``: the balanced route when the data permits it (unless
+                   force_colored: bool = False, device=None,
+                   dim: Optional[int] = None,
+                   order: Optional[np.ndarray] = None) -> XchgAux:
+    """The exchange of a batch with ``[n, k]`` host ``ids``, on ``device``,
+    for the reduce mode ``PHOTON_XCHG_REDUCE`` selects: into the slot order
+    of its gradient layout ``layout`` (host ``AlignedLayout``; ``aligned``)
+    or into the feature-sorted stream of ``dim`` features (``cumsum``; no
+    layout needed, ``order`` the stable argsort of the flat ids when the
+    caller holds it).  The balanced route when the data permits it (unless
     ``force_colored``), else the colored route.  With ``vals``, a balanced
-    route also carries the values in slot order (:func:`bake_vals_dest`).
-    One-time host work: tens of seconds at 2^25 entries."""
+    or ``cumsum`` route also carries the values in destination order
+    (:func:`bake_vals_dest`).  One-time host work: tens of seconds at 2^25
+    entries."""
     global route_build_seconds
     _check_xchg_env()
+    mode = xchg_reduce_mode()
     dev = resolve_device(device)
+    ids = np.asarray(ids)
     n, k = ids.shape
     logging.getLogger("photon_tpu_torch.vperm").info(
-        "building the xchg exchange route for %d entries", ids.size
+        "building the xchg exchange route for %d entries (mode=%s)", ids.size, mode
     )
     t0 = time.monotonic()
-    built = None if force_colored else build_balanced_aligned_route(
-        layout, np.asarray(ids), dev
-    )
-    aux = XchgAux(route=built if built is not None
-                  else build_xchg_route(layout, n, k, dev))
+    if mode == "cumsum":
+        if dim is None:
+            raise ValueError("the cumsum reduce needs dim (its feature bounds)")
+        built = None if force_colored else build_balanced_sorted_route(
+            ids, dim, order=order, device=dev)
+        aux = (XchgAux(route=built[0], bounds=built[1]) if built is not None
+               else build_xchg_sorted_route(ids, dim, order=order, device=dev))
+    else:
+        built = None if force_colored else build_balanced_aligned_route(
+            layout, ids, dev
+        )
+        aux = XchgAux(route=built if built is not None
+                      else build_xchg_route(layout, n, k, dev))
     route_build_seconds = time.monotonic() - t0
     if vals is not None:
         aux = bake_vals_dest(aux, vals)
@@ -583,17 +696,69 @@ def _vals_fp_stride(size: int) -> int:
 
 
 def bake_vals_dest(aux: XchgAux, vals: np.ndarray) -> XchgAux:
-    """Permute the static value stream into slot order once (K4 through
-    stage A, the block transpose and stage B) and attach it with its
-    fingerprint.  A no-op on a colored route, whose evaluation multiplies
-    the row-major values before the exchange."""
-    if not isinstance(aux.route, BalancedRoute):
+    """Permute the static value stream into destination order once (the
+    route's own passes) and attach it with its fingerprint.  A no-op on a
+    colored ``aligned`` route, whose evaluation multiplies the row-major
+    values before the exchange."""
+    balanced = isinstance(aux.route, BalancedRoute)
+    if not (balanced or aux.bounds is not None):
         return aux
     flat = np.ascontiguousarray(np.asarray(vals, np.float32).reshape(-1))
-    vd = apply_balanced(_put(flat, aux.route.a1.device), aux.route)
+    x = _put(flat, aux.route.a1.device if balanced else aux.route.i1.device)
+    vd = apply_balanced(x, aux.route) if balanced else apply_vperm(x, aux.route)
     # A copy: on the CPU ``vals`` may share memory with the batch's tensor.
     fp = flat[::_vals_fp_stride(flat.size)].copy()
     return dataclasses.replace(aux, vals_dest=vd, vals_fp=fp)
+
+
+def _aux_to_npz(aux: XchgAux) -> dict:
+    """The route (and ``bounds``) as host arrays under the JAX package's
+    keys: ``kind`` (2 balanced, 1 colored), ``meta`` and the index planes.
+    Baked values are not stored (they follow the values, not the ids)."""
+    out = {}
+    r = aux.route
+    if isinstance(r, BalancedRoute):
+        out["kind"] = np.int64(2)
+        out["meta"] = np.asarray([r.n_in, r.n_out, r.nc, r.ch, r.blk, r.cs_win,
+                                  r.ds_win, r.k_expand], np.int64)
+        names = ("a1", "a2", "a3", "b1", "b2", "b3")
+    else:
+        out["kind"] = np.int64(1)
+        out["meta"] = np.asarray([r.n_in, r.n_out, r.nc, r.ch], np.int64)
+        names = ("i1", "i2", "i3", "c", "i4", "i5", "i6")
+    for name in names:
+        v = getattr(r, name)
+        if v is not None:
+            out[name] = v.cpu().numpy()
+    if aux.bounds is not None:
+        out["bounds"] = aux.bounds.cpu().numpy()
+    return out
+
+
+def _aux_from_npz(z, device=None) -> XchgAux:
+    """:func:`_aux_to_npz`'s inverse, on ``device``."""
+    dev = resolve_device(device)
+
+    def put(name):
+        # A copy: the arrays may be read-only views (an npz member, a host
+        # view of another package's array).
+        return _put(np.array(z[name]), dev) if name in z else None
+
+    if int(z["kind"]) == 2:
+        n_in, n_out, nc, ch, blk, cs_win, ds_win, k_expand = (
+            int(v) for v in z["meta"])
+        route = BalancedRoute(
+            n_in=n_in, n_out=n_out, nc=nc, ch=ch, blk=blk, cs_win=cs_win,
+            ds_win=ds_win, k_expand=k_expand,
+            **{name: put(name) for name in ("a1", "a2", "a3", "b1", "b2", "b3")},
+        )
+    else:
+        n_in, n_out, nc, ch = (int(v) for v in z["meta"])
+        route = VpermRoute(
+            n_in=n_in, n_out=n_out, nc=nc, ch=ch,
+            **{name: put(name) for name in ("i1", "i2", "i3", "c", "i4", "i5", "i6")},
+        )
+    return XchgAux(route=route, bounds=put("bounds"))
 
 
 # -- the kernels --------------------------------------------------------------
@@ -955,20 +1120,16 @@ def _check_baked_vals(aux: XchgAux, vals: Tensor) -> None:
     _CHECKED_VALS[key] = (ref, vals._version, aux.vals_fp)
 
 
-def xchg_slot_products(per_row: Tensor, vals_rowmajor: Tensor,
-                       aux: XchgAux) -> Tensor:
-    """The slot stream ``per_row[row_s] * val_s`` of the aligned layout the
-    route was built for (``[n_slots]``, zeros in pad slots), without a
-    gather: exactly what the ``pallas`` route forms as ``per_row[rows] *
-    vals``, bit for bit.
+def _exchange(per_row: Tensor, vals_rowmajor: Tensor, aux: XchgAux) -> Tensor:
+    """The per-entry products ``per_row[row_e] * val_e`` carried into the
+    route's destination order, before any repack: ``[total]`` on a balanced
+    route (chunk fronts and zero tails), ``[n_out]`` on a colored one.
 
-    On a balanced route with baked values and k dividing 128: K6 expands
-    dz inside stage A, the block transpose, K4 (stage B), the repack of the
-    chunk fronts, the multiply by ``vals_dest``.  Otherwise the row-major
-    stream (products, or dz repeated when the values are baked) rides the
-    route's passes.  With baked values, ``vals_rowmajor`` must be the value
-    array the attach saw (checked).
-    """
+    On a balanced route with baked values and k dividing 128: K6 expands dz
+    inside stage A, the block transpose, K4 (stage B), the multiply by
+    ``vals_dest``.  Otherwise the row-major stream (products, or dz repeated
+    when the values are baked) rides the route's passes.  With baked values,
+    ``vals_rowmajor`` must be the value array the attach saw (checked)."""
     _check_xchg_env()
     baked = aux.vals_dest is not None
     if baked:
@@ -986,8 +1147,22 @@ def xchg_slot_products(per_row: Tensor, vals_rowmajor: Tensor,
                  else apply_vperm(stream, route))
     if baked:
         moved = moved * aux.vals_dest
-    if balanced:
-        # Repack the chunk fronts into the contiguous slot stream.
+    return moved
+
+
+def xchg_slot_products(per_row: Tensor, vals_rowmajor: Tensor,
+                       aux: XchgAux) -> Tensor:
+    """The slot stream ``per_row[row_s] * val_s`` of the aligned layout the
+    route was built for (``[n_slots]``, zeros in pad slots), without a
+    gather: exactly what the ``pallas`` route forms as ``per_row[rows] *
+    vals``, bit for bit (:func:`_exchange`, then on a balanced route the
+    repack of the chunk fronts into the contiguous slot stream).  An
+    ``aligned`` route only."""
+    if aux.bounds is not None:
+        raise ValueError("a cumsum route carries no slot stream")
+    moved = _exchange(per_row, vals_rowmajor, aux)
+    route = aux.route
+    if isinstance(route, BalancedRoute):
         moved = (moved.view(route.nc, route.cs)[:, :route.ds_win]
                  .reshape(-1)[:route.n_out])
     return moved
@@ -995,14 +1170,30 @@ def xchg_slot_products(per_row: Tensor, vals_rowmajor: Tensor,
 
 def xchg_segment_grad(per_row: Tensor, vals_rowmajor: Tensor, al,
                       aux: XchgAux, dim: int) -> Tensor:
-    """``g[f] = sum_e per_row[row_e] * val_e``, the ``xchg`` backward: the
-    slot products of :func:`xchg_slot_products` folded by the aligned
-    reduce (K2 and the epilogue) over the gradient layout ``al``
-    (``AlignedLayoutDev``)."""
-    from photon_tpu_torch.ops.slab_reduce import aligned_reduce
+    """``g[f] = sum_e per_row[row_e] * val_e``, the ``xchg`` backward.
 
-    pv = xchg_slot_products(per_row, vals_rowmajor, aux)
-    return aligned_reduce(pv.reshape(al.lo.shape), al, dim)
+    ``aligned`` route: the slot products of :func:`xchg_slot_products`
+    folded by the aligned reduce (K2 and the epilogue) over the gradient
+    layout ``al`` (``AlignedLayoutDev``).  ``cumsum`` route (``aux.bounds``
+    set; ``al`` unused, may be None): the sorted stream's compensated
+    prefix scan (:func:`compensated_scan`, CS) with a zero prepended, read
+    at ``bounds``; each feature's ``hi`` and ``lo`` differences are formed
+    before they are added, so a small gradient is not lost in the rounding
+    of a large running sum."""
+    if aux.bounds is None:
+        from photon_tpu_torch.ops.slab_reduce import aligned_reduce
+
+        pv = xchg_slot_products(per_row, vals_rowmajor, aux)
+        return aligned_reduce(pv.reshape(al.lo.shape), al, dim)
+    if aux.bounds.shape != (dim + 1,):
+        raise ValueError(f"bounds {tuple(aux.bounds.shape)} != ({dim + 1},)")
+    moved = _exchange(per_row, vals_rowmajor, aux)
+    hi, lo = compensated_scan(moved)
+    zero = hi.new_zeros(1)
+    bounds = aux.bounds.long()
+    bh = torch.cat([zero, hi]).index_select(0, bounds)
+    bl = torch.cat([zero, lo]).index_select(0, bounds)
+    return (bh[1:] - bh[:-1]) + (bl[1:] - bl[:-1])
 
 
 # -- the compensated scan -----------------------------------------------------
@@ -1015,10 +1206,11 @@ def compensated_cumsum(x: Tensor) -> tuple[Tensor, Tensor]:
 
     Counterpart of ``_compensated_cumsum`` (an ``associative_scan`` with the
     same two-sum combine, Dekker/Knuth) in ``photon_tpu/ops/vperm.py``, the
-    scan of the JAX package's ``cumsum`` reduce mode (not ported yet): a
-    log-step (Hillis-Steele) scan in torch ops, ceil(log2 n) passes over the
-    stream.  The two scans combine in different orders, so they agree to the
-    pair's precision, not bit for bit."""
+    scan of the ``cumsum`` reduce mode: a log-step (Hillis-Steele) scan in
+    torch ops, ceil(log2 n) passes over the stream.  It is the plain version
+    of the CS kernel (:func:`compensated_scan`).  The scans combine in
+    different orders, so they agree to the pair's precision, not bit for
+    bit."""
     if x.ndim != 1 or x.dtype != torch.float32:
         raise ValueError("compensated_cumsum takes a flat float32 tensor")
     hi, lo = x, torch.zeros_like(x)
@@ -1033,3 +1225,45 @@ def compensated_cumsum(x: Tensor) -> tuple[Tensor, Tensor]:
         lo = torch.cat([lo[:step], err + a_lo + b_lo])
         step *= 2
     return hi, lo
+
+
+SCAN_THREADS = 256       # CS: threads a block
+SCAN_ITEMS = 16          # CS: consecutive elements a thread
+SCAN_TILE = SCAN_THREADS * SCAN_ITEMS
+
+
+def compensated_scan(x: Tensor) -> tuple[Tensor, Tensor]:
+    """CS: the inclusive compensated prefix sum of a flat float32 ``x`` as a
+    ``(hi, lo)`` pair (the combine of :func:`compensated_cumsum`).
+
+    CUDA tensors launch ``csrc/compensated_scan.cu`` (three passes: tile
+    aggregates, one block scanning them, each tile rescanned from its
+    prefix); CPU tensors take :func:`compensated_cumsum`.  The two combine
+    in different orders and agree to the pair's precision, not bit for
+    bit."""
+    if x.ndim != 1 or x.dtype != torch.float32:
+        raise ValueError("compensated_scan takes a flat float32 tensor")
+    if not _cuda_tensors(x):
+        return compensated_cumsum(x)
+    from photon_tpu_torch.ops import _build
+
+    n = x.shape[0]
+    hi = torch.empty_like(x)
+    lo = torch.empty_like(x)
+    if n == 0:
+        return hi, lo
+    tiles = -(-n // SCAN_TILE)
+    scratch = torch.empty(4 * tiles, dtype=torch.float32, device=x.device)
+    fn = _build.load("compensated_scan").photon_compensated_scan
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    compensated_scan.launches += 1
+    _build.check(
+        fn(x.data_ptr(), n, hi.data_ptr(), lo.data_ptr(), scratch.data_ptr(),
+           torch.cuda.current_stream(x.device).cuda_stream),
+        "compensated_scan",
+    )
+    return hi, lo
+
+
+compensated_scan.launches = 0

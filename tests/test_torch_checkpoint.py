@@ -502,9 +502,12 @@ def test_resident_train_sweep_resumes_without_refits(tmp_path):
     assert [e["final_value"] for e in after["sweep"]] == [
         e["final_value"] for e in baseline["sweep"]]
     assert after["sweep"][0]["wall_time_s"] == 0.0
-    for flag in (["--stream"], ["--checkpoint-every", "2"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            run("stream", *flag)
+    # --checkpoint-every paces the streamed loop's mid-fit snapshots; the
+    # resident sweep snapshots finished weights and ignores it.
+    paced = run("paced", "--checkpoint-dir", str(tmp_path / "paced-ck"),
+                "--checkpoint-every", "2", "--checkpoint-async", "off")
+    assert [e["final_value"] for e in paced["sweep"]] == [
+        e["final_value"] for e in baseline["sweep"]]
 
 
 def test_run_cli_and_signal_handling(tmp_path):

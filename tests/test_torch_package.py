@@ -25,7 +25,9 @@ from photon_tpu_torch.ops.slab_reduce import (
 )
 from photon_tpu_torch.ops.vperm import (
     build_xchg_aux,
+    build_xchg_sorted_route,
     chunk_expand_pass,
+    compensated_scan,
     chunk_pass,
     lane_pass,
     xchg_segment_grad,
@@ -59,7 +61,9 @@ def test_every_module_imports_without_jax():
         "        'photon_tpu_torch.telemetry.distributed', 'photon_tpu_torch.fault.retry',\n"
         "        'photon_tpu_torch.fault.injection', 'photon_tpu_torch.fault.watchdog',\n"
         "        'photon_tpu_torch.game.lowp', 'photon_tpu_torch.drivers.score_game',\n"
-        "        'photon_tpu_torch.drivers.serve_game'}\n"
+        "        'photon_tpu_torch.drivers.serve_game', 'photon_tpu_torch.data.streaming',\n"
+        "        'photon_tpu_torch.data.stream_layouts', 'photon_tpu_torch.utils.caches',\n"
+        "        'photon_tpu_torch.utils.io_pool'}\n"
         "assert want <= set(mods), sorted(want - set(mods))\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'photon_tpu', 'ml_dtypes')\n"
@@ -128,7 +132,8 @@ def test_serving_drivers_default_to_the_card(monkeypatch, tmp_path, driver):
 
 def test_cpu_tensors_take_the_plain_version():
     kernels = (fused_value_and_grad, position_partial_sums, chunk_pass,
-               lane_pass, chunk_expand_pass, aligned_gather_products)
+               lane_pass, chunk_expand_pass, aligned_gather_products,
+               compensated_scan)
     before = tuple(k.launches for k in kernels)
     rng = np.random.default_rng(0)
     ids = rng.integers(0, 32, size=(64, 4)).astype(np.int32)
@@ -143,6 +148,8 @@ def test_cpu_tensors_take_the_plain_version():
     aligned_segment_grad(torch.ones(64), al, 32)
     aux = build_xchg_aux(layout, ids, vals=vals, device="cpu")  # K4 bake
     xchg_segment_grad(torch.ones(64), t[1], al, aux, 32)  # K6, K4, K2
+    sorted_aux = build_xchg_sorted_route(ids, 32, device="cpu")  # cumsum's route
+    xchg_segment_grad(torch.ones(64), t[1], None, sorted_aux, 32)  # K4, CS
     benes = build_benes_aux(layout, 64, 4, device="cpu")
     benes_xu_product(torch.ones(32), al, benes, 64, 4)  # K3
     benes_segment_grad(torch.ones(64), t[1], al, benes, 32)  # K2
@@ -165,6 +172,7 @@ def test_build_needs_nvcc_only_when_building(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     assert _build.sources() == [
-        "fused_sparse", "position_reduce", "probes", "slab_gather", "vperm"]
+        "compensated_scan", "fused_sparse", "position_reduce", "probes",
+        "slab_gather", "vperm"]
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()

@@ -100,10 +100,15 @@ def test_config2_train_then_score(config2_files, tmp_path):
     np.testing.assert_allclose(np.loadtxt(tmp_path / "scored" / "scores.txt"),
                                np.loadtxt(tmp_path / "ref_scored" / "scores.txt"),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        score.run(score.build_parser().parse_args([
-            "--input", config2_files["val"], "--model", model, "--stream",
-            "--output-dir", str(tmp_path / "s"), "--backend", "cpu"]))
+    # --stream over the one part file: the same scores and metrics.
+    streamed = score.run(score.build_parser().parse_args([
+        "--input", config2_files["val"], "--model", model, "--stream",
+        "--evaluators", "RMSE", "--output-dir", str(tmp_path / "s"),
+        "--backend", "cpu"]))
+    assert streamed["num_scored"] == 50 and streamed["streamed"]
+    assert streamed["metrics"]["RMSE"] == got["metrics"]["RMSE"]
+    np.testing.assert_array_equal(np.loadtxt(tmp_path / "s" / "scores.txt"),
+                                  np.loadtxt(tmp_path / "scored" / "scores.txt"))
 
 
 def test_train_driver_owlqn_sparsifies(tmp_path):

@@ -471,12 +471,16 @@ def test_score_game_matches_reference_driver(model_dir, monkeypatch):
     np.testing.assert_allclose(host, 1.0 / (1.0 + np.exp(-scores)), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--stream"], ["--evaluators", "SHARDED_AUC:re0"]])
-def test_score_game_not_ported_flags_raise(model_dir, tmp_path, flag):
+@pytest.mark.parametrize("flag,error,match", [
+    # --stream streams Avro part files; a synthetic input is refused.
+    (["--stream"], ValueError, "Avro part-file input"),
+    (["--evaluators", "SHARDED_AUC:re0"], NotImplementedError, "queue 1, item 4"),
+], ids=["flag0", "flag1"])
+def test_score_game_not_ported_flags_raise(model_dir, tmp_path, flag, error, match):
     from photon_tpu_torch.drivers import score_game
 
     root, _ = model_dir
-    with pytest.raises(NotImplementedError, match=r"queue 1, item (9|4)"):
+    with pytest.raises(error, match=match):
         score_game.run(score_game.build_parser().parse_args([
             "--input", "synthetic-game:40:4:6:4:1:17", "--model", str(root / "model"),
             "--backend", "cpu", "--output-dir", str(tmp_path), *flag]))

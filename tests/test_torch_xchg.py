@@ -159,19 +159,22 @@ def test_train_cli_xchg_matches_fm_auc(monkeypatch, tmp_path):
     assert abs(aucs["xchg"] - aucs["fm"]) <= 1e-4
 
 
-@pytest.mark.parametrize("var,value", [
-    ("PHOTON_XCHG_REDUCE", "cumsum"), ("PHOTON_XCHG_DTYPE", "bfloat16"),
-])
-def test_unported_variants_raise(monkeypatch, var, value):
+@pytest.mark.parametrize("var,value,error,match", [
+    # The cumsum reduce is ported (tests/test_torch_stream_kernels.py); a
+    # mode the JAX package does not have is refused.
+    ("PHOTON_XCHG_REDUCE", "segment", ValueError, "aligned or cumsum"),
+    ("PHOTON_XCHG_DTYPE", "bfloat16", NotImplementedError, "ROADMAP.md queue 2"),
+], ids=["PHOTON_XCHG_REDUCE-unknown", "PHOTON_XCHG_DTYPE-bfloat16"])
+def test_unported_variants_raise(monkeypatch, var, value, error, match):
     arrays = _arrays(64, 4, 16, seed=3)
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+    with pytest.raises(error, match=match):
         _port_batch(arrays, 16)
     # A route attached before the switch refuses at evaluation too.
     monkeypatch.delenv(var)
     batch = _port_batch(arrays, 16)
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+    with pytest.raises(error, match=match):
         GlmObjective.create("logistic").value_and_grad(torch.zeros(16), batch)
 
 
