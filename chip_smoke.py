@@ -42,8 +42,10 @@ Phases (any failure exits non-zero and prints no result line):
    the gradient gate; CS, the compensated scan of the ``cumsum`` reduce, and
    its plain version each held to a float64 prefix (``|hi + lo - c64| <=
    2^-40 C``, C the float64 prefix of |x|) at 2^25 elements and the edge
-   lengths 1, 31, 32, 33, 4095, 4096, 4097 and 2^25 + 3, timed beside
-   ``torch.cumsum`` and its bound;
+   lengths 1, 31, 32, 33, 4095, 4096, 4097 and 2^25 + 3, timed beside its
+   bound, ``torch.cumsum(x, 0, dtype=torch.float64)`` (the one PyTorch call
+   that computes its function, held to the same gate) and the float32
+   ``torch.cumsum``;
 3. the main path: ``GlmOptimizationProblem.run`` (L-BFGS, logistic + L2) at
    the headline GLM shape n=2^20, k=32, d=2^18 on the ``fused``, ``pallas``
    and ``xchg`` routes, uniform and zipf ids (and one ``value_and_grad`` on
@@ -191,14 +193,33 @@ Phases (any failure exits non-zero and prints no result line):
    part files against ``score`` on their rows, and ``score_game --stream``
    over phase 6's Avro file in four parts against phase 8's resident
    ``score_game``, each within 1e-6.
+12. streamed GAME training, every launch count set to 0 just before each
+   fit or run and read after (the path runs no hand-written kernel: each
+   must read 0): (a) the JAX package's out-of-core scenario at its
+   accelerator size (``bench.py``'s ``_game_bench_fixture`` and
+   ``_bench_ooc``: ``make_game_dataset(20_000, 50, 32, 8)``, ~1M rows,
+   logistic, two descent iterations, chunks of n // 8 rows), one resident
+   and one streamed ``GameEstimator`` each timed on its second fit: rows/s
+   and their ratio, the stall and prefetch-overlap seconds, the peak device
+   bytes in flight against the ``(PREFETCH_DEPTH + 1)``-chunk bound (a
+   gate), ``torch.cuda.max_memory_allocated`` in each fit, host syncs a
+   chunk (the warm-up fit under the sync debug mode), the scores' and the
+   training AUC's gap to the resident fit, the streamed fit finite (a
+   gate); (b) ``train_game --stream-chunks 50000`` on phase 6's Avro file
+   and split (5 chunks) on the card and the host, held to each other under
+   phase 6's gates and reported beside phase 6's resident agreement; three
+   iterations uninterrupted, then killed by ``descent:kill`` before the
+   random effect of iteration 1 and resumed with ``--resume auto``: the
+   resumed model equal to the uninterrupted one (a gate); and one
+   ``--max-resident-mb`` run whose budget turns streaming on.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
 that the training paths launch none of them; K1's and K2's
 ``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's,
 ``phase9_launches`` phase 9's, ``phase10_launches`` phase 10's, every
-kernel's ``phase11_launches`` phase 11's; CS's ``launches`` count phase 11,
-its main path); the last
+kernel's ``phase11_launches`` phase 11's and ``phase12_launches`` phase
+12's; CS's ``launches`` count phase 11, its main path); the last
 line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -403,18 +424,31 @@ def check_compensated_scan(dev) -> dict:
                if "float32_cumsum_gate_ratio" in row else ""))
         del x, x64, c64, mag, hi, lo, phi, plo
     x = scan_input(SCAN_E, 50, dev)
+    # The one PyTorch call that computes CS's function: a float64 prefix,
+    # whose hi/lo split is a rounding of it (held to the same gate).
+    x64 = x.double()
+    c64 = torch.cumsum(x64, 0, dtype=torch.float64)
+    lib_hi = c64.float()
+    f64_gate = scan_gate("torch.cumsum float64 at 2^25", lib_hi,
+                         (c64 - lib_hi.double()).float(), c64,
+                         torch.cumsum(x64.abs(), 0))
+    del x64, c64, lib_hi
     ms = cuda_ms(lambda: compensated_scan(x))
     plain_ms = cuda_ms(lambda: compensated_cumsum(x), reps=3, warmup=1)
-    library_ms = cuda_ms(lambda: torch.cumsum(x, 0))
+    library_ms = cuda_ms(lambda: torch.cumsum(x, 0, dtype=torch.float64))
+    float32_ms = cuda_ms(lambda: torch.cumsum(x, 0))
     # Read 4 bytes and write 8 an element; 8 float adds an element.
     bound_ms, bound_by = bound(12.0 * SCAN_E, 8.0 * SCAN_E)
     del x
     torch.cuda.empty_cache()
     log(f"  CS at 2^25: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; "
-        f"{bound_ms / ms:.0%} of it), plain {plain_ms:.3f} ms, torch.cumsum "
-        f"{library_ms:.3f} ms")
+        f"{bound_ms / ms:.0%} of it), plain {plain_ms:.3f} ms, "
+        f"torch.cumsum(x, 0, dtype=torch.float64) {library_ms:.3f} ms (gate ratio "
+        f"{f64_gate:.3g}), float32 torch.cumsum {float32_ms:.3f} ms (not CS's function)")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "edges": edges}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_gate_ratio": f64_gate, "float32_cumsum_ms": float32_ms,
+            "edges": edges}
 
 
 # The GAME fixed effect's batch (rows, nonzeros per row, d) in phase 6.
@@ -4270,6 +4304,479 @@ def phase11_launches(stream: dict, kernel: str) -> dict:
     return runs
 
 
+# Phase 12: streamed GAME training.  (a) the JAX package's out-of-core
+# scenario at its accelerator size (bench.py:462-507 _game_bench_fixture,
+# bench.py:517-570 _bench_ooc): make_game_dataset(20_000, 50, 32, 8, seed 0,
+# one random coordinate), ~1M rows, logistic, 2 descent iterations, the
+# fixed effect L2 0.01 with 5 iterations, re0 L2 1.0 with 4, chunks of n // 8
+# rows; one resident and one streamed estimator, each timed on its second
+# fit.  (b) train_game --stream-chunks on phase 6's Avro file and split:
+# the card and the host, a mid-epoch kill and --resume auto against the
+# uninterrupted run (exact), and a --max-resident-mb budget that turns
+# streaming on.
+OOC_FIXTURE = dict(n_entities=20_000, rows_per_entity_mean=50, fixed_dim=32,
+                   random_dim=8, seed=0, n_random_coords=1)
+OOC_ITERATIONS = 2
+OOC_CHUNKS = 8
+STREAM_GAME_CHUNK_ROWS = 50_000  # 5 chunks of phase 6's 239,534 training rows
+STREAM_GAME_ITERATIONS = 3
+STREAM_GAME_KILL = "descent:kill:iter=1:coord=per_user"
+STREAM_GAME_BUDGET_MB = 20.0
+# Where phase 12 (a)'s streamed peak comes from: the whole streamed fit again
+# at these chunk counts beside OOC_CHUNKS.
+OOC_BREAKDOWN_CHUNKS = (4, 16)
+
+
+def ooc_config():
+    from photon_tpu_torch.core.objective import RegularizationContext
+    from photon_tpu_torch.core.optimizers import OptimizerConfig
+    from photon_tpu_torch.core.problem import ProblemConfig
+    from photon_tpu_torch.game.coordinate import (
+        FixedEffectCoordinateConfig,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_tpu_torch.game.estimator import GameOptimizationConfiguration
+
+    def problem(lam: float, iters: int) -> ProblemConfig:
+        return ProblemConfig(regularization=RegularizationContext("l2", lam),
+                             optimizer_config=OptimizerConfig(max_iterations=iters))
+
+    return GameOptimizationConfiguration(coordinates={
+        "fixed": FixedEffectCoordinateConfig("global", problem(0.01, 5)),
+        "re0": RandomEffectCoordinateConfig("re0", "re0", problem(1.0, 4)),
+    }, descent_iterations=OOC_ITERATIONS)
+
+
+def launches_of(counters) -> dict:
+    return {c.__name__: c.launches for c in counters if c.launches}
+
+
+def device_peak(dev, fn) -> dict:
+    """``fn()``'s high water over the bytes on the card before it, in the
+    allocator's ``allocated`` (tensors held) and ``active`` (held, or freed
+    with their streams' work still queued) counts."""
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_stats(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_stats(dev)
+    return {kind: after[f"{kind}_bytes.all.peak"] - before[f"{kind}_bytes.all.current"]
+            for kind in ("allocated", "active")}
+
+
+def active_counts_queued_frees(dev) -> bool:
+    """Whether the allocator's ``active`` count keeps a tensor freed while
+    the stream it was recorded on still has work queued (what the window
+    gate below reads)."""
+    side, compute = torch.cuda.Stream(dev), torch.cuda.current_stream(dev)
+    torch.cuda.synchronize(dev)
+    with torch.cuda.stream(side):
+        x = torch.empty(1 << 20, device=dev)
+    x.record_stream(compute)
+    torch.cuda._sleep(20_000_000)  # tens of ms of queued work
+    active = torch.cuda.memory_stats(dev)["active_bytes.all.current"]
+    del x
+    held = torch.cuda.memory_stats(dev)["active_bytes.all.current"] == active
+    torch.cuda.synchronize(dev)
+    return held
+
+
+def ooc_residency(dev, data, config, chunk_rows: int, window_bound: int,
+                  model) -> dict:
+    """Phase 12 (a)'s device bytes, piece by piece: one streamed
+    fixed-effect pass with the window and with a window as wide as the pass,
+    the workspace of one chunk's value and gradient with the chunk already
+    on the card, one random-effect train, one scoring pass, and the whole
+    streamed fit at other chunk counts.  Gate: the bounded pass stays within
+    the chunk window plus that workspace."""
+    import dataclasses as dc
+
+    from photon_tpu_torch.data.batch import DenseBatch
+    from photon_tpu_torch.data.streaming import DeviceWindow
+    from photon_tpu_torch.game.estimator import GameEstimator
+    from photon_tpu_torch.game.stream_descent import (
+        StreamedFixedEffectCoordinate,
+        StreamedRandomEffectCoordinate,
+    )
+    from photon_tpu_torch.game.tiles import ChunkPlan, ChunkStreamer
+
+    plan = ChunkPlan(data.num_examples, chunk_rows)
+    streamer = ChunkStreamer(device=dev)
+    fixed = StreamedFixedEffectCoordinate(data, config.coordinates["fixed"],
+                                          "logistic_regression", plan, streamer)
+    offsets = [np.zeros(plan.bounds(k)[1] - plan.bounds(k)[0], np.float32)
+               for k in range(plan.num_chunks)]
+    w = torch.full((fixed.dim,), 0.01, device=dev)
+    fixed._streamed_value_and_grad(w, offsets)  # warm the allocator's pools
+    out = {"active_counts_queued_frees": active_counts_queued_frees(dev)}
+    out["fixed_pass"] = device_peak(dev, lambda: fixed._streamed_value_and_grad(w, offsets))
+    bounded = streamer._window
+    streamer._window = DeviceWindow(plan.num_chunks + 2)
+    out["fixed_pass_unbounded_window"] = device_peak(
+        dev, lambda: fixed._streamed_value_and_grad(w, offsets))
+    out["unbounded_window_peak_bytes"] = streamer._window.peak_bytes
+    streamer._window = bounded
+    host = fixed._chunk_batch(0, offsets)
+    chunk = DenseBatch(*(torch.as_tensor(a, device=dev) for a in host))
+    out["fixed_chunk_bytes"] = sum(t.nbytes for t in chunk)
+    data_obj = dc.replace(fixed.objective, l2_weight=0.0, l1_weight=0.0)
+    out["fixed_chunk_workspace"] = device_peak(
+        dev, lambda: data_obj._fast_data_value_and_grad(w, chunk, None))
+    del chunk
+    allowance = window_bound + out["fixed_chunk_workspace"]["active"]
+    out["fixed_pass_allowance_bytes"] = allowance
+
+    re_coord = StreamedRandomEffectCoordinate(data, config.coordinates["re0"],
+                                              "logistic_regression", plan, streamer)
+    zeros = np.zeros(data.num_examples, np.float32)
+
+    class Offsets:
+        @staticmethod
+        def full():
+            return zeros
+
+    out["re_blocks"] = len(re_coord.bin_blocks())
+    out["re_block_bytes_max"] = max(
+        e_sub * re_coord.device_data.entity_bytes(re_coord.device_data.bins[i])
+        for i, _, _, e_sub in re_coord.bin_blocks())
+    out["re_train"] = device_peak(dev, lambda: re_coord.train(Offsets()))
+    out["score_pass"] = device_peak(
+        dev, lambda: fixed.score_stream(model.coordinate("fixed")))
+    out["window_peak_bytes"] = streamer.peak_in_flight_bytes
+    fits = {}
+    for chunks in OOC_BREAKDOWN_CHUNKS:
+        est = GameEstimator("logistic_regression", data, device=dev,
+                            stream_chunks=max(1, data.num_examples // chunks))
+        fits[chunks] = device_peak(dev, lambda: est.fit([config]))
+        fits[chunks]["window_peak_bytes"] = est._streamer.peak_in_flight_bytes
+        del est
+    out["fit_by_chunks"] = fits
+    mib = 2 ** 20
+    log(f"  (a) device bytes over the fit's base (allocated / active MiB): fixed-effect "
+        f"pass {out['fixed_pass']['allocated'] / mib:.1f} / "
+        f"{out['fixed_pass']['active'] / mib:.1f} (a window of 3 chunks; "
+        f"{out['fixed_pass_unbounded_window']['allocated'] / mib:.1f} / "
+        f"{out['fixed_pass_unbounded_window']['active'] / mib:.1f} with the window "
+        f"open, its events' peak {out['unbounded_window_peak_bytes'] / mib:.1f}); "
+        f"fixed chunk {out['fixed_chunk_bytes'] / mib:.1f}, its value-and-gradient "
+        f"workspace {out['fixed_chunk_workspace']['active'] / mib:.1f}; random-effect "
+        f"train {out['re_train']['allocated'] / mib:.1f} / "
+        f"{out['re_train']['active'] / mib:.1f} ({out['re_blocks']} blocks of at most "
+        f"{out['re_block_bytes_max'] / mib:.1f}); scoring pass "
+        f"{out['score_pass']['allocated'] / mib:.1f} / {out['score_pass']['active'] / mib:.1f}; "
+        f"whole fit at " + ", ".join(
+            f"{c} chunks {f['allocated'] / mib:.1f} / {f['active'] / mib:.1f} (window "
+            f"{f['window_peak_bytes'] / mib:.1f})" for c, f in fits.items())
+        + f"; active keeps queued frees: {out['active_counts_queued_frees']}")
+    if out["fixed_pass"]["active"] > allowance:
+        raise AssertionError(
+            f"phase 12 (a): a streamed pass held {out['fixed_pass']['active']} bytes on "
+            f"the card, past the {window_bound}-byte window and the "
+            f"{out['fixed_chunk_workspace']['active']}-byte workspace of a chunk")
+    return out
+
+
+def run_ooc_scenario(dev) -> dict:
+    """Phase 12 (a); every launch count set to 0 just before each fit."""
+    from photon_tpu_torch.data.synthetic import make_game_dataset
+    from photon_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_tpu_torch.game.estimator import GameEstimator
+    from photon_tpu_torch.game.tiles import PREFETCH_DEPTH, per_row_bytes
+    from photon_tpu_torch.telemetry import TelemetrySession
+
+    counters = kernel_wrappers()
+    t0 = time.monotonic()
+    data, _ = make_game_dataset(**OOC_FIXTURE)
+    n = data.num_examples
+    chunk_rows = max(1, n // OOC_CHUNKS)
+    window_bound = (PREFETCH_DEPTH + 1) * chunk_rows * per_row_bytes(data)
+    out = {"rows": n, "generate_s": time.monotonic() - t0, "chunk_rows": chunk_rows,
+           "per_row_bytes": per_row_bytes(data), "window_bound_bytes": window_bound}
+    log(f"  (a) {n:,} rows, {OOC_FIXTURE['n_entities']:,} entities, d = "
+        f"{OOC_FIXTURE['fixed_dim']} / {OOC_FIXTURE['random_dim']}, chunks of "
+        f"{chunk_rows:,} rows; made in {out['generate_s']:.1f} s")
+    config = ooc_config()
+    label = torch.as_tensor(data.label, device=dev)
+    weight = torch.as_tensor(data.weight, device=dev)
+    models = {}
+    for name, kwargs in (("resident", {"residual_mode": "device"}),
+                         ("streamed", {"stream_chunks": chunk_rows})):
+        session = TelemetrySession(f"chip-smoke-ooc-{name}")
+        est = GameEstimator("logistic_regression", data, device=dev, telemetry=session,
+                            **kwargs)
+        for c in counters:
+            c.launches = 0
+        t0 = time.monotonic()
+        if name == "streamed":
+            # The warm-up fit under the sync debug mode: every synchronizing
+            # call of a streamed fit, against the chunks it delivered.
+            _, warned = sync_warnings(lambda: est.fit([config]))
+            syncs = [m for m in warned if "called a synchronizing" in m]
+        else:
+            est.fit([config])
+            syncs = None
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        chunks0 = counter_total(session, "stream.chunks")
+        stall0 = counter_total(session, "stream.stall_s")
+        overlap0 = counter_total(session, "stream.prefetch_overlap_s")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        result = est.fit([config])[0]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        run = {"warm_up_s": warm_s, "wall_s": wall, "rows_per_s": OOC_ITERATIONS * n / wall,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+               "launches": launches_of(counters),
+               "descent_iteration_s": [h["seconds"] for h in result.descent.history]}
+        if name == "streamed":
+            chunks = counter_total(session, "stream.chunks") - chunks0
+            run.update(
+                chunks=chunks, stall_s=counter_total(session, "stream.stall_s") - stall0,
+                prefetch_overlap_s=(counter_total(session, "stream.prefetch_overlap_s")
+                                    - overlap0),
+                peak_in_flight_bytes=est._streamer.peak_in_flight_bytes,
+                # Both fits' admissions that waited for the card to release
+                # a chunk (the window's bound), a chunk.
+                window_waits_per_chunk=(est._streamer._window.waits
+                                        / max(counter_total(session, "stream.chunks"), 1)),
+                warm_up_syncs=len(syncs), warm_up_chunks=chunks0,
+                host_syncs_per_chunk=len(syncs) / max(chunks0, 1),
+                sync_sites=sorted(set(syncs))[:5])
+        scores = torch.as_tensor(result.model.score(data), device=dev)
+        run["finite"] = bool(torch.isfinite(scores).all())
+        run["train_auc"] = float(area_under_roc_curve(scores, label, weight))
+        models[name] = scores
+        if name == "streamed":
+            streamed_model = result.model
+        out[name] = run
+        log(f"  (a) {name}: warm-up {warm_s:.2f} s, timed fit {wall:.2f} s "
+            f"({run['rows_per_s']:,.0f} rows/s; iterations "
+            f"{[round(s, 3) for s in run['descent_iteration_s']]} s), peak allocated "
+            f"{run['max_memory_allocated_bytes'] / 2**20:.1f} MiB, train AUC "
+            f"{run['train_auc']:.6f}, launches {run['launches'] or 'none'}")
+        del est, result
+    s = out["streamed"]
+    gap = (models["streamed"] - models["resident"]).abs()
+    out["rows_per_s_ratio"] = s["rows_per_s"] / out["resident"]["rows_per_s"]
+    out["score_gap"] = {"max": float(gap.max()),
+                        "rms": float(gap.square().mean().sqrt())}
+    out["train_auc_gap"] = abs(s["train_auc"] - out["resident"]["train_auc"])
+    log(f"  (a) streamed: {s['chunks']:.0f} chunks, stall {s['stall_s']:.3f} s, "
+        f"prefetch overlap {s['prefetch_overlap_s']:.3f} s, peak in flight "
+        f"{s['peak_in_flight_bytes'] / 2**20:.1f} MiB of the "
+        f"{window_bound / 2**20:.1f} MiB bound, {s['window_waits_per_chunk']:.3f} window "
+        f"waits a chunk, {s['host_syncs_per_chunk']:.3f} host "
+        f"syncs a chunk ({s['warm_up_syncs']} in the warm-up's {s['warm_up_chunks']:.0f} "
+        f"chunks); streamed / resident rows/s {out['rows_per_s_ratio']:.3f}; scores "
+        f"max |diff| {out['score_gap']['max']:.3e} (RMS {out['score_gap']['rms']:.3e}), "
+        f"train AUC |diff| {out['train_auc_gap']:.3e}")
+    out["residency"] = ooc_residency(dev, data, config, chunk_rows, window_bound,
+                                     streamed_model)
+    if not s["finite"]:
+        raise AssertionError("phase 12 (a): the streamed fit is not finite")
+    if not 0 < s["peak_in_flight_bytes"] <= window_bound:
+        raise AssertionError(f"phase 12 (a): {s['peak_in_flight_bytes']} bytes in flight "
+                             f"past the {window_bound}-byte window")
+    if s["launches"]:
+        raise AssertionError(f"phase 12 (a): hand-written kernels launched on the "
+                             f"streamed path: {s['launches']}")
+    del data, label, weight, models, streamed_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_game_args(avro: str, out: str, backend: str, *extra) -> list:
+    return [*game_cli_args(avro, out, backend), *extra]
+
+
+@contextlib.contextmanager
+def pass_values(values: list):
+    """Record the streamed fixed effect's objective value at every pass, as
+    ``(fit, value)`` (the float32 value its L-BFGS line search compares)."""
+    from photon_tpu_torch.game import stream_descent
+
+    cls = stream_descent._StreamedObjective
+    inner = cls.value_and_grad
+    fits: dict = {}
+
+    def recorded(self, w):
+        v, g = inner(self, w)
+        values.append((fits.setdefault(id(self), len(fits)), float(v)))
+        return v, g
+
+    cls.value_and_grad = recorded
+    try:
+        yield values
+    finally:
+        cls.value_and_grad = inner
+
+
+def pass_split(card: list, host: list) -> list:
+    """Each fixed-effect fit's passes on card and host, and the first pass
+    whose float32 values differ, by how many float32 ulps."""
+    out = []
+    for fit in sorted({f for f, _ in card} & {f for f, _ in host}):
+        a = [v for f, v in card if f == fit]
+        b = [v for f, v in host if f == fit]
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        row = {"fit": fit, "passes": [len(a), len(b)], "first_differing_pass": first}
+        if first is not None:
+            ulp = float(np.spacing(np.float32(abs(b[first]))))
+            row.update(values=[a[first], b[first]], ulps=abs(a[first] - b[first]) / ulp,
+                       final=[a[-1], b[-1]], final_ulps=abs(a[-1] - b[-1]) / ulp)
+        out.append(row)
+    return out
+
+
+def run_stream_game(game: dict) -> dict:
+    """Phase 12 (b); every launch count set to 0 just before each run."""
+    from photon_tpu_torch.drivers import train_game
+    from photon_tpu_torch.fault.checkpoint import DescentCheckpointer
+    from photon_tpu_torch.fault.injection import InjectedKillError
+    from photon_tpu_torch.game.model_io import load_game_model
+
+    counters = kernel_wrappers()
+    root = os.path.join(os.path.dirname(game["avro"]), "phase12")
+    chunks = ["--stream-chunks", str(STREAM_GAME_CHUNK_ROWS)]
+    iters3 = ["--descent-iterations", str(STREAM_GAME_ITERATIONS)]
+    out = {"runs": {}, "pass_values": {}}
+
+    def run(name, backend, *extra, kill=False):
+        run_dir = os.path.join(root, name)
+        for c in counters:
+            c.launches = 0
+        t0 = time.monotonic()
+        summary = None
+        try:
+            with pass_values(out["pass_values"].setdefault(name, [])):
+                summary = train_game.run(train_game.build_parser().parse_args(
+                    stream_game_args(game["avro"], run_dir, backend, *extra)))
+            killed = False
+        except InjectedKillError:
+            killed = True
+        if backend == "gpu":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if killed != kill:
+            raise AssertionError(f"phase 12 (b) {name}: killed {killed}, expected {kill}")
+        row = {"backend": backend, "wall_s": wall, "launches": launches_of(counters),
+               "dir": run_dir}
+        if summary is not None:
+            history = summary["sweep"][0]["history"]
+            row.update(best_metrics=summary["best_metrics"],
+                       stream_chunks=summary["stream_chunks"],
+                       descent_iteration_s=[h["seconds"] for h in history],
+                       # The fixed effect's L-BFGS iterations and passes an
+                       # iteration: where card and host stop apart.
+                       # (None where a resume skipped it).
+                       fixed_iterations=[
+                           (fixed["iterations"], fixed["evaluations"]) if fixed else None
+                           for fixed in ((h.get("solver") or {}).get("fixed")
+                                         for h in history)],
+                       phase_times=summary["phase_times"])
+            metrics = run_report_metrics(run_dir)
+            for key in ("stream.stall_s", "stream.prefetch_overlap_s"):
+                m = metric(metrics, "counters", key, tier="h2d")
+                row[key] = m["value"] if m else None
+            peak = metric(metrics, "gauges", "residuals.device_bytes")
+            row["peak_in_flight_bytes"] = peak["value"] if peak else None
+        if row["launches"]:
+            raise AssertionError(f"phase 12 (b) {name}: hand-written kernels launched "
+                                 f"on the streamed path: {row['launches']}")
+        out["runs"][name] = row
+        log(f"  (b) {name} ({backend}): {'killed, ' if killed else ''}{wall:.2f} s"
+            + (f", chunk rows {row['stream_chunks']}, iterations "
+               f"{[round(s, 3) for s in row['descent_iteration_s']]} s, fixed effect "
+               f"(iterations, passes) {row['fixed_iterations']}, metrics "
+               f"{row['best_metrics']}, stall {row['stream.stall_s']:.3f} s, overlap "
+               f"{row['stream.prefetch_overlap_s']:.3f} s, peak in flight "
+               f"{row['peak_in_flight_bytes']}" if summary is not None else ""))
+        return row
+
+    def model(name):
+        return load_game_model(os.path.join(root, name, "best_model"), device="cpu")[0]
+
+    def diffs(a, b) -> dict:
+        out = {}
+        for coord, m in a.coordinates.items():
+            r = b.coordinate(coord)
+            got, want = ((m.coefficients.means, r.coefficients.means)
+                         if hasattr(m, "coefficients") else (m.table, r.table))
+            out[coord] = float((got - want).abs().max())
+        return out
+
+    run("card", "gpu", *chunks)
+    run("host", "cpu", *chunks)
+    card, host = out["runs"]["card"], out["runs"]["host"]
+    for key, ref in host["best_metrics"].items():
+        if abs(card["best_metrics"][key] - ref) > GAME_METRIC_ATOL:
+            raise AssertionError(f"phase 12 (b): {key} card {card['best_metrics'][key]} "
+                                 f"host {ref}")
+    card_model = model("card")
+    out["card_vs_host"] = diffs(card_model, model("host"))
+    if max(out["card_vs_host"].values()) > GAME_COEF_TOL:
+        raise AssertionError(f"phase 12 (b): card and host differ {out['card_vs_host']}")
+    out["pass_split"] = pass_split(out["pass_values"]["card"], out["pass_values"]["host"])
+    log(f"  (b) the streamed fixed effect's float32 objective a pass, card against host: "
+        f"{out['pass_split']}")
+    resident = load_game_model(os.path.join(game["run_dirs"]["fused"], "best_model"),
+                               device="cpu")[0]
+    out["card_vs_resident_card"] = diffs(card_model, resident)
+    out["resident_card_vs_host"] = game["runs"]["fused"]["coefficient_max_abs_diff_vs_cpu"]
+    log(f"  (b) card vs host {out['card_vs_host']} (phase 6's resident card vs host "
+        f"{out['resident_card_vs_host']}); streamed vs phase 6's resident card model "
+        f"{out['card_vs_resident_card']}")
+    ck = os.path.join(root, "ckpt")
+    run("uninterrupted", "gpu", *chunks, *iters3)
+    run("killed", "gpu", *chunks, *iters3, "--checkpoint-dir", ck, "--faults",
+        STREAM_GAME_KILL, kill=True)
+    chain = os.path.join(ck, os.listdir(ck)[0], "cfg-000")
+    state = DescentCheckpointer.load_path(DescentCheckpointer(chain).latest_path(),
+                                          device="cpu")
+    out["kill_checkpoint"] = {"iteration": state.iteration, **{
+        k: state.stream[k] for k in ("cursor", "seq", "chunk_rows")},
+        "tile_digests": len(state.stream["tile_digests"])}
+    if state.stream["cursor"] != 1:
+        raise AssertionError(f"phase 12 (b): the kill left {out['kill_checkpoint']}, "
+                             "not a mid-epoch cursor")
+    run("resumed", "gpu", *chunks, *iters3, "--checkpoint-dir", ck, "--resume", "auto")
+    out["resumed_vs_uninterrupted"] = diffs(model("resumed"), model("uninterrupted"))
+    same_metrics = (out["runs"]["resumed"]["best_metrics"]
+                    == out["runs"]["uninterrupted"]["best_metrics"])
+    log(f"  (b) the kill's checkpoint {out['kill_checkpoint']}; resumed vs uninterrupted "
+        f"{out['resumed_vs_uninterrupted']}, metrics equal {same_metrics}")
+    if max(out["resumed_vs_uninterrupted"].values()) != 0.0 or not same_metrics:
+        raise AssertionError("phase 12 (b): the resumed model differs from the "
+                             "uninterrupted one")
+    budget = run("max_resident_mb", "gpu", "--max-resident-mb", str(STREAM_GAME_BUDGET_MB))
+    est = metric(run_report_metrics(budget["dir"]), "gauges",
+                 "stream.resident_estimate_bytes")["value"]
+    out["budget"] = {"mb": STREAM_GAME_BUDGET_MB, "resident_estimate_bytes": est,
+                     "chunk_rows": budget["stream_chunks"]}
+    log(f"  (b) --max-resident-mb {STREAM_GAME_BUDGET_MB:g}: resident estimate "
+        f"{est / 2**20:.1f} MiB, chose {budget['stream_chunks']} chunk rows")
+    if not budget["stream_chunks"]:
+        raise AssertionError("phase 12 (b): --max-resident-mb did not turn streaming on")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def run_streamed_game(dev, game: dict) -> dict:
+    """Phase 12."""
+    return {"ooc": run_ooc_scenario(dev), "cli": run_stream_game(game)}
+
+
+def phase12_launches(sgame: dict) -> dict:
+    """Every hand-written kernel's launches in each phase-12 run."""
+    runs = {f"ooc_{name}": sgame["ooc"][name]["launches"]
+            for name in ("resident", "streamed")}
+    runs.update({f"train_game_{name}": row["launches"]
+                 for name, row in sgame["cli"]["runs"].items()})
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4384,6 +4891,13 @@ def main() -> int:
         stream = run_streamed(dev, game)
         stream["seconds"] = time.monotonic() - t11
         log(f"  phase 11 took {stream['seconds']:.1f} s")
+
+        t12 = time.monotonic()
+        log("phase 12: streamed GAME training (the out-of-core scenario, then "
+            "train_game --stream-chunks with a mid-epoch kill and resume)")
+        sgame = run_streamed_game(dev, game)
+        sgame["seconds"] = time.monotonic() - t12
+        log(f"  phase 12 took {sgame['seconds']:.1f} s")
     finally:
         shutil.rmtree(game_tmp, ignore_errors=True)
 
@@ -4494,7 +5008,9 @@ def main() -> int:
         "launches": sum(phase11_launches(stream, "compensated_scan").values()),
         **{key: kcs[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
-        "library_call": "torch.cumsum", "edges": kcs["edges"], "card": card,
+        "library_call": "torch.cumsum(x, 0, dtype=torch.float64)",
+        "library_gate_ratio": kcs["library_gate_ratio"],
+        "float32_cumsum_ms": kcs["float32_cumsum_ms"], "edges": kcs["edges"], "card": card,
     })
     for name, row in pk_rows.items():
         kernels.append({
@@ -4519,15 +5035,20 @@ def main() -> int:
     log(f"phase 9: {json.dumps(rest, default=str)}")
     log(f"phase 10: {json.dumps(fault, default=str)}")
     log(f"phase 11: {json.dumps(stream, default=str)}")
+    log(f"phase 12: {json.dumps(sgame, default=str)}")
     wrapper_names = {"fused_sparse": "fused_value_and_grad", "row_scatter": "row_scatter",
                      "position_reduce": "position_partial_sums",
                      "vperm_chunk": "chunk_pass", "vperm_lane": "lane_pass",
                      "vperm_chunk_expand": "chunk_expand_pass",
                      "slab_gather": "aligned_gather_products",
                      "compensated_scan": "compensated_scan"}
+    p12 = phase12_launches(sgame)
     for entry in kernels:
-        entry["phase11_launches"] = phase11_launches(
-            stream, wrapper_names.get(entry["name"], entry["name"]))
+        wrapper = wrapper_names.get(entry["name"], entry["name"])
+        entry["phase11_launches"] = phase11_launches(stream, wrapper)
+        # The streamed GAME path runs no hand-written kernel (expected 0).
+        entry["phase12_launches"] = {run: launches.get(wrapper, 0)
+                                     for run, launches in p12.items()}
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

@@ -30,6 +30,7 @@ import os
 import queue
 import threading
 import time
+from collections import deque
 from typing import Callable, Iterable, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -181,12 +182,15 @@ def shard_files_for_process(
 
 def map_batch_tensors(batch, fn):
     """``batch`` with ``fn`` applied to every tensor it holds, its layouts'
-    included (named tuples and dataclasses are rebuilt; host arrays and
-    scalars pass through)."""
+    included (tuples, lists, named tuples and dataclasses are rebuilt; host
+    arrays and scalars pass through)."""
     if isinstance(batch, Tensor):
         return fn(batch)
-    if isinstance(batch, tuple) and hasattr(batch, "_fields"):
-        return type(batch)(*(map_batch_tensors(v, fn) for v in batch))
+    if isinstance(batch, tuple):
+        items = [map_batch_tensors(v, fn) for v in batch]
+        return type(batch)(*items) if hasattr(batch, "_fields") else tuple(items)
+    if isinstance(batch, list):
+        return [map_batch_tensors(v, fn) for v in batch]
     if dataclasses.is_dataclass(batch) and not isinstance(batch, type):
         return dataclasses.replace(batch, **{
             f.name: map_batch_tensors(getattr(batch, f.name), fn)
@@ -244,17 +248,31 @@ def rss_bytes() -> int:
         return 0
 
 
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device):
+    """The one copy stream of ``device`` that every streamed pass shares:
+    the caching allocator keeps freed blocks per stream, so a new stream a
+    pass would allocate every pass's chunks anew."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _SIDE_STREAMS.get(index)
+    if stream is None:
+        stream = _SIDE_STREAMS.setdefault(index, torch.cuda.Stream(index))
+    return stream
+
+
 class _Uploader:
     """Host chunks to the card: each chunk's tensors (pinned by the loader)
-    are copied ``non_blocking`` on a side stream, and one event marks the
-    copy done.  :meth:`ready` makes the compute stream wait for that event
-    and records the compute stream on every copied tensor, so the caching
-    allocator cannot hand a chunk's memory to another allocation while
-    kernels that read it are still queued."""
+    are copied ``non_blocking`` on the device's side stream, and one event
+    marks the copy done.  :meth:`ready` makes the compute stream wait for
+    that event and records the compute stream on every copied tensor, so
+    the caching allocator cannot hand a chunk's memory to another
+    allocation while kernels that read it are still queued."""
 
     def __init__(self, device: torch.device, stats: Optional[StreamStats]):
         self.device = device
-        self.side = torch.cuda.Stream(device)
+        self.side = _side_stream(device)
         self.stats = stats
 
     def upload(self, host):
@@ -285,8 +303,8 @@ class _Uploader:
 
 def _host_chunks(load_chunk, num_chunks: int, prefetch: int) -> Iterator:
     """``load_chunk(i)`` for i in order, ``None`` results skipped: on the
-    host-IO pool when it has more than one worker, else on one prefetching
-    thread.  A worker's error re-raises at its position; abandoning the
+    host-IO pool's shared executor (one across passes) when it has more
+    than one worker, else on one prefetching thread.  A worker's error re-raises at its position; abandoning the
     iterator cancels the loads not yet started."""
     from photon_tpu_torch.utils.io_pool import io_threads, map_ordered
 
@@ -296,7 +314,7 @@ def _host_chunks(load_chunk, num_chunks: int, prefetch: int) -> Iterator:
     if workers > 1 and num_chunks > 1 and prefetch >= 2:
         yield from (c for c in map_ordered(
             load_chunk, range(num_chunks),
-            workers=min(workers, prefetch), window=prefetch,
+            workers=min(workers, prefetch), window=prefetch, persistent=True,
         ) if c is not None)
         return
     q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
@@ -343,12 +361,63 @@ def _host_chunks(load_chunk, num_chunks: int, prefetch: int) -> Iterator:
                 break
 
 
+class DeviceWindow:
+    """A bound on the chunks :func:`stream_chunks` holds on a card, and the
+    most bytes it held, kept across the passes it serves.
+
+    A chunk handed to the consumer is released once the compute stream has
+    passed the consumer's return from the chunk after it: by then the
+    consumer has dropped the chunk, and the allocator's release event for
+    it (``record_stream``), queued before the next chunk's work, has
+    completed.  A pass's end releases every chunk it holds.  :meth:`admit`
+    runs before a chunk's copy is allocated: it polls the oldest release,
+    waits for it while ``chunks`` would be live, and records the bytes live
+    then.  So ``peak_bytes`` comes from the events, not from the bound: a
+    consumer that ran ahead of the card would show in it.  ``chunks`` is at
+    least 3 (the chunk being consumed, the one staged behind it and the new
+    one), so the card has a chunk's work queued while the host waits."""
+
+    def __init__(self, chunks: int):
+        if chunks < 3:
+            raise ValueError(f"a device window holds at least 3 chunks, got {chunks}")
+        self.chunks = int(chunks)
+        self.peak_bytes = 0
+        self.waits = 0  # admissions that waited for the card
+        self._live: deque = deque()  # [nbytes, release event or None], upload order
+
+    def admit(self, nbytes: int) -> None:
+        live = self._live
+        while live and live[0][1] is not None:
+            if not live[0][1].query():
+                if len(live) < self.chunks:
+                    break
+                # host-sync: the residency bound, a wait for the card to
+                # pass the oldest chunk's release.
+                live[0][1].synchronize()
+                self.waits += 1
+            live.popleft()
+        live.append([nbytes, None])
+        self.peak_bytes = max(self.peak_bytes, sum(b for b, _ in live))
+
+    def release(self, stream, every: bool = False) -> None:
+        """Release the oldest unreleased chunk (``every``: all of them) at
+        ``stream``'s current point."""
+        event = torch.cuda.Event()
+        event.record(stream)
+        for entry in self._live:
+            if entry[1] is None:
+                entry[1] = event
+                if not every:
+                    return
+
+
 def stream_chunks(
     load_chunk: Callable[[int], Optional[object]],
     num_chunks: int,
     prefetch: int = 2,
     device: Optional[torch.device] = None,
     stats: Optional[StreamStats] = None,
+    window: Optional[DeviceWindow] = None,
 ) -> Iterator:
     """Chunks ``load_chunk(0..num_chunks-1)`` in order, loaded ahead of the
     consumer.
@@ -361,8 +430,11 @@ def stream_chunks(
     of chunk i+1 overlaps the kernels of chunk i; the compute stream waits
     for a chunk's copy only when it reaches it.  Without a device the host
     chunks are yielded as they are.  ``stats`` records the pass
-    (:class:`StreamStats`)."""
+    (:class:`StreamStats`).  A ``window`` (:class:`DeviceWindow`) bounds
+    the chunks on the card: the host waits before a copy rather than
+    queue the copies of a whole pass ahead of the card's work."""
     host = _host_chunks(load_chunk, num_chunks, prefetch)
+    compute = None
     if stats is not None:
         stats.rss_start_bytes = stats.rss_peak_bytes = rss_bytes()
 
@@ -387,17 +459,26 @@ def stream_chunks(
                     chunk, lambda t: t.to(device))
             return
         uploader = _Uploader(torch.device(device), stats)
+        compute = torch.cuda.current_stream(uploader.device)
         pending = None
+        handed = 0
         for chunk in arrivals():
+            if window is not None:
+                window.admit(sum(t.nbytes for t in batch_tensors(chunk)))
             staged = uploader.upload(chunk)
             del chunk
             if pending is not None:
                 yield uploader.ready(pending)
+                handed += 1
+                if window is not None and handed > 1:
+                    window.release(compute)
             pending = staged
         if pending is not None:
             staged, pending = pending, None
             yield uploader.ready(staged)
     finally:
+        if window is not None and compute is not None:
+            window.release(compute, every=True)
         host.close()
 
 

@@ -41,9 +41,18 @@ watchdog.  ``--backend gpu``
 runs on the host.  The run report (``<output-dir>/telemetry/``) carries
 the entity solves' routes and bins.
 
+Out-of-core GAME: ``--stream-chunks ROWS`` trains with the streamed
+descent (``game/stream_descent.py``): the rows in ROWS-row chunks, the
+score tables as host tiles, each chunk copied to the device one ahead of
+its compute, so device residency is bounded by the chunk window.
+``--max-resident-mb`` turns it on by itself when the resident fit's
+estimate exceeds the budget, with the chunk size whose window fits it.
+Checkpoints then carry the mid-epoch chunk cursor.
+
 Flags of the reference that the port does not carry yet raise, naming
-their ROADMAP.md queue 1 item: streaming (9), tuning and multi-process runs
-(10), ``--dtype`` other than float32 (9), and the coordinate key
+their ROADMAP.md queue 1 item: the disk tier (``--max-host-mb``,
+``--spill-dir``, ``--tile-dtype``) and ``--dtype`` other than float32
+(9.3), tuning and multi-process runs (10), and the coordinate key
 ``row_split`` (10).
 """
 
@@ -61,8 +70,6 @@ from photon_tpu_torch.drivers import common
 # (flag, its ROADMAP.md queue 1 item, what waits there): given at all,
 # each raises.
 _NOT_PORTED = (
-    ("stream_chunks", 9.2, "streamed GAME training"),
-    ("max_resident_mb", 9.2, "streamed GAME training"),
     ("max_host_mb", 9.3, "the disk-backed tile store"),
     ("spill_dir", 9.3, "the disk-backed tile store"),
     ("tile_dtype", 9.3, "the disk-backed tile store"),
@@ -112,6 +119,16 @@ def build_parser() -> argparse.ArgumentParser:
                    "retrained coordinate and reads the metrics once per "
                    "iteration, 'host' scores the whole model on the host; "
                    "'auto' follows --residuals")
+    p.add_argument("--stream-chunks", type=int, default=None, metavar="ROWS",
+                   help="out-of-core GAME: the streamed descent, rows in "
+                   "ROWS-row chunks, score tables tiled in host memory, each "
+                   "chunk copied to the device one ahead of its compute "
+                   "(device residency bounded by the chunk window).  Replaces "
+                   "--residuals/--validation-pipeline")
+    p.add_argument("--max-resident-mb", type=float, default=None,
+                   help="device budget in MB: when the resident fit's estimate "
+                   "exceeds it, streaming turns on with a chunk size whose "
+                   "in-flight window fits the budget (--stream-chunks wins)")
     p.add_argument("--evaluators", default=None,
                    help="comma-separated evaluator names; default per task")
     p.add_argument("--model-format", default="avro", choices=("avro", "json"))
@@ -358,6 +375,33 @@ def _validate_resume(args, specs) -> None:
             "--resume auto for sweeps")
 
 
+def _stream_rows(args, data, n_coordinates: int, session, logger):
+    """The chunk size of a streamed fit, or None for a resident one: the
+    reference's rule (``photon_tpu/drivers/train_game.py:543-564``)."""
+    from photon_tpu_torch.game.tiles import chunk_rows_for_budget, resident_bytes_estimate
+
+    rows = None
+    if args.stream_chunks is not None:
+        if args.stream_chunks < 1:
+            raise ValueError(f"--stream-chunks must be >= 1, got {args.stream_chunks}")
+        rows = args.stream_chunks
+    elif args.max_resident_mb is not None:
+        estimate = resident_bytes_estimate(data, n_coordinates=n_coordinates)
+        session.gauge("stream.resident_estimate_bytes").set(estimate)
+        if estimate > int(args.max_resident_mb * (1 << 20)):
+            rows = chunk_rows_for_budget(data, args.max_resident_mb)
+            logger.info("resident estimate %.1f MB exceeds --max-resident-mb %.1f: "
+                        "streaming enabled with %d-row chunks",
+                        estimate / (1 << 20), args.max_resident_mb, rows)
+    if rows:
+        if (args.residuals not in (None, "auto")
+                or args.validation_pipeline not in (None, "auto")):
+            logger.info("streamed descent replaces --residuals/"
+                        "--validation-pipeline; ignoring the explicit flags")
+        session.gauge("stream.chunk_rows").set(rows)
+    return rows
+
+
 def _model_checkpoint_fn(args, index_maps, logger):
     """``--checkpoint``: each iteration's model goes into the slot that
     ``<output-dir>/checkpoint/latest`` does not point to, then the link is
@@ -445,11 +489,16 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
         initial_model, _ = load_game_model(args.initial_model, index_maps, device=device)
     locked = ([c.strip() for c in args.locked_coordinates.split(",") if c.strip()]
               if args.locked_coordinates else [])
+    stream_rows = _stream_rows(args, data, len(specs), session, logger)
     estimator = GameEstimator(
         args.task, data, validation_data=val_data,
         evaluators=evaluators if val_data is not None else None,
-        device=device, logger=logger, residual_mode=args.residuals,
-        validation_mode=args.validation_pipeline, telemetry=session,
+        device=device, logger=logger,
+        # The streamed estimator refuses explicit engine modes; the flags
+        # were reported above.
+        residual_mode=None if stream_rows else args.residuals,
+        validation_mode=None if stream_rows else args.validation_pipeline,
+        stream_chunks=stream_rows, telemetry=session,
     )
     max_quarantined = None if args.max_quarantined < 0 else args.max_quarantined
     checkpoint_fn = (_model_checkpoint_fn(args, index_maps, logger)
@@ -503,6 +552,7 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
             for r in results
         ],
         "phase_times": logger.phase_times,
+        "stream_chunks": stream_rows,
         "backend": args.backend,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),

@@ -36,8 +36,10 @@ over runs that disagreed (PERF.md, fault tolerance).
 resident GLM sweep snapshots once per finished regularization weight
 (``drivers/train.py``) and the streamed L-BFGS loop publishes every
 ``checkpoint_every`` iterations and at its end (``data/streaming.py``).  The
-streamed GAME cursor waits in ROADMAP.md queue 1, item 9.2, the mesh
-argument of the loads in item 10.
+streamed GAME descent (``game/stream_descent.py``) saves a
+:class:`DescentState` after every coordinate with its mid-epoch cursor in
+``stream``.  The mesh argument of the loads waits in ROADMAP.md queue 1,
+item 10.
 """
 
 from __future__ import annotations
@@ -326,9 +328,9 @@ class DescentState:
     residual_rows: Dict[str, object]
     quarantined: int
     fingerprint: dict
-    # The streamed GAME loop's mid-epoch cursor (ROADMAP.md queue 1, item 9.2);
-    # None for resident descents, and kept so the payload is the
-    # reference's.
+    # The streamed GAME loop's mid-epoch cursor: ``chunk_rows``, ``cursor``
+    # (coordinates of iteration + 1 done), ``seq``, the per-chunk
+    # ``tile_digests`` and ``spilled``; None for resident descents.
     stream: Optional[dict] = None
 
     @property

@@ -15,8 +15,15 @@ coordinates locked at it, checkpoint every descent run under
 there; a configuration whose checkpoint covers its last iteration is
 rebuilt from it without a fit.  :meth:`GameEstimator.onboard_training_data`
 grows the cached device layouts in place for rows appended between fits
-(the online loop's growth step).  Streamed and out-of-core GAME fits
-(ROADMAP.md queue 1, items 9.2 and 9.3) and the mesh (item 10) raise.
+(the online loop's growth step).
+
+``stream_chunks`` (rows a chunk) switches every fit to the streamed
+descent (``game/stream_descent.py``): the training data and the score
+state stay in host memory as row chunks and score tiles, and the chunks
+stream to the device one ahead of the compute, so device residency is
+bounded by the chunk window, not the dataset.  The disk-backed tile store
+(``spill_dir``, ROADMAP.md queue 1, item 9.3) and the mesh (item 10)
+raise.
 """
 
 from __future__ import annotations
@@ -107,8 +114,19 @@ class GameEstimator:
         # Keyed by feature shard; applies to the fixed-effect coordinates on
         # that shard (random-effect coordinates refuse it).
         self.normalization = normalization or {}
+        self.stream_chunks = None
         if stream_chunks is not None:
-            raise _not_ported("streamed GAME training", 9.2)
+            if int(stream_chunks) < 1:
+                raise ValueError(f"stream_chunks must be >= 1, got {stream_chunks}")
+            if (residual_mode not in (None, "auto")
+                    or validation_mode not in (None, "auto")):
+                # An explicitly requested resident engine must not be
+                # replaced by the tiled tables without a word.
+                raise ValueError(
+                    "stream_chunks replaces the residual/validation engines; "
+                    "drop the explicit residual_mode/validation_mode (got "
+                    f"{residual_mode!r}/{validation_mode!r})")
+            self.stream_chunks = int(stream_chunks)
         if spill_dir is not None:
             raise _not_ported("the disk-backed tile store", 9.3)
         self.task_type = task_type
@@ -124,6 +142,10 @@ class GameEstimator:
         self.telemetry = telemetry or NULL_SESSION
         self._device_data_cache: Dict[tuple, object] = {}
         self._validation_cache: Optional[DeviceScoringCache] = None
+        # Streamed mode: the host bin layouts and one chunk streamer, shared
+        # across the sweep (its stall and overlap counters accumulate).
+        self._stream_data_cache: Dict[tuple, object] = {}
+        self._streamer = None
 
     def _validation_scoring_cache(self) -> Optional[DeviceScoringCache]:
         """The shared validation cache when validation runs on the device."""
@@ -171,6 +193,56 @@ class GameEstimator:
             coord.telemetry = self.telemetry
         return coords
 
+    # -- streamed mode --------------------------------------------------------
+    def _stream_plan(self):
+        from photon_tpu_torch.game.tiles import ChunkPlan
+
+        return ChunkPlan(self.training_data.num_examples, self.stream_chunks)
+
+    def _stream_streamer(self):
+        from photon_tpu_torch.game.tiles import ChunkStreamer
+
+        if self._streamer is None:
+            self._streamer = ChunkStreamer(self.telemetry, device=self.device)
+        return self._streamer
+
+    def _build_stream_coordinates(self, config: GameOptimizationConfiguration) -> dict:
+        """The streamed coordinates: nothing uploads at build time; fixed
+        effects stream row chunks, random effects entity sub-blocks of host
+        bin layouts cached across the sweep.  Factored coordinates raise."""
+        from photon_tpu_torch.game.coordinate import RandomEffectCoordinateConfig
+        from photon_tpu_torch.game.stream_descent import (
+            StreamedFixedEffectCoordinate,
+            StreamedRandomEffectCoordinate,
+            StreamedRandomEffectHostData,
+        )
+
+        plan, streamer = self._stream_plan(), self._stream_streamer()
+        coords = {}
+        for name, cc in config.coordinates.items():
+            if isinstance(cc, FixedEffectCoordinateConfig):
+                coords[name] = StreamedFixedEffectCoordinate(
+                    self.training_data, cc, self.task_type, plan, streamer,
+                    normalization=self.normalization.get(cc.shard_name))
+            elif isinstance(cc, FactoredRandomEffectCoordinateConfig):
+                raise ValueError(
+                    f"coordinate {name!r}: factored_random coordinates have no "
+                    "streamed path (the pooled latent solve is whole-dataset); "
+                    "train resident")
+            elif isinstance(cc, RandomEffectCoordinateConfig):
+                if cc.data_key not in self._stream_data_cache:
+                    self._stream_data_cache[cc.data_key] = StreamedRandomEffectHostData(
+                        self.training_data, cc)
+                coords[name] = StreamedRandomEffectCoordinate(
+                    self.training_data, cc, self.task_type, plan, streamer,
+                    host_data=self._stream_data_cache[cc.data_key])
+            else:
+                raise TypeError(f"unknown coordinate config {type(cc)!r}")
+        for name, coord in coords.items():
+            coord.name = coord.fault_name = name
+            coord.telemetry = self.telemetry
+        return coords
+
     def entity_vocabularies(self) -> Dict[str, object]:
         """The current entity vocabulary per id column, from the live
         random-effect layouts (the onboarded state)."""
@@ -212,22 +284,32 @@ class GameEstimator:
                     del self._device_data_cache[key]
                     self.telemetry.counter(
                         "estimator.device_data_rebuilds", kind="fixed").inc()
+        # The streamed host layouts have no in-place growth: they rebuild at
+        # the grown row count on the next fit.
+        self._stream_data_cache.clear()
         self.training_data = data
 
     def _expected_fingerprint(self, config: GameOptimizationConfiguration,
                               config_key: str, locked, warm_start: bool) -> dict:
         from photon_tpu_torch.fault.checkpoint import descent_fingerprint
+        from photon_tpu_torch.game.stream_descent import stream_fingerprint
 
         has_validation = (self.validation_data is not None
                           and self.evaluators is not None)
-        return descent_fingerprint(
-            self.task_type, config.coordinates, self.training_data.num_examples,
-            resolve_residual_mode(self.residual_mode), config_key=config_key,
+        common = dict(
+            config_key=config_key,
             validation_key=self.evaluators.primary.name if has_validation else None,
             locked=locked, warm_start=warm_start,
             coordinate_kinds={name: getattr(cc, "kind", type(cc).__name__)
                               for name, cc in config.coordinates.items()},
         )
+        if self.stream_chunks:
+            return stream_fingerprint(self.task_type, config.coordinates,
+                                      self.training_data.num_examples,
+                                      self.stream_chunks, **common)
+        return descent_fingerprint(
+            self.task_type, config.coordinates, self.training_data.num_examples,
+            resolve_residual_mode(self.residual_mode), **common)
 
     def fit(
         self,
@@ -307,14 +389,24 @@ class GameEstimator:
                 results.append(GameResult(model=best, metrics=descent.best_metrics,
                                           configuration=config, descent=descent))
                 continue
-            loop = CoordinateDescent(
-                self._build_coordinates(config), self.task_type,
-                self.training_data, self.validation_data, self.evaluators,
-                logger=self.logger, residual_mode=self.residual_mode,
-                validation_mode=self.validation_mode,
-                validation_cache=self._validation_scoring_cache(),
-                telemetry=self.telemetry,
-            )
+            if self.stream_chunks:
+                from photon_tpu_torch.game.stream_descent import StreamedCoordinateDescent
+
+                loop = StreamedCoordinateDescent(
+                    self._build_stream_coordinates(config), self.task_type,
+                    self.training_data, self.validation_data, self.evaluators,
+                    plan=self._stream_plan(), streamer=self._stream_streamer(),
+                    logger=self.logger, telemetry=self.telemetry,
+                )
+            else:
+                loop = CoordinateDescent(
+                    self._build_coordinates(config), self.task_type,
+                    self.training_data, self.validation_data, self.evaluators,
+                    logger=self.logger, residual_mode=self.residual_mode,
+                    validation_mode=self.validation_mode,
+                    validation_cache=self._validation_scoring_cache(),
+                    telemetry=self.telemetry,
+                )
             descent = loop.run(
                 config.descent_iterations, initial_model=initial_model,
                 locked_coordinates=locked_coordinates,

@@ -31,6 +31,10 @@ PACKAGE = Path(__file__).resolve().parent.parent
 DEFAULT_FILES = (
     "game/descent.py",
     "game/batched_solve.py",
+    # The streamed descent moves score data per chunk by design, in bulk
+    # copies that carry a marker; its scalar reads are the resident ones.
+    "game/tiles.py",
+    "game/stream_descent.py",
     "core/optimizers",
     "serving/scorer.py",
     "serving/batcher.py",

@@ -80,6 +80,22 @@ def submit(fn: Callable[[], R], pool: str = "default"):
         return ex.submit(fn)
 
 
+_shared_pools: dict = {}
+
+
+def shared_pool(workers: int) -> ThreadPoolExecutor:
+    """A process-lifetime executor of ``workers`` threads, for pipelines
+    that map once a pass (a streamed fit maps its chunk loads at every
+    objective evaluation): a pool a pass would start its threads anew each
+    time, and a thread's first pinned allocation costs milliseconds."""
+    with _submit_lock:
+        ex = _shared_pools.get(workers)
+        if ex is None:
+            ex = _shared_pools[workers] = ThreadPoolExecutor(
+                max_workers=workers, thread_name_prefix=f"photon-io-shared-{workers}")
+        return ex
+
+
 def map_ordered(
     fn: Callable[[T], R],
     items: Sequence[T] | Iterable[T],
@@ -87,6 +103,7 @@ def map_ordered(
     window: Optional[int] = None,
     retry_site: Optional[str] = None,
     telemetry=None,
+    persistent: bool = False,
 ) -> Iterator[R]:
     """``map(fn, items)`` with up to ``workers`` concurrent calls, results
     yielded strictly in input order, and at most ``window`` calls in flight
@@ -115,6 +132,9 @@ def map_ordered(
     RESULTS are resident at once (plus ``workers`` in-progress calls'
     transient memory) — map memory-heavy work through a reducer so the
     window holds summaries, not payloads.
+
+    ``persistent`` runs the calls on :func:`shared_pool` instead of a pool
+    of this call's own; ``fn`` must then not map on the same pool itself.
     """
     items = list(items)
     if retry_site is not None:
@@ -156,9 +176,9 @@ def map_ordered(
             in_flight_peak = n
             telemetry.gauge("io_pool.in_flight_peak").set(n)
 
-    ex = ThreadPoolExecutor(max_workers=workers)
+    ex = shared_pool(workers) if persistent else ThreadPoolExecutor(max_workers=workers)
+    futs: deque = deque()
     try:
-        futs: deque = deque()
         idx = 0
         while futs or idx < len(items):
             while idx < len(items) and len(futs) < window:
@@ -169,4 +189,8 @@ def map_ordered(
             _note_in_flight(len(futs))
             yield result
     finally:
-        ex.shutdown(wait=False, cancel_futures=True)
+        if persistent:
+            for f in futs:
+                f.cancel()
+        else:
+            ex.shutdown(wait=False, cancel_futures=True)

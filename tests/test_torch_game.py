@@ -343,7 +343,8 @@ def test_unported_library_paths_raise(tmp_path):
     rand = coordinate.RandomEffectCoordinateConfig("re0", "re0", problem)
     cases = [
         (lambda: GameEstimator("logistic_regression", data, mesh=object()), "item 10"),
-        (lambda: GameEstimator("logistic_regression", data, stream_chunks=4), "item 9"),
+        (lambda: GameEstimator("logistic_regression", data, stream_chunks=4,
+                               spill_dir="spill"), "item 9"),
         (lambda: coordinate.RandomEffectCoordinateConfig("r", "r", row_split=True),
          "item 10"),
     ]

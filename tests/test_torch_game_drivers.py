@@ -229,8 +229,8 @@ def test_game_fits_match_reference(slice_runs, tmp_path, task, extra_coords):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--stream-chunks", "100"], "item 9"),
-    (["--max-resident-mb", "1"], "item 9"),
+    (["--max-host-mb", "1"], "item 9"),
+    (["--spill-dir", "spill"], "item 9"),
     (["--tuning", "random"], "item 10"),
     (["--coordinator", "localhost:1"], "item 10"),
     (["--dtype", "bfloat16"], "item 9"),

@@ -63,7 +63,8 @@ def test_every_module_imports_without_jax():
         "        'photon_tpu_torch.game.lowp', 'photon_tpu_torch.drivers.score_game',\n"
         "        'photon_tpu_torch.drivers.serve_game', 'photon_tpu_torch.data.streaming',\n"
         "        'photon_tpu_torch.data.stream_layouts', 'photon_tpu_torch.utils.caches',\n"
-        "        'photon_tpu_torch.utils.io_pool'}\n"
+        "        'photon_tpu_torch.utils.io_pool', 'photon_tpu_torch.game.tiles',\n"
+        "        'photon_tpu_torch.game.stream_descent'}\n"
         "assert want <= set(mods), sorted(want - set(mods))\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'photon_tpu', 'ml_dtypes')\n"
@@ -128,6 +129,20 @@ def test_serving_drivers_default_to_the_card(monkeypatch, tmp_path, driver):
     assert args.backend == "gpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.run(args)
+
+
+def test_streamed_train_game_defaults_to_the_card(monkeypatch, tmp_path):
+    from photon_tpu_torch.drivers import train_game
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = train_game.build_parser().parse_args([
+        "--input", "synthetic-game:8:4:3:2", "--stream-chunks", "5",
+        "--coordinate", "fixed:type=fixed,shard=global",
+        "--output-dir", str(tmp_path),
+    ])
+    assert args.backend == "gpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_game.run(args)
 
 
 def test_cpu_tensors_take_the_plain_version():
