@@ -45,7 +45,15 @@ Phases (any failure exits non-zero and prints no result line):
    lengths 1, 31, 32, 33, 4095, 4096, 4097 and 2^25 + 3, timed beside its
    bound, ``torch.cumsum(x, 0, dtype=torch.float64)`` (the one PyTorch call
    that computes its function, held to the same gate) and the float32
-   ``torch.cumsum``;
+   ``torch.cumsum``; and the bf16 forms on bf16 inputs against their plain
+   versions on the same inputs: K1 and the row scatter on the inputs of
+   ``BF16_FUSED_CASES`` and ``BF16_ROW_SCATTER_CASES`` with the values
+   rounded to bf16, under their f32 forms' gates and against the f32 form
+   on the widened values; K3 bit for bit on both draws' layouts, K4-K6 bit
+   for bit against the plain version and the library call on the main
+   path's routes (K4 and K6 in both forms) and at the edge shapes
+   (``check_bf16_forms``).  The main path's layouts and routes build in
+   background threads beside the first checks;
 3. the main path: ``GlmOptimizationProblem.run`` (L-BFGS, logistic + L2) at
    the headline GLM shape n=2^20, k=32, d=2^18 on the ``fused``, ``pallas``
    and ``xchg`` routes, uniform and zipf ids (and one ``value_and_grad`` on
@@ -212,6 +220,27 @@ Phases (any failure exits non-zero and prints no result line):
    random effect of iteration 1 and resumed with ``--resume auto``: the
    resumed model equal to the uninterrupted one (a gate); and one
    ``--max-resident-mb`` run whose budget turns streaming on.
+13. bf16 feature storage and the half-width exchange payload, every count
+   (the bf16 forms' apart) set to 0 just before each fit or run and read
+   after: (a) right after phase 3, on phase 2's batches converted by
+   ``batch_astype`` (no layout or route rebuilt): per draw and route
+   (``BF16_ROUTES``: ``fused``, ``pallas``, ``xchg`` with the float32 and
+   then the bfloat16 payload, ``benes`` on uniform ids) the value, gradient
+   and one Hv with the kernels against the plain versions on the bf16 batch
+   (phase 2's gates), then 10 L-BFGS and 5 TRON (Poisson) iterations on the
+   f32 and the bf16 batch in turns (``BF16_TURNS``, medians): steps/s, s an
+   iteration, ms a ``value_and_grad`` and an Hv, launches; each bf16 fit
+   within 2e-2 of the f32 fit, the f32-payload routes' bf16 fits within
+   phase 3's route gate of ``fused``; every bf16 form launched; then the
+   bf16 forms' times beside their plain versions, a library call, their
+   bounds and the f32 form's time in the same call; (b) ``train --dtype
+   bfloat16`` on a1a on the card against ``--dtype float32`` (final values
+   2e-2, AUC 0.05), ``train --stream --dtype bfloat16`` raising; (c)
+   ``train_game --dtype bfloat16`` on phase 6's Avro file and split,
+   resident on ``fused`` and ``pallas`` and ``--stream-chunks 50000``, each
+   on the card and the host: card and host under phase 6's gates, the AUC
+   within 0.05 of the f32 run (phase 6's, phase 12's), the value streams'
+   and a chunk's bytes f32 against bf16.  (b) and (c) run after phase 12.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
@@ -219,13 +248,15 @@ that the training paths launch none of them; K1's and K2's
 ``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's,
 ``phase9_launches`` phase 9's, ``phase10_launches`` phase 10's, every
 kernel's ``phase11_launches`` phase 11's and ``phase12_launches`` phase
-12's; CS's ``launches`` count phase 11, its main path); the last
+12's; CS's ``launches`` count phase 11, its main path; the bf16 forms'
+entries, ``*_bf16``, count phase 13 (a), their main path); the last
 line is ``{"ok": true, "device":
 {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -340,14 +371,19 @@ def make_batch(dist: str, seed: int, device):
     )
 
 
-def gate_report(name, got, ref, rtol, mag=None) -> float:
+def gate_report(name, got, ref, rtol, mag=None, ulp=SUM_ULPS * F32_ULP,
+                extra=None) -> float:
     """Hold ``got`` to ``ref`` element by element (see SUM_ULPS above);
     ``mag`` is the per-element sum of term magnitudes, None for a scalar
-    held to ``rtol`` alone.  Returns the largest absolute error."""
+    held to ``rtol`` alone; ``ulp`` the share of it a term's rounding may
+    move; ``extra`` a per-element amount by which the two sides' terms are
+    known to differ.  Returns the largest absolute error."""
     got = got.double().cpu().numpy().reshape(-1)
     ref = ref.double().cpu().numpy().reshape(-1)
     atol = (np.zeros_like(ref) if mag is None
-            else SUM_ULPS * F32_ULP * mag.double().cpu().numpy().reshape(-1))
+            else ulp * mag.double().cpu().numpy().reshape(-1))
+    if extra is not None:
+        atol = atol + extra.double().cpu().numpy().reshape(-1)
     err = np.abs(got - ref)
     tol = rtol * np.abs(ref) + atol
     ok = bool(np.all(err <= tol))  # NaN fails
@@ -522,13 +558,13 @@ def fused_inputs(rng, loss_name: str, n: int, k: int, d: int, draw: str, dev) ->
     return [torch.as_tensor(a, device=dev) for a in (w, ids, vals, label, offset, weight)]
 
 
-def gate_fused(tag: str, loss, args, got) -> float:
-    """K1's (value, grad) against the plain version's under the value and
-    gradient gates; returns the largest absolute error."""
+def gate_fused(tag: str, loss, args, got, ref=None) -> float:
+    """K1's (value, grad) against the plain version's (or ``ref``'s) under
+    the value and gradient gates; returns the largest absolute error."""
     from photon_tpu_torch.data.batch import gather_dot
     from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad_plain
 
-    v_p, g_p = fused_value_and_grad_plain(loss, *args)
+    v_p, g_p = fused_value_and_grad_plain(loss, *args) if ref is None else ref
     w_t, ids_t, vals_t, label_t, offset_t, weight_t = args
     coeff = weight_t * loss.d1(gather_dot(w_t, ids_t, vals_t) + offset_t, label_t)
     mag = torch.zeros_like(w_t).index_add_(
@@ -565,7 +601,7 @@ def check_fused_kernel(dev) -> dict:
     from photon_tpu_torch.core.losses import get_loss
     from photon_tpu_torch.ops import fused_sparse as fs
 
-    worst = 0.0
+    worst = worst_bf16 = 0.0
     ragged = None
     for i, (loss_name, draw, n, k, d) in enumerate(FUSED_CASES):
         rng = np.random.default_rng(100 + i)
@@ -579,6 +615,8 @@ def check_fused_kernel(dev) -> dict:
         for call, got in (("first call", first), ("second call", second)):
             worst = max(worst, gate_fused(f"{tag} {call}", loss, args, got))
         hot_ids_equal(tag, hot, second[1], third[1])
+        if (loss_name, draw, n, k, d) in BF16_FUSED_CASES:
+            worst_bf16 = max(worst_bf16, check_fused_bf16(tag, loss, args))
         expect_hot = {"uniform": 0, "candidates": fs.HOT_SLOTS, "all_hot": d, "dense": d}
         if expect_hot.get(draw, hot.n_hot) != hot.n_hot or (draw != "uniform" and not hot.n_hot):
             raise AssertionError(f"{tag}: unexpected hot set size {hot.n_hot}")
@@ -626,7 +664,28 @@ def check_fused_kernel(dev) -> dict:
     v_again, _ = fs.fused_value_and_grad(loss, *args)
     if float(v_again) != float(v_k):
         raise AssertionError("fused_sparse: value changed after a raising call")
-    return {"max_abs_err": worst}
+    return {"max_abs_err": worst, "bf16_max_abs_err": worst_bf16}
+
+
+def check_fused_bf16(tag: str, loss, args) -> float:
+    """K1's bf16 form on a case's own inputs with the values rounded to
+    bf16: against its plain version on the same bf16 inputs, first and
+    second call, and against the f32 form on the widened values, under
+    K1's gates."""
+    from photon_tpu_torch.ops import fused_sparse as fs
+
+    b16 = [*args[:2], args[2].to(torch.bfloat16), *args[3:]]
+    wide = [*args[:2], b16[2].float(), *args[3:]]
+    before = fs.fused_value_and_grad.bf16_launches
+    first = fs.fused_value_and_grad(loss, *b16)
+    second = fs.fused_value_and_grad(loss, *b16)
+    f32 = fs.fused_value_and_grad(loss, *wide)
+    if fs.fused_value_and_grad.bf16_launches - before != 2:
+        raise AssertionError(f"{tag}: the bf16 form did not launch")
+    worst = max(gate_fused(f"{tag} bf16 {call}", loss, b16, got)
+                for call, got in (("first call", first), ("second call", second)))
+    return max(worst, gate_fused(f"{tag} bf16 vs the f32 form on the widened values",
+                                 loss, wide, second, f32))
 
 
 # The row scatter's cases in phase 2: (ids draw, r, nonzeros per row).
@@ -642,7 +701,7 @@ def check_row_scatter(dev) -> dict:
     between the second and a third.  Then an id outside [0, d) raises."""
     from photon_tpu_torch.ops import fused_sparse as fs
 
-    worst = 0.0
+    worst = worst_bf16 = 0.0
     for i, (dist, r_kind, k) in enumerate(ROW_SCATTER_CASES):
         rng = np.random.default_rng(300 + i)
         n = N if k == K else 1 << 16
@@ -661,6 +720,19 @@ def check_row_scatter(dev) -> dict:
         tag = f"row_scatter[{dist}, {r_kind} r, n={n}, k={k}, n_hot={hot.n_hot}]"
         for call, got in (("first call", first), ("second call", second)):
             worst = max(worst, gate_report(f"{tag} {call}", got, ref, GRAD_RTOL, mag))
+        if r_kind == "random" and (dist, k) in BF16_ROW_SCATTER_CASES:
+            # The bf16 form on the same inputs, the values rounded to bf16.
+            v16 = vals_t.to(torch.bfloat16)
+            ref16 = fs.row_scatter_plain(r_t, ids_t, v16, D)
+            mag16 = fs.row_scatter_plain(r_t.abs(), ids_t, v16.abs(), D)
+            got16 = [fs.row_scatter(r_t, ids_t, v16, D) for _ in range(2)]
+            f32 = fs.row_scatter(r_t, ids_t, v16.float(), D)
+            torch.cuda.synchronize()
+            for call, got, want in (("first call", got16[0], ref16),
+                                    ("second call", got16[1], ref16),
+                                    ("vs the f32 form on the widened values", got16[1], f32)):
+                worst_bf16 = max(worst_bf16, gate_report(
+                    f"{tag} bf16 {call}", got, want, GRAD_RTOL, mag16))
         hot_ids_equal(tag, hot, second, third)
         if (hot.n_hot == 0) != (dist == "uniform"):
             raise AssertionError(f"{tag}: unexpected hot set size")
@@ -672,7 +744,7 @@ def check_row_scatter(dev) -> dict:
         log(f"  row_scatter[id {D}]: raised IndexError ({e}) ok")
     else:
         raise AssertionError("row_scatter: an id outside [0, d) did not raise")
-    return {"max_abs_err": worst}
+    return {"max_abs_err": worst, "bf16_max_abs_err": worst_bf16}
 
 
 def check_position_kernel(dev) -> dict:
@@ -885,46 +957,76 @@ def prepare_batches(dev) -> dict:
     not (zipf ids put a hot key's consecutive entries in one destination
     window).  The uniform batch also carries the ``benes`` routes.  When
     neither draw takes the colored route, the uniform batch gets one too
-    (``force_colored``), so that K5 runs on a path."""
+    (``force_colored``), so that K5 runs on a path.  The builds run side by
+    side in workers (``main`` runs this beside phase 2's first checks), so
+    the seconds each reports overlap the others'."""
     from photon_tpu_torch.data.batch import attach_feature_major
     from photon_tpu_torch.ops import vperm
     from photon_tpu_torch.ops.benes import build_benes_aux
     from photon_tpu_torch.ops.slab_reduce import build_aligned_layout
 
-    out = {}
-    os.environ["PHOTON_SPARSE_GRAD"] = "xchg"
-    for dist in DISTS:
+    # Each attach's route build timed in its own thread (the builds overlap,
+    # so vperm.route_build_seconds, one global, cannot tell them apart).
+    route_seconds: dict = {}
+    build_xchg_aux = vperm.build_xchg_aux
+
+    def timed_build(*args, **kwargs):
+        t0 = time.monotonic()
+        aux = build_xchg_aux(*args, **kwargs)
+        route_seconds[threading.get_ident()] = time.monotonic() - t0
+        return aux
+
+    def attach(dist: str) -> dict:
         batch = make_batch(dist, seed=0, device=dev)
         t0 = time.monotonic()
         attached = attach_feature_major(batch, aligned_dim=D)
         torch.cuda.synchronize()
         attach_s = time.monotonic() - t0
+        route_s = route_seconds[threading.get_ident()]
         route = attached.xchg.route
-        out[dist] = {
-            "batch": batch, "attached": attached,
-            "route_kind": route_kind(route), "route_build_s": vperm.route_build_seconds,
-            "layout_build_s": attach_s - vperm.route_build_seconds,
-        }
-        log(f"  {dist}: layouts {out[dist]['layout_build_s']:.2f} s, "
-            f"{describe_route(route)} in {vperm.route_build_seconds:.2f} s")
-    os.environ.pop("PHOTON_SPARSE_GRAD", None)
-    uniform = out["uniform"]
-    ids = uniform["batch"].ids.cpu().numpy()
-    vals = uniform["batch"].vals.cpu().numpy()
-    layout = build_aligned_layout(ids, vals, D)
-    for dist in BENES_DISTS:
-        # The benes routes between the row-major stream and the slots of
-        # the same gradient layout (the builder is deterministic).
+        log(f"  {dist}: layouts {attach_s - route_s:.2f} s, {describe_route(route)} in "
+            f"{route_s:.2f} s")
+        return {"batch": batch, "attached": attached, "route_kind": route_kind(route),
+                "route_build_s": route_s, "layout_build_s": attach_s - route_s}
+
+    def benes_build(dist: str) -> dict:
+        """The benes routes between the draw's row-major stream and the
+        slots of its gradient layout (the batch and the layout builder are
+        deterministic: the same batch and layout as the attach's)."""
+        batch = make_batch(dist, seed=0, device=dev)
         t0 = time.monotonic()
+        ids = batch.ids.cpu().numpy()
+        vals = batch.vals.cpu().numpy()
+        layout = build_aligned_layout(ids, vals, D)
         aux = build_benes_aux(layout, N, K, device=dev)
         torch.cuda.synchronize()
-        prep = out[dist]
-        prep["benes_build_s"] = time.monotonic() - t0
+        return {"layout": layout, "ids": ids, "vals": vals, "aux": aux,
+                "seconds": time.monotonic() - t0}
+
+    # Each draw's attach and each benes build in a worker of its own: most
+    # of each is one thread's native edge coloring or numpy, so they run
+    # side by side; their seconds overlap.
+    os.environ["PHOTON_SPARSE_GRAD"] = "xchg"
+    vperm.build_xchg_aux = timed_build
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(DISTS) + len(BENES_DISTS)) as pool:
+            attaches = {dist: pool.submit(attach, dist) for dist in DISTS}
+            benes = {dist: pool.submit(benes_build, dist) for dist in BENES_DISTS}
+            out = {dist: future.result() for dist, future in attaches.items()}
+            benes = {dist: future.result() for dist, future in benes.items()}
+    finally:
+        vperm.build_xchg_aux = build_xchg_aux
+        os.environ.pop("PHOTON_SPARSE_GRAD", None)
+    for dist, built in benes.items():
+        aux, prep = built["aux"], out[dist]
+        prep["benes_build_s"] = built["seconds"]
         if aux.n_slots != prep["attached"].al.lo.numel():
             raise AssertionError("the benes route's slots differ from the batch layout's")
         prep["attached"] = prep["attached"]._replace(benes=aux)
         log(f"  {dist}: benes routes (grid {aux.to_slots.a} x {aux.to_slots.b}, "
             f"{aux.n_slots} slots) in {prep['benes_build_s']:.2f} s")
+    uniform = out["uniform"]
+    layout, ids, vals = (benes["uniform"][key] for key in ("layout", "ids", "vals"))
     if any(out[dist]["route_kind"] == "colored" for dist in DISTS):
         return out
     aux = vperm.build_xchg_aux(layout, ids, vals=vals, force_colored=True,
@@ -957,14 +1059,17 @@ def describe_route(route) -> str:
             f"{route.total} slots{extra})")
 
 
-def route_passes(route, dev) -> list:
+def route_passes(route, dev, dtype=torch.float32) -> list:
     """Every K4/K5/K6 launch of ``route``'s exchange as (kernel, kernel fn,
     plain fn, label, inputs, bytes moved), on random inputs of the launch's
-    shape."""
+    shape in ``dtype`` (float32, or bfloat16: the 2-byte forms of the
+    half-width payload).  Bytes: the moved elements, and the index planes
+    (1 + 2 + 1 bytes a slot for K4 and K6, 1 for K5)."""
     from photon_tpu_torch.ops import vperm as vp
 
     nc, ch = route.nc, route.ch
-    x = torch.randn(nc * ch, vp.LANES, device=dev)
+    e = torch.tensor([], dtype=dtype).element_size()
+    x = torch.randn(nc * ch, vp.LANES, device=dev).to(dtype)
     rows = nc * ch * vp.LANES
     chunk = ("vperm_chunk", vp.chunk_pass, vp.chunk_pass_plain)
     if route_kind(route) == "balanced":
@@ -973,23 +1078,24 @@ def route_passes(route, dev) -> list:
         passes = []
         if route.k_expand:
             width = vp.LANES // route.k_expand
-            dz2d = torch.randn(nc * ch, width, device=dev)
+            dz2d = torch.randn(nc * ch, width, device=dev).to(dtype)
             passes.append(("vperm_chunk_expand", vp.chunk_expand_pass,
                            vp.chunk_expand_pass_plain, "stage A (dz)",
                            (dz2d, route.a1, route.a2, route.a3, nc, ch),
-                           8 * rows + 4 * nc * ch * width))
+                           (4 + e) * rows + e * nc * ch * width))
         if nc > 1:
             passes.append((*chunk, "stage B",
-                           (x, route.b1, route.b2, route.b3, nc, ch), 12 * rows))
+                           (x, route.b1, route.b2, route.b3, nc, ch), (4 + 2 * e) * rows))
         passes.append((*chunk, "stage A (bake)",
-                       (x, route.a1, route.a2, route.a3, nc, ch), 12 * rows))
+                       (x, route.a1, route.a2, route.a3, nc, ch), (4 + 2 * e) * rows))
         return passes
-    passes = [(*chunk, "R1", (x, route.i1, route.i2, route.i3, nc, ch), 12 * rows)]
+    passes = [(*chunk, "R1", (x, route.i1, route.i2, route.i3, nc, ch),
+               (4 + 2 * e) * rows)]
     if nc > 1:
         passes += [
             ("vperm_lane", vp.lane_pass, vp.lane_pass_plain, "middle",
-             (x, route.c), 9 * rows),
-            (*chunk, "R2", (x, route.i4, route.i5, route.i6, nc, ch), 12 * rows),
+             (x, route.c), (1 + 2 * e) * rows),
+            (*chunk, "R2", (x, route.i4, route.i5, route.i6, nc, ch), (4 + 2 * e) * rows),
         ]
     return passes
 
@@ -1028,19 +1134,24 @@ def chunk_form_of(args) -> tuple:
 
 
 def save_vperm_counts():
-    """The vperm wrappers' launch counts (total and per form), to restore
-    after launches that only check or time a kernel."""
+    """The vperm wrappers' launch counts (total, per form and the 2-byte
+    forms'), to restore after launches that only check or time a kernel."""
     from photon_tpu_torch.ops import vperm as vp
 
     fns = (vp.chunk_pass, vp.lane_pass, vp.chunk_expand_pass)
-    saved = [(fn.launches, dict(getattr(fn, "form_launches", {}))) for fn in fns]
+    saved = [(fn.launches, fn.bf16_launches, dict(getattr(fn, "form_launches", {})))
+             for fn in fns]
 
     def restore():
-        for fn, (n, forms) in zip(fns, saved):
-            fn.launches = n
+        for fn, (n, n16, forms) in zip(fns, saved):
+            fn.launches, fn.bf16_launches = n, n16
             if forms:
                 fn.form_launches = forms
     return restore
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def check_vperm_kernels(prepared, dev) -> dict:
@@ -1116,9 +1227,10 @@ def chunk_form_edges() -> list:
             ("vperm_chunk_expand", 2, vp.CH_MAX, 32)]
 
 
-def check_chunk_form_edges(dev) -> list:
-    """Each edge shape with random in-range planes: the form ``chunk_form``
-    picks and the global form, each bit for bit against the plain version."""
+def check_chunk_form_edges(dev, dtype=torch.float32) -> list:
+    """Each edge shape with random in-range planes, the source in ``dtype``:
+    the form ``chunk_form`` picks and the global form, each bit for bit
+    against the plain version."""
     from photon_tpu_torch.ops import vperm as vp
     from photon_tpu_torch.tools.probe_chunk_forms import random_planes
 
@@ -1128,7 +1240,8 @@ def check_chunk_form_edges(dev) -> list:
         width = vp.LANES // k if k else vp.LANES
         fn, plain = ((vp.chunk_expand_pass, vp.chunk_expand_pass_plain) if k
                      else (vp.chunk_pass, vp.chunk_pass_plain))
-        args = (*random_planes(nc, ch, width, seed=ch + k, dev=dev), nc, ch)
+        src, *planes = random_planes(nc, ch, width, seed=ch + k, dev=dev)
+        args = (src.to(dtype), *planes, nc, ch)
         form = vp.chunk_form(nc, ch, width)
         ref = plain(*args)
         same = {f[0]: torch.equal(vp.run_chunk_form(fn, f, *args), ref)
@@ -1137,7 +1250,7 @@ def check_chunk_form_edges(dev) -> list:
         row = {"kernel": kernel, "nc": nc, "ch": ch, "k": k, "form": form[0],
                "cluster_blocks": form[1], "bitwise": same}
         rows.append(row)
-        log(f"  {kernel}[nc={nc}, ch={ch}" + (f", k={k}" if k else "")
+        log(f"  {kernel}[{dtype_name(dtype)}, nc={nc}, ch={ch}" + (f", k={k}" if k else "")
             + f"]: {form[0]} form, CL={form[1]}; bitwise "
             + ", ".join(f"{f} {'ok' if ok else 'FAIL'}" for f, ok in same.items()))
         if not all(same.values()):
@@ -1146,16 +1259,18 @@ def check_chunk_form_edges(dev) -> list:
     return rows
 
 
-def slab_gather_library_call(w2d, al):
+def slab_gather_library_call(w2d, al, vals=None):
     """Two PyTorch calls that compute K3's function: ``torch.gather`` over
     ``w2d`` by the row index ``slab * 8 + lo`` (composed once, here, outside
-    any timing), then the multiply by ``vals``."""
+    any timing), then the multiply by ``vals`` (the layout's by default; a
+    bf16 stream widens in the multiply)."""
     from photon_tpu_torch.ops.slab_reduce import TILE_SUBLANES
 
+    vals = al.vals if vals is None else vals
     n_tiles = int(al.slab_of_tile.shape[0])
     tile = torch.arange(n_tiles * TILE_SUBLANES, device=w2d.device) // TILE_SUBLANES
     idx = al.slab_of_tile[tile].long()[:, None] * 8 + al.lo.long()
-    return lambda: torch.gather(w2d, 0, idx) * al.vals
+    return lambda: torch.gather(w2d, 0, idx) * vals
 
 
 def check_slab_gather_kernel(prepared, dev) -> dict:
@@ -1184,6 +1299,75 @@ def check_slab_gather_kernel(prepared, dev) -> dict:
             raise AssertionError("slab_gather differs from its plain version")
     aligned_gather_products.launches = saved
     return {"max_abs_err": 0.0}
+
+
+# Phase 2's bf16 forms of K1 and RS run on these FUSED_CASES and
+# ROW_SCATTER_CASES inputs (random r), the values rounded to bf16: the main
+# path's two draws, a second loss, the kernel's loop for rows of more than
+# 32 entries, and the GAME fixed effect's batch (every id hot).
+BF16_FUSED_CASES = (
+    ("logistic", "uniform", N, K, D), ("logistic", "zipf1.3", N, K, D),
+    ("poisson", "uniform", N, K, D), ("logistic", "zipf1.3", 1 << 16, 48, D),
+    ("logistic", "all_hot", *GAME_FIXED_SHAPE),
+)
+BF16_ROW_SCATTER_CASES = (("uniform", K), ("zipf", K), ("zipf", 48))
+
+
+def check_bf16_forms(prepared, dev) -> dict:
+    """Phase 2, the bf16 forms of K3-K6 against their plain versions on the
+    card, on the same bf16 inputs (K1's and RS's run in their own checks):
+    K3 bit for bit (one multiply after an exact widening) on both draws'
+    gradient layouts; K4-K6 bit for bit (pure data movement) against the
+    plain version and the library call, K4 and K6 in both forms, over the
+    main path's routes and at the edge shapes."""
+    from photon_tpu_torch.ops import vperm as vp
+    from photon_tpu_torch.ops.slab_reduce import (
+        LANES,
+        aligned_gather_products,
+        aligned_gather_products_plain,
+    )
+
+    bf16 = torch.bfloat16
+    saved = (aligned_gather_products.launches, aligned_gather_products.bf16_launches)
+    restore = save_vperm_counts()
+    for dist in DISTS:
+        al = prepared[dist]["attached"].al
+        w2d = torch.randn(D, device=dev).index_select(0, al.dup_map).view(-1, LANES)
+        args = (w2d, al.slab_of_tile, al.lo, al.vals.to(bf16))
+        got = aligned_gather_products(*args)
+        same = (torch.equal(got, aligned_gather_products_plain(*args))
+                and torch.equal(got, slab_gather_library_call(w2d, al, args[3])()))
+        log(f"  slab_gather[bf16, {dist}, {tuple(al.lo.shape)}]: bitwise against the "
+            f"plain version and torch.gather + multiply {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("slab_gather's bf16 form differs from its plain version")
+    seen = set()
+    for name in route_names(prepared):
+        route = prepared[name]["attached"].xchg.route
+        for kernel, fn, plain, label, args, _ in route_passes(route, dev, bf16):
+            got, ref = fn(*args), plain(*args)
+            lib = pass_library_call(kernel, args)()
+            forms = {"chosen": got}
+            if kernel in CHUNK_KERNELS:
+                forms["global"] = vp.run_chunk_form(fn, ("global", 0), *args)
+            torch.cuda.synchronize()
+            same = (all(torch.equal(g, ref) for g in forms.values())
+                    and torch.equal(got, lib) and got.dtype == bf16)
+            form = chunk_form_of(args) if kernel in CHUNK_KERNELS else None
+            log(f"  {kernel}[bf16, {name} {label}, {tuple(args[0].shape)}"
+                + (f", {form[0]} form, CL={form[1]}, and the global form" if form else "")
+                + f"]: bitwise {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"{kernel}'s 2-byte form differs from its plain version")
+            seen.add(kernel)
+    missing = {"vperm_chunk", "vperm_lane", "vperm_chunk_expand"} - seen
+    if missing:
+        raise AssertionError(f"no route of the main path runs {sorted(missing)} in bf16")
+    log("  K4 and K6 in bf16 off the main path, random in-range planes:")
+    edges = check_chunk_form_edges(dev, bf16)
+    restore()
+    aligned_gather_products.launches, aligned_gather_products.bf16_launches = saved
+    return {"edges": edges}
 
 
 def check_benes(prepared, dev) -> dict:
@@ -1269,13 +1453,13 @@ def slab_gather_timings(prepared, dev) -> dict:
     return out
 
 
-def vperm_timings(prepared, dev) -> dict:
+def vperm_timings(prepared, dev, dtype=torch.float32) -> dict:
     """K4, K5 and K6 times at the main path's shapes, for every launch of
-    each route's exchange: ``{route name: [row, ...]}`` in route_passes'
-    order (the per-evaluation launches first).  K4 and K6 also carry the
-    form ``chunk_form`` picks, its cluster size and
-    ``cudaOccupancyMaxActiveClusters``, and the global form's time, taken
-    in turn with the others."""
+    each route's exchange, in their ``dtype`` forms: ``{route name: [row,
+    ...]}`` in route_passes' order (the per-evaluation launches first).  K4
+    and K6 also carry the form ``chunk_form`` picks, its cluster size and
+    ``cudaOccupancyMaxActiveClusters``, and the global form's time, taken in
+    turn with the others."""
     from photon_tpu_torch.ops import vperm as vp
 
     restore = save_vperm_counts()
@@ -1283,7 +1467,7 @@ def vperm_timings(prepared, dev) -> dict:
     for name in route_names(prepared):
         rows = out[name] = []
         for kernel, fn, plain, label, args, nbytes in route_passes(
-                prepared[name]["attached"].xchg.route, dev):
+                prepared[name]["attached"].xchg.route, dev, dtype):
             t_bound, by = bound(nbytes, 0)
             row = {"kernel": kernel, "ms": cuda_ms(lambda: fn(*args))}
             if kernel in CHUNK_KERNELS:
@@ -1291,22 +1475,29 @@ def vperm_timings(prepared, dev) -> dict:
                 src, *_, nc, ch = args
                 row.update({
                     "form": form[0], "cluster_blocks": form[1],
-                    "max_active_clusters": (vp.max_active_clusters(ch, src.shape[1], form[1])
-                                            if form[0] == "cluster" else None),
+                    "max_active_clusters": (
+                        vp.max_active_clusters(ch, src.shape[1], form[1],
+                                               bf16=dtype == torch.bfloat16)
+                        if form[0] == "cluster" else None),
                     "global_form_ms": cuda_ms(
                         lambda: vp.run_chunk_form(fn, ("global", 0), *args)),
                 })
+            if dtype != torch.float32:
+                # The float32 form on the same values, timed in the same call.
+                wide = (args[0].float(), *args[1:])
+                row["f32_ms"] = cuda_ms(lambda: fn(*wide))
             row.update({
                 "plain_ms": cuda_ms(lambda: plain(*args)),
                 "library_ms": cuda_ms(pass_library_call(kernel, args)),
                 "bound_ms": t_bound, "bound_by": by,
-                "at": f"{name} {label}, {tuple(args[0].shape)}",
+                "at": f"{name} {label}, {tuple(args[0].shape)} {dtype_name(dtype)}",
             })
             rows.append(row)
             log(f"  {kernel} [{row['at']}]: kernel {row['ms']:.4f} ms"
                 + (f" ({row['form']} form, CL={row['cluster_blocks']}, max active "
                    f"clusters {row['max_active_clusters']}; global form "
                    f"{row['global_form_ms']:.4f} ms)" if "form" in row else "")
+                + (f", f32 form {row['f32_ms']:.4f} ms" if "f32_ms" in row else "")
                 + f", plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     restore()
@@ -4776,6 +4967,585 @@ def phase12_launches(sgame: dict) -> dict:
                  for name, row in sgame["cli"]["runs"].items()})
     return runs
 
+# Phase 13: bf16 feature storage and the half-width exchange payload.  (a)
+# runs right after phase 3 on phase 2's prepared batches: each draw's batch
+# converted by batch_astype (no layout or route rebuilt), then per route
+# LBFGS_ITERATIONS of L-BFGS and TRON_ITERATIONS of TRON (Poisson) on the
+# float32 and the bf16 batch in turns, BF16_TURNS turns, medians; the xchg
+# route with the float32 and then the bfloat16 payload.  (b) the train CLI
+# with --dtype bfloat16 on a1a; (c) train_game --dtype bfloat16 on phase
+# 6's Avro file and split, resident on fused and pallas and streamed, each
+# on the card and the host.
+BF16_TURNS = 3
+BF16_ROUTES = {"uniform": (("fused", None), ("pallas", None), ("xchg", "float32"),
+                           ("xchg", "bfloat16"), ("benes", None)),
+               "zipf": (("fused", None), ("pallas", None), ("xchg", "float32"),
+                        ("xchg", "bfloat16"))}
+BF16_FIT_RTOL = 2e-2  # bf16 against f32 storage (tests/test_bf16_storage.py)
+BF16_AUC_ATOL = 0.05  # tests/test_bf16_storage.py:108
+BF16_GAME_RUNS = (("fused", "fused", ()), ("pallas", "pallas", ()),
+                  ("stream", None, ("--stream-chunks", str(STREAM_GAME_CHUNK_ROWS))))
+
+
+def phase13_wrappers() -> dict:
+    from photon_tpu_torch.ops import vperm as vp
+    from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad, row_scatter
+    from photon_tpu_torch.ops.slab_reduce import (
+        aligned_gather_products,
+        position_partial_sums,
+    )
+
+    return {"fused_sparse": fused_value_and_grad, "row_scatter": row_scatter,
+            "position_reduce": position_partial_sums, "vperm_chunk": vp.chunk_pass,
+            "vperm_lane": vp.lane_pass, "vperm_chunk_expand": vp.chunk_expand_pass,
+            "slab_gather": aligned_gather_products}
+
+
+def bf16_counted(fn):
+    """``fn()`` with every kernel's counts (in all, the bf16 forms', per K4
+    and K6 form; the probe kernels') set to 0 just before it; returns (its
+    result, the counts just after).  A K4/K6 launch must take the form
+    ``chunk_form`` picks (the cluster form) and no probe kernel may launch."""
+    from photon_tpu_torch.ops import probe_kernels as pk
+
+    wrappers = phase13_wrappers()
+    for c in (*wrappers.values(), *pk.KERNELS):
+        c.launches = 0
+        if hasattr(c, "bf16_launches"):
+            c.bf16_launches = 0
+        if hasattr(c, "form_launches"):
+            c.form_launches = dict.fromkeys(c.form_launches, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    probes = {c.__name__: c.launches for c in pk.KERNELS if c.launches}
+    if probes:
+        raise AssertionError(f"phase 13: the training path launched probe kernels: {probes}")
+    counts = {}
+    for name, c in wrappers.items():
+        if c.launches:
+            counts[name] = c.launches
+        if getattr(c, "bf16_launches", 0):
+            counts[name + "_bf16"] = c.bf16_launches
+        if getattr(c, "form_launches", {}).get("global"):
+            raise AssertionError(f"phase 13: {name} took the global form on the main path")
+    return out, counts
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper replaced by its plain PyTorch version for the
+    block, on CUDA tensors too: the objective then runs each route's same
+    stages with no hand-written kernel."""
+    from photon_tpu_torch.ops import fused_sparse as fs
+    from photon_tpu_torch.ops import slab_reduce as sr
+    from photon_tpu_torch.ops import vperm as vp
+
+    swaps = ((fs, "fused_value_and_grad", fs.fused_value_and_grad_plain),
+             (fs, "row_scatter", fs.row_scatter_plain),
+             (sr, "position_partial_sums", sr.position_partial_sums_plain),
+             (sr, "aligned_gather_products", sr.aligned_gather_products_plain),
+             (vp, "chunk_pass", vp.chunk_pass_plain),
+             (vp, "chunk_expand_pass", vp.chunk_expand_pass_plain),
+             (vp, "lane_pass", vp.lane_pass_plain),
+             (vp, "compensated_scan", vp.compensated_cumsum))
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    try:
+        for module, name, fn in swaps:
+            setattr(module, name, fn)
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def gate_card_plain(tag: str, objective, w, batch, dev,
+                    payload_bf16: bool = False) -> tuple[float, list | None]:
+    """The objective's value, gradient and one Hv on ``batch`` with the
+    kernels against the same with every plain version, at phase 2's gates
+    (the magnitudes from the row-major stream).  Returns the largest error
+    and, with the half-width payload, the dz rounding flips per exchange.
+
+    The half-width payload casts the exchange's stream to bf16: dz with
+    baked values, else the products dz * val.  dz comes out of the route's
+    forward (K2 over ``al_t``), whose f32 sums in another order than the
+    plain reduce's may differ in dz's last bit, and such an element's bf16
+    cast may then round one bf16 ulp apart: a flip.  So the plain exchange
+    is first fed the card's own dz, and the two must agree at the gates of
+    the float32 payload.  Then the plain side runs on its own dz, and the
+    flips are counted and held to exactly their terms: the gates plus, per
+    feature, the sum over its flipped elements of |bf16 dz_card - bf16
+    dz_plain| * |val| (baked) or |bf16 (dz_card val) - bf16 (dz_plain
+    val)|."""
+    from photon_tpu_torch.data.batch import gather_dot
+    from photon_tpu_torch.ops import vperm as vp
+    from photon_tpu_torch.ops.fused_sparse import row_scatter_plain
+
+    v = torch.randn(D, generator=torch.Generator(device=dev).manual_seed(13), device=dev)
+    exchange = vp._exchange
+    card_dz, fed_dz, plain_dz = [], [], []
+
+    def recorded(record, feed=None):
+        def wrapped(per_row, vals, aux):
+            record.append(per_row)
+            return exchange(per_row if feed is None else feed[len(record) - 1], vals, aux)
+        return wrapped
+
+    def evaluate():
+        return (*objective.value_and_grad(w, batch), objective.hvp_operator(w, batch)(v))
+
+    try:
+        vp._exchange = recorded(card_dz)
+        card = evaluate()
+        with plain_kernels():
+            vp._exchange = recorded(fed_dz, card_dz if payload_bf16 else None)
+            plain = evaluate()
+            if payload_bf16:
+                vp._exchange = recorded(plain_dz)
+                plain_own = evaluate()
+    finally:
+        vp._exchange = exchange
+    if len(card_dz) != len(fed_dz):
+        raise AssertionError(f"{tag}: {len(card_dz)} card and {len(fed_dz)} plain exchanges")
+    loss, l2 = objective.loss, objective.l2_weight
+    ids, vals = batch.ids, batch.vals.abs()
+    z = gather_dot(w, batch.ids, batch.vals) + batch.offset
+    mag_g = (row_scatter_plain((batch.weight * loss.d1(z, batch.label)).abs(), ids, vals, D)
+             + l2 * w.abs())
+    d2w = (batch.weight * loss.d2(z, batch.label)).abs()
+    mag_h = row_scatter_plain(d2w * gather_dot(v.abs(), ids, vals), ids, vals, D) + l2 * v.abs()
+    torch.cuda.synchronize()
+    fed = " (the plain exchange fed the card's dz)" if payload_bf16 else ""
+    err = max(gate_report(f"{tag} value", card[0], plain[0], VALUE_RTOL),
+              gate_report(f"{tag} gradient{fed}", card[1], plain[1], GRAD_RTOL, mag_g),
+              gate_report(f"{tag} Hv{fed}", card[2], plain[2], GRAD_RTOL, mag_h))
+    if not payload_bf16:
+        return err, None
+    if len(card_dz) != 2 or len(plain_dz) != 2:
+        raise AssertionError(f"{tag}: {len(card_dz)} card and {len(plain_dz)} plain "
+                             "exchanges, 2 expected (gradient, Hv)")
+    baked = batch.xchg.vals_dest is not None
+    stream = "dz rows" if baked else "products"
+
+    def cast(per_row):  # the stream as _exchange casts it
+        moved = per_row if baked else per_row[:, None] * batch.vals
+        return moved.float().to(torch.bfloat16).float()
+
+    flips, extra = [], []
+    for c, p in zip(card_dz, plain_dz):
+        delta = (cast(c) - cast(p)).abs()
+        flips.append({"rows": c.numel(), "dz_differ": int((c != p).sum()), "stream": stream,
+                      "elements": delta.numel(), "cast_differ": int((delta != 0).sum())})
+        extra.append(row_scatter_plain(delta, ids, vals, D) if baked else
+                     torch.zeros(D, dtype=torch.float64, device=dev).index_add_(
+                         0, ids.reshape(-1).long(), delta.reshape(-1).double()))
+    log(f"  {tag}: card vs plain dz, rows that differ of {flips[0]['rows']} / {stream} of "
+        f"{flips[0]['elements']} that the bf16 cast rounds apart: gradient "
+        f"{flips[0]['dz_differ']} / {flips[0]['cast_differ']}, Hv {flips[1]['dz_differ']} / "
+        f"{flips[1]['cast_differ']}")
+    err = max(err,
+              gate_report(f"{tag} gradient, plain dz", card[1], plain_own[1], GRAD_RTOL,
+                          mag_g, extra=extra[0]),
+              gate_report(f"{tag} Hv, plain dz", card[2], plain_own[2], GRAD_RTOL, mag_h,
+                          extra=extra[1]))
+    return err, flips
+
+
+def bf16_kernel_timings(prepared, stores, dev) -> dict:
+    """The bf16 forms' times at the main path's shapes beside their plain
+    versions, a library call, their bytes bounds and the f32 form's time on
+    the same (widened) values in the same call: K1 and RS on each draw's
+    bf16 batch, K3 on its bf16 gradient layout, K4-K6 at every launch of the
+    routes' exchanges."""
+    from photon_tpu_torch.core.losses import get_loss
+    from photon_tpu_torch.ops import fused_sparse as fs
+    from photon_tpu_torch.ops.slab_reduce import (
+        LANES,
+        aligned_gather_products,
+        aligned_gather_products_plain,
+    )
+
+    wrappers = (fs.fused_value_and_grad, fs.row_scatter, aligned_gather_products)
+    saved = [(fn.launches, fn.bf16_launches) for fn in wrappers]
+    loss = get_loss("logistic")
+    out = {}
+    for dist in DISTS:
+        b16 = stores[dist]["bfloat16"]["row"]
+        ids, vals = b16.ids, b16.vals
+        n, k = ids.shape
+        nnz = int((vals != 0).sum())
+        w = torch.randn(D, device=dev) * 0.01
+        args = (loss, w, ids, vals, b16.label, b16.offset, b16.weight)
+        wide = (loss, w, ids, vals.float(), *args[4:])
+        fs.fused_value_and_grad(*args)  # the hot set and its size, outside the timing
+        t_bound, by = bound(6 * n * k + 12 * n + 8 * D + 4, 4 * nnz + 20 * n)
+        rows = out[dist] = {"fused_sparse": {
+            "ms": cuda_ms(lambda: fs.fused_value_and_grad(*args)),
+            "f32_ms": cuda_ms(lambda: fs.fused_value_and_grad(*wide)),
+            "plain_ms": cuda_ms(lambda: fs.fused_value_and_grad_plain(*args)),
+            "library_ms": None, "bound_ms": t_bound, "bound_by": by}}
+        r = torch.randn(n, device=dev)
+        idx = ids.view(-1).long()
+        out32 = torch.zeros(D, device=dev)
+        vals32 = vals.float()
+        t_bound, by = bound(6 * n * k + 4 * n + 4 * D, 2 * nnz)
+        rows["row_scatter"] = {
+            "ms": cuda_ms(lambda: fs.row_scatter(r, ids, vals, D)),
+            "f32_ms": cuda_ms(lambda: fs.row_scatter(r, ids, vals32, D)),
+            "plain_ms": cuda_ms(lambda: fs.row_scatter_plain(r, ids, vals, D)),
+            # The upcast and multiply, then one index_add_, in the timing.
+            "library_ms": cuda_ms(lambda: out32.zero_().index_add_(
+                0, idx, (r[:, None] * vals).view(-1))),
+            "bound_ms": t_bound, "bound_by": by}
+        al = stores[dist]["bfloat16"]["attached"].al
+        w2d = torch.randn(D, device=dev).index_select(0, al.dup_map).view(-1, LANES)
+        k3 = (w2d, al.slab_of_tile, al.lo, al.vals)
+        slots, n_tiles = al.lo.numel(), int(al.slab_of_tile.shape[0])
+        al_vals32 = al.vals.float()
+        t_bound, by = bound(10 * slots + 4 * w2d.numel() + 4 * n_tiles, slots)
+        rows["slab_gather"] = {
+            "ms": cuda_ms(lambda: aligned_gather_products(*k3)),
+            "f32_ms": cuda_ms(lambda: aligned_gather_products(*k3[:3], al_vals32)),
+            "plain_ms": cuda_ms(lambda: aligned_gather_products_plain(*k3)),
+            "library_ms": cuda_ms(slab_gather_library_call(w2d, al)),
+            "bound_ms": t_bound, "bound_by": by}
+        for name, row in rows.items():
+            lib = row["library_ms"]
+            log(f"  {name} bf16 [{dist}]: kernel {row['ms']:.4f} ms (f32 form "
+                f"{row['f32_ms']:.4f}), plain {row['plain_ms']:.4f} ms, library "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    for fn, (n, n16) in zip(wrappers, saved):
+        fn.launches, fn.bf16_launches = n, n16
+    out["vperm"] = vperm_timings(prepared, dev, torch.bfloat16)
+    return out
+
+
+def run_bf16_main_path(prepared, dev) -> dict:
+    """Phase 13 (a); every count set to 0 just before each fit and read
+    just after."""
+    from photon_tpu_torch.core.objective import GlmObjective, RegularizationContext
+    from photon_tpu_torch.core.optimizers import OptimizerConfig
+    from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
+    from photon_tpu_torch.data.batch import batch_astype
+
+    reg = RegularizationContext("l2", 1.0)
+    logistic = GlmObjective.create("logistic", reg)
+    poisson = GlmObjective.create("poisson", reg)
+
+    def problem(objective, optimizer, iterations):
+        return GlmOptimizationProblem(objective, ProblemConfig(
+            optimizer=optimizer, regularization=reg,
+            optimizer_config=OptimizerConfig(max_iterations=iterations, tolerance=0.0,
+                                             gradient_tolerance=0.0)))
+
+    lbfgs = problem(logistic, "lbfgs", LBFGS_ITERATIONS)
+    tron = problem(poisson, "tron", TRON_ITERATIONS)
+    out = {"routes": [], "launches_bf16": {}, "stores": {}}
+    stores = {}
+    for dist in DISTS:
+        prep = prepared[dist]
+        t0 = time.monotonic()
+        stores[dist] = {"float32": {"row": prep["batch"], "attached": prep["attached"]},
+                        "bfloat16": {"row": batch_astype(prep["batch"], torch.bfloat16),
+                                     "attached": batch_astype(prep["attached"],
+                                                              torch.bfloat16)}}
+        torch.cuda.synchronize()
+        convert_s = time.monotonic() - t0
+        al32, al16 = prep["attached"].al, stores[dist]["bfloat16"]["attached"].al
+        nbytes = {
+            dtype: sum(t.numel() * t.element_size() for t in (
+                b["row"].vals, b["attached"].fm.vals, b["attached"].al.vals,
+                b["attached"].al_t.vals,
+                *([b["attached"].xchg.vals_dest] if b["attached"].xchg.vals_dest is not None
+                  else [])))
+            for dtype, b in stores[dist].items()}
+        out["stores"][dist] = {"convert_s": convert_s, "value_bytes": nbytes,
+                               "al_dtypes": [str(al32.vals.dtype), str(al16.vals.dtype)]}
+        log(f"  {dist}: batch_astype of the batch and its layouts {convert_s:.3f} s; "
+            f"value streams {nbytes['float32'] / 2**20:.1f} -> "
+            f"{nbytes['bfloat16'] / 2**20:.1f} MiB (row-major, fm, al, al_t, vals_dest)")
+        label = poisson_labels(prep["batch"], seed=11)
+        finals = {}
+        for route, payload in BF16_ROUTES[dist]:
+            os.environ["PHOTON_SPARSE_GRAD"] = route
+            os.environ["PHOTON_XCHG_DTYPE"] = payload or "float32"
+            name = route + (f"[{payload} payload]" if payload else "")
+            key = "row" if route == "fused" else "attached"
+            batches = {dtype: stores[dist][dtype][key] for dtype in ("float32", "bfloat16")}
+            w = torch.randn(D, device=dev) * 0.01
+            gate, flips = gate_card_plain(f"phase 13 {dist}/{name} bf16, card vs plain",
+                                          logistic, w, batches["bfloat16"], dev,
+                                          payload == "bfloat16")
+            rows = {dtype: {"lbfgs": [], "tron": []} for dtype in batches}
+            counts = {dtype: {} for dtype in batches}
+            for turn in range(BF16_TURNS):
+                order = ("float32", "bfloat16") if turn % 2 == 0 else ("bfloat16", "float32")
+                for dtype in order:
+                    b = batches[dtype]
+                    w0 = torch.zeros(D, device=dev)
+                    t0 = time.monotonic()
+                    (_, res), c1 = bf16_counted(lambda: lbfgs.run(b, w0))
+                    rows[dtype]["lbfgs"].append((time.monotonic() - t0, res))
+                    bt = b._replace(label=label)
+                    t0 = time.monotonic()
+                    (_, rt), c2 = bf16_counted(lambda: tron.run(bt, w0))
+                    rows[dtype]["tron"].append((time.monotonic() - t0, rt))
+                    for c in (c1, c2):
+                        for kname, n in c.items():
+                            counts[dtype][kname] = counts[dtype].get(kname, 0) + n
+            row = {"dist": dist, "route": route, "payload": payload, "gate_max_abs_err": gate,
+                   "dz_flips": flips}
+            for dtype, fits in rows.items():
+                walls_l = [t for t, _ in fits["lbfgs"]]
+                walls_t = [t for t, _ in fits["tron"]]
+                res_l, res_t = fits["lbfgs"][-1][1], fits["tron"][-1][1]
+                b = batches[dtype]
+                wl = torch.randn(D, device=dev) * 0.01
+                op = poisson.hvp_operator(wl, b._replace(label=label))
+                vv = torch.randn(D, device=dev)
+                row[dtype] = {
+                    "lbfgs_steps_per_s": float(np.median(
+                        [r.iterations / t for t, r in fits["lbfgs"]])),
+                    "lbfgs_fit_s": walls_l, "lbfgs_final": res_l.value,
+                    "tron_s_per_iteration": float(np.median(
+                        [t / r.iterations for t, r in fits["tron"]])),
+                    "tron_fit_s": walls_t, "tron_final": res_t.value,
+                    "tron_cg_steps": res_t.cg_iterations,
+                    "value_and_grad_ms": cuda_ms(lambda: logistic.value_and_grad(wl, b)),
+                    "hv_ms": cuda_ms(lambda: op(vv)),
+                    "launches": counts[dtype],
+                }
+                if not (np.isfinite(res_l.value) and np.isfinite(res_t.value)):
+                    raise AssertionError(f"phase 13 {dist}/{name} {dtype}: a fit is not finite")
+            for kname, n in (*counts["float32"].items(), *counts["bfloat16"].items()):
+                if kname.endswith("_bf16"):
+                    out["launches_bf16"][kname] = out["launches_bf16"].get(kname, 0) + n
+            for solver in ("lbfgs", "tron"):
+                f32, b16 = row["float32"][f"{solver}_final"], row["bfloat16"][f"{solver}_final"]
+                rel = abs(b16 - f32) / abs(f32)
+                row[f"{solver}_bf16_vs_f32"] = rel
+                if rel > BF16_FIT_RTOL:
+                    raise AssertionError(f"phase 13 {dist}/{name}: the bf16 {solver} fit is "
+                                         f"{rel:.3e} off the f32 fit")
+            finals[name] = (row["bfloat16"]["lbfgs_final"], row["bfloat16"]["tron_final"])
+            out["routes"].append(row)
+            s32, s16 = row["float32"], row["bfloat16"]
+            log(f"  {dist}/{name}: L-BFGS steps/s f32 {s32['lbfgs_steps_per_s']:.2f}, bf16 "
+                f"{s16['lbfgs_steps_per_s']:.2f}; TRON s/iteration f32 "
+                f"{s32['tron_s_per_iteration']:.4f}, bf16 {s16['tron_s_per_iteration']:.4f}; "
+                f"value_and_grad ms f32 {s32['value_and_grad_ms']:.3f}, bf16 "
+                f"{s16['value_and_grad_ms']:.3f}; Hv ms f32 {s32['hv_ms']:.3f}, bf16 "
+                f"{s16['hv_ms']:.3f}; bf16 vs f32 final L-BFGS {row['lbfgs_bf16_vs_f32']:.2e},"
+                f" TRON {row['tron_bf16_vs_f32']:.2e} (tolerance {BF16_FIT_RTOL:g}); launches "
+                f"over {BF16_TURNS} turns f32 {s32['launches']}, bf16 {s16['launches']}")
+        # Phase 3's gate between routes, on the bf16 batch: the f32-payload
+        # routes' final values (the bf16 payload rounds the products: a
+        # different result, held to the f32 fit above).
+        for name, (fl, ft) in finals.items():
+            if "bfloat16 payload" in name:
+                continue
+            for solver, got, ref in (("lbfgs", fl, finals["fused"][0]),
+                                     ("tron", ft, finals["fused"][1])):
+                rel = abs(got - ref) / abs(ref)
+                if rel > ROUTE_RTOL:
+                    raise AssertionError(f"phase 13 {dist}: bf16 {solver} on {name} is "
+                                         f"{rel:.3e} off fused")
+        log(f"  {dist}: bf16 routes agree with fused within {ROUTE_RTOL:g}: "
+            f"{ {k: v for k, v in finals.items()} }")
+    if "forced" in prepared:
+        # Neither draw took the colored route: one value_and_grad on the
+        # colored route phase 2 forced on the uniform batch, as phase 3 runs
+        # it, on the bf16 batch with the bf16 payload (K5's 2-byte form).
+        os.environ["PHOTON_SPARSE_GRAD"] = "xchg"
+        os.environ["PHOTON_XCHG_DTYPE"] = "bfloat16"
+        colored = batch_astype(prepared["forced"]["attached"], torch.bfloat16)
+        w = torch.randn(D, device=dev) * 0.01
+        gate, flips = gate_card_plain("phase 13 uniform/xchg forced colored route, bf16 "
+                                      "payload, card vs plain", logistic, w, colored, dev,
+                                      payload_bf16=True)
+        _, counts = bf16_counted(lambda: logistic.value_and_grad(w, colored))
+        out["forced_colored"] = {"gate_max_abs_err": gate, "dz_flips": flips,
+                                 "launches": counts}
+        for kname, n in counts.items():
+            if kname.endswith("_bf16"):
+                out["launches_bf16"][kname] = out["launches_bf16"].get(kname, 0) + n
+        log(f"  uniform/xchg forced colored route, bf16 payload: launches {counts}")
+    os.environ.pop("PHOTON_SPARSE_GRAD", None)
+    os.environ.pop("PHOTON_XCHG_DTYPE", None)
+    missing = [k for k in ("fused_sparse_bf16", "row_scatter_bf16", "slab_gather_bf16",
+                           "vperm_chunk_bf16", "vperm_lane_bf16", "vperm_chunk_expand_bf16")
+               if not out["launches_bf16"].get(k)]
+    if missing:
+        raise AssertionError(f"phase 13: bf16 forms never launched on the main path: {missing}")
+    log("  the bf16 forms' times:")
+    out["timings"] = bf16_kernel_timings(prepared, stores, dev)
+    return out
+
+
+def run_bf16_cli() -> dict:
+    """Phase 13 (b): the train CLI on a1a with --dtype bfloat16 against
+    float32 on the card, and --stream refusing it."""
+    from photon_tpu_torch.drivers import train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_cli_")
+    out = {}
+    try:
+        base = ["--input", "tests/fixtures/a1a.libsvm",
+                "--validation-input", "tests/fixtures/a1a.t.libsvm",
+                "--task", "logistic_regression", "--reg-weights", "0.1,1,10",
+                "--evaluators", "AUC,LOGISTIC_LOSS", "--backend", "gpu"]
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.monotonic()
+            (summary, counts) = bf16_counted(lambda: train.run(train.build_parser().parse_args(
+                [*base, "--dtype", dtype, "--output-dir", os.path.join(tmp, dtype)])))
+            best = next(e for e in summary["sweep"] if e["lambda"] == summary["best_lambda"])
+            out[dtype] = {"wall_s": time.monotonic() - t0, "dtype": summary["dtype"],
+                          "auc": best["metrics"]["AUC"],
+                          "final_values": [e["final_value"] for e in summary["sweep"]],
+                          "launches": counts}
+            log(f"  train --dtype {dtype} (card): {out[dtype]['wall_s']:.2f} s, AUC "
+                f"{out[dtype]['auc']:.6f}, final values {out[dtype]['final_values']}, "
+                f"launches {counts}")
+        for f32, b16 in zip(out["float32"]["final_values"], out["bfloat16"]["final_values"]):
+            if abs(b16 - f32) > BF16_FIT_RTOL * abs(f32):
+                raise AssertionError(f"phase 13 (b): bf16 final value {b16} vs f32 {f32}")
+        if abs(out["bfloat16"]["auc"] - out["float32"]["auc"]) > BF16_AUC_ATOL:
+            raise AssertionError("phase 13 (b): the bf16 AUC is off the f32 one")
+        try:
+            train.run(train.build_parser().parse_args(
+                ["--stream", "--input", "tests/fixtures/a1a.libsvm", "--dtype", "bfloat16",
+                 "--backend", "gpu", "--output-dir", os.path.join(tmp, "stream")]))
+        except ValueError as e:
+            out["stream_refused"] = str(e)
+            log(f"  train --stream --dtype bfloat16: raised ValueError ({e}) ok")
+        else:
+            raise AssertionError("phase 13 (b): train --stream --dtype bfloat16 ran")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def run_bf16_game(game: dict, sgame: dict) -> dict:
+    """Phase 13 (c): train_game --dtype bfloat16 on phase 6's Avro file and
+    split, resident on fused and on pallas and streamed in 50,000-row
+    chunks, each on the card and the host (every count at 0 just before
+    each run): the card within phase 6's gates of the host, the AUC within
+    0.05 of the f32 run (phase 6's resident ones, phase 12's streamed
+    card run); the value streams' bytes f32 against bf16."""
+    from photon_tpu_torch.data.game_io import read_game_avro
+    from photon_tpu_torch.drivers import train_game
+    from photon_tpu_torch.game.data import dataset_astype, split_game_dataset
+    from photon_tpu_torch.game.model_io import load_game_model
+    from photon_tpu_torch.game.tiles import per_row_bytes
+
+    root = os.path.join(os.path.dirname(game["avro"]), "phase13")
+    f32_runs = {"fused": game["runs"]["fused"], "pallas": game["runs"]["pallas"],
+                "stream": sgame["cli"]["runs"]["card"]}
+    out = {"runs": {}}
+    for name, route, extra in BF16_GAME_RUNS:
+        models = {}
+        for backend in ("gpu", "cpu"):
+            run_dir = os.path.join(root, f"{name}_{backend}")
+            if route is None:
+                os.environ.pop("PHOTON_SPARSE_GRAD", None)
+            else:
+                os.environ["PHOTON_SPARSE_GRAD"] = route
+            t0 = time.monotonic()
+            try:
+                summary, counts = bf16_counted(lambda: train_game.run(
+                    train_game.build_parser().parse_args(
+                        [*game_cli_args(game["avro"], run_dir, backend), *extra,
+                         "--dtype", "bfloat16"])))
+            finally:
+                os.environ.pop("PHOTON_SPARSE_GRAD", None)
+            wall = time.monotonic() - t0
+            models[backend] = load_game_model(os.path.join(run_dir, "best_model"),
+                                              device="cpu")[0]
+            out["runs"][f"{name}_{backend}"] = {
+                "wall_s": wall, "best_metrics": summary["best_metrics"],
+                "stream_chunks": summary["stream_chunks"], "launches": counts,
+                "descent_iteration_s": [h["seconds"] for h in summary["sweep"][0]["history"]]}
+            log(f"  train_game --dtype bfloat16 {name} ({backend}): {wall:.2f} s, metrics "
+                f"{summary['best_metrics']}, chunk rows {summary['stream_chunks']}, "
+                f"launches {counts}")
+        card, host = out["runs"][f"{name}_gpu"], out["runs"][f"{name}_cpu"]
+        for key, ref in host["best_metrics"].items():
+            if abs(card["best_metrics"][key] - ref) > GAME_METRIC_ATOL:
+                raise AssertionError(f"phase 13 (c) {name}: {key} card "
+                                     f"{card['best_metrics'][key]} host {ref}")
+        diffs = {}
+        for coord, m in models["gpu"].coordinates.items():
+            r = models["cpu"].coordinate(coord)
+            got, want = ((m.coefficients.means, r.coefficients.means)
+                         if hasattr(m, "coefficients") else (m.table, r.table))
+            if not torch.allclose(got, want, rtol=GAME_COEF_TOL, atol=GAME_COEF_TOL):
+                raise AssertionError(f"phase 13 (c) {name}: {coord} card and host differ")
+            diffs[coord] = float((got - want).abs().max())
+        auc_f32 = f32_runs[name]["best_metrics"]["AUC"]
+        gap = abs(card["best_metrics"]["AUC"] - auc_f32)
+        card.update(card_vs_host=diffs, auc_vs_f32=gap)
+        log(f"  {name}: card vs host {diffs}; AUC bf16 {card['best_metrics']['AUC']:.6f} "
+            f"vs f32 {auc_f32:.6f} (|diff| {gap:.2e}, tolerance {BF16_AUC_ATOL:g})")
+        if gap > BF16_AUC_ATOL:
+            raise AssertionError(f"phase 13 (c) {name}: the bf16 AUC is off the f32 one")
+    if not out["runs"]["fused_gpu"]["launches"].get("fused_sparse_bf16"):
+        raise AssertionError("phase 13 (c): K1's bf16 form never launched on fused")
+    if not out["runs"]["pallas_gpu"]["launches"].get("position_reduce"):
+        raise AssertionError("phase 13 (c): K2 never launched on pallas")
+    # The training split's value streams, as the runs hold them.
+    data, _ = read_game_avro(game["avro"],
+                             train_game.parse_feature_bags("global=global,per_user=per_user"),
+                             ["userId", "itemId"])
+    train32, _ = split_game_dataset(data, 0.2)
+    train16 = dataset_astype(train32, "bfloat16")
+
+    def value_bytes(d) -> int:
+        return sum((s.x if hasattr(s, "x") else s.vals).nbytes for s in d.shards.values())
+
+    out["value_bytes"] = {"float32": value_bytes(train32), "bfloat16": value_bytes(train16)}
+    out["chunk_bytes"] = {"float32": per_row_bytes(train32) * STREAM_GAME_CHUNK_ROWS,
+                          "bfloat16": per_row_bytes(train16) * STREAM_GAME_CHUNK_ROWS}
+    log(f"  value stream bytes f32 {out['value_bytes']['float32']:,} bf16 "
+        f"{out['value_bytes']['bfloat16']:,}; a {STREAM_GAME_CHUNK_ROWS:,}-row chunk "
+        f"f32 {out['chunk_bytes']['float32']:,} bf16 {out['chunk_bytes']['bfloat16']:,}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def bf16_kernel_entries(bf16: dict, kb16: dict, card: str) -> list:
+    """The kernels line's entries of the bf16 forms: launches from phase
+    13 (a), errors from phase 2, times from phase 13 (a)'s timings."""
+    t = bf16["timings"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "f32_ms")
+    entries = []
+    for name, source, replaces, err, library in (
+            ("fused_sparse", "fused_sparse.cu", "photon_tpu/ops/pallas_sparse.py:159",
+             kb16["fused_sparse_max_abs_err"], None),
+            ("row_scatter", "fused_sparse.cu", "photon_tpu/core/objective.py:420",
+             kb16["row_scatter_max_abs_err"], "upcast, multiply, index_add_"),
+            ("slab_gather", "slab_gather.cu", "photon_tpu/ops/pallas_gather.py:521", 0.0,
+             "torch.gather + multiply")):
+        entries.append({
+            "name": name + "_bf16", "route": "cuda",
+            "source": f"photon_tpu_torch/ops/csrc/{source}", "replaces": replaces,
+            "launches": bf16["launches_bf16"].get(name + "_bf16", 0), "max_abs_err": err,
+            **{key: t["uniform"][name][key] for key in keys},
+            "zipf": t["zipf"][name], "library_call": library, "card": card})
+    for name, replaces in (("vperm_chunk", "photon_tpu/ops/vperm.py:309"),
+                           ("vperm_lane", "photon_tpu/ops/vperm.py:328"),
+                           ("vperm_chunk_expand", "photon_tpu/ops/vperm.py:860")):
+        timed = [row for rows in t["vperm"].values() for row in rows if row["kernel"] == name]
+        entry = {"name": name + "_bf16", "route": "cuda",
+                 "source": "photon_tpu_torch/ops/csrc/vperm.cu", "replaces": replaces,
+                 "launches": bf16["launches_bf16"].get(name + "_bf16", 0), "max_abs_err": 0.0,
+                 **{key: timed[0][key] for key in (*keys, "at")},
+                 "other_launches": timed[1:], "card": card}
+        if name in CHUNK_KERNELS:
+            entry.update({key: timed[0][key] for key in
+                          ("form", "cluster_blocks", "max_active_clusters", "global_form_ms")})
+        entries.append(entry)
+    return entries
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4807,12 +5577,18 @@ def main() -> int:
         f"{native_build.build_seconds:.2f} s")
 
     log("phase 2: kernels against their plain versions")
-    k1 = check_fused_kernel(dev)
-    krs = check_row_scatter(dev)
-    k2 = check_position_kernel(dev)
+    # The main path's layouts and routes (minutes of host work, mostly
+    # native) build in the background while the first checks run; the
+    # checks time nothing, and the config-2 timings wait for a quiet card.
+    log(f"  the main path's layouts and exchange routes, n={N}, k={K}, d={D}, "
+        "building beside the checks below:")
+    with concurrent.futures.ThreadPoolExecutor(1) as background:
+        preparing = background.submit(prepare_batches, dev)
+        k1 = check_fused_kernel(dev)
+        krs = check_row_scatter(dev)
+        k2 = check_position_kernel(dev)
+        prepared = preparing.result()
     k_config2 = config2_kernel_timings(k2.pop("config2"), dev)
-    log(f"  the main path's layouts and exchange routes, n={N}, k={K}, d={D}:")
-    prepared = prepare_batches(dev)
     kv = check_vperm_kernels(prepared, dev)
     log("  K4 and K6 off the main path, random in-range planes:")
     edges = check_chunk_form_edges(dev)
@@ -4821,9 +5597,20 @@ def main() -> int:
     log("  CS, the compensated scan of the cumsum reduce, against its plain version "
         "and a float64 prefix:")
     kcs = check_compensated_scan(dev)
+    log("  the bf16 forms of K3-K6 against their plain versions:")
+    kb16 = check_bf16_forms(prepared, dev)
+    kb16.update(fused_sparse_max_abs_err=k1["bf16_max_abs_err"],
+                row_scatter_max_abs_err=krs["bf16_max_abs_err"])
 
     log(f"phase 3: main path, L-BFGS and TRON at n={N}, k={K}, d={D}")
     main_path = run_main_path(prepared, dev)
+
+    t13 = time.monotonic()
+    log("phase 13 (a): bf16 storage and the half-width payload on phase 2's batches "
+        "(batch_astype; L-BFGS and TRON, f32 and bf16 in turns)")
+    bf16 = {"main_path": run_bf16_main_path(prepared, dev)}
+    bf16["seconds_a"] = time.monotonic() - t13
+    log(f"  phase 13 (a) took {bf16['seconds_a']:.1f} s")
 
     log("phase 4: train CLI on a1a")
     run_cli()
@@ -4898,6 +5685,15 @@ def main() -> int:
         sgame = run_streamed_game(dev, game)
         sgame["seconds"] = time.monotonic() - t12
         log(f"  phase 12 took {sgame['seconds']:.1f} s")
+
+        t13 = time.monotonic()
+        log("phase 13 (b): train --dtype bfloat16 on a1a; (c): train_game --dtype "
+            "bfloat16 on config 4, resident and streamed, card and host")
+        bf16["cli"] = run_bf16_cli()
+        bf16["game"] = run_bf16_game(game, sgame)
+        bf16["seconds_bc"] = time.monotonic() - t13
+        log(f"  phase 13 (b) and (c) took {bf16['seconds_bc']:.1f} s; phase 13 in all "
+            f"{bf16['seconds_a'] + bf16['seconds_bc']:.1f} s")
     finally:
         shutil.rmtree(game_tmp, ignore_errors=True)
 
@@ -5012,6 +5808,7 @@ def main() -> int:
         "library_gate_ratio": kcs["library_gate_ratio"],
         "float32_cumsum_ms": kcs["float32_cumsum_ms"], "edges": kcs["edges"], "card": card,
     })
+    kernels.extend(bf16_kernel_entries(bf16["main_path"], kb16, card))
     for name, row in pk_rows.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -5036,6 +5833,8 @@ def main() -> int:
     log(f"phase 10: {json.dumps(fault, default=str)}")
     log(f"phase 11: {json.dumps(stream, default=str)}")
     log(f"phase 12: {json.dumps(sgame, default=str)}")
+    log(f"phase 13: {json.dumps({k: v for k, v in bf16.items()}, default=str)}")
+    log(f"bf16 edge shapes: {json.dumps(kb16['edges'])}")
     wrapper_names = {"fused_sparse": "fused_value_and_grad", "row_scatter": "row_scatter",
                      "position_reduce": "position_partial_sums",
                      "vperm_chunk": "chunk_pass", "vperm_lane": "lane_pass",

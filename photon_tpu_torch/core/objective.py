@@ -19,6 +19,12 @@ sparse batch stays sparse.  The fused kernel computes unnormalized margins
 only, so a normalized objective on the ``fused`` route takes the plain
 ``autodiff`` reductions, as the reference gates its fused kernel on
 ``normalization is None``.
+
+A batch may store its feature values in bfloat16 (``data/batch.py``
+``batch_astype``): every route reads them as JAX promotes them, widened to
+float32 where they meet a float32 operand, and where torch wants one dtype
+(the dense products) the values widen right before the product.  Every
+result is float32.
 """
 
 from __future__ import annotations
@@ -301,13 +307,16 @@ class GlmObjective:
     def _row_sums(self, per_row: Tensor, batch: Batch, dim: int,
                   square: bool) -> Tensor:
         """``sum_i per_row_i * x_ij`` (``x_ij^2`` with ``square``) per
-        feature, without densifying a sparse batch."""
+        feature, without densifying a sparse batch, in the reference's
+        order of operations (a dense square in the storage dtype, a sparse
+        one in float32 after the coefficient)."""
         if isinstance(batch, DenseBatch):
             x = batch.x * batch.x if square else batch.x
-            return x.T @ per_row
-        vals = batch.vals * batch.vals if square else batch.vals
-        return scatter_sum(batch.ids.reshape(-1),
-                           (per_row[:, None] * vals).reshape(-1), dim)
+            return x.to(per_row.dtype).T @ per_row
+        terms = per_row[:, None] * batch.vals
+        if square:
+            terms = terms * batch.vals
+        return scatter_sum(batch.ids.reshape(-1), terms.reshape(-1), dim)
 
     def hessian_diagonal(self, w: Tensor, batch: Batch) -> Tensor:
         """``diag(H) = sum_i weight_i * d2_i * x_ij^2 + l2``, the SIMPLE
@@ -334,7 +343,7 @@ class GlmObjective:
         d2w = self.loss.d2(self._margins(w, batch), batch.label) * batch.weight
         d = w.shape[0]
         if isinstance(batch, DenseBatch):
-            h = batch.x.T @ (d2w[:, None] * batch.x)
+            h = batch.x.to(d2w.dtype).T @ (d2w[:, None] * batch.x)
         else:
             c = d2w[:, None, None] * batch.vals[:, :, None] * batch.vals[:, None, :]
             ids = batch.ids.long()
@@ -356,7 +365,8 @@ def _plain_matvecs(batch: Batch, dim: int):
     """``(u -> X u, r -> X^T r)`` without a static layout: the dense
     products, or the row-major gather and the plain row scatter."""
     if isinstance(batch, DenseBatch):
-        return (lambda u: batch.x @ u), (lambda r: batch.x.T @ r)
+        return ((lambda u: batch.x.to(u.dtype) @ u),
+                (lambda r: batch.x.to(r.dtype).T @ r))
     from photon_tpu_torch.ops.fused_sparse import row_scatter_plain
 
     return ((lambda u: gather_dot(u, batch.ids, batch.vals)),

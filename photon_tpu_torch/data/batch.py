@@ -14,10 +14,16 @@ and the slab-aligned layouts (``al`` for the gradient, ``al_t`` for the
 margins, for the ``pallas`` route — ``ops/slab_reduce.py``), the
 exchange route of the ``xchg`` route (``xchg``, ``ops/vperm.py``) and the
 Clos routes of the ``benes`` route (``benes``, ``ops/benes.py``).
+
+Feature values may be stored in bfloat16 (:func:`batch_astype`, the
+reference's storage option): only the value streams narrow — labels,
+offsets, weights, coefficients and every reduction stay float32 — and
+every route widens a value where it reads it, as JAX promotes it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -32,7 +38,8 @@ class FeatureMajorAux(NamedTuple):
     """The batch's entries sorted by feature id (a stable host argsort), so
     the gradient is a sum over runs of equal ids instead of an unsorted
     scatter: ``ids`` (non-decreasing), ``rows`` (source row of each entry)
-    and ``vals`` (0 for pad entries), each ``[n * k]``."""
+    and ``vals`` (0 for pad entries; the batch's value dtype), each
+    ``[n * k]``."""
 
     ids: Tensor
     rows: Tensor
@@ -42,7 +49,7 @@ class FeatureMajorAux(NamedTuple):
 class DenseBatch(NamedTuple):
     """A batch of examples with dense features."""
 
-    x: Tensor  # [n, d] float32
+    x: Tensor  # [n, d] float32 (or bfloat16: batch_astype)
     label: Tensor  # [n]
     offset: Tensor  # [n]
     weight: Tensor  # [n]
@@ -67,7 +74,7 @@ class SparseBatch(NamedTuple):
     """
 
     ids: Tensor  # [n, k] int32
-    vals: Tensor  # [n, k] float32
+    vals: Tensor  # [n, k] float32 (or bfloat16: batch_astype)
     label: Tensor  # [n] float32
     offset: Tensor  # [n] float32
     weight: Tensor  # [n] float32
@@ -104,7 +111,8 @@ Batch = Union[DenseBatch, SparseBatch]
 
 
 def gather_dot(u: Tensor, ids: Tensor, vals: Tensor) -> Tensor:
-    """Per-row ``sum_j u[ids_ij] * vals_ij`` (the row-major gather)."""
+    """Per-row ``sum_j u[ids_ij] * vals_ij`` (the row-major gather; bfloat16
+    ``vals`` widen in the multiply, the result has ``u``'s dtype)."""
     return (u.index_select(0, ids.reshape(-1)).view(ids.shape) * vals).sum(-1)
 
 
@@ -120,9 +128,10 @@ def scatter_sum(index: Tensor, values: Tensor, dim: int) -> Tensor:
 
 
 def margins(w: Tensor, batch: Batch) -> Tensor:
-    """Per-example margins ``w . x_i + offset_i``."""
+    """Per-example margins ``w . x_i + offset_i`` (float32 whatever the
+    value dtype: bfloat16 features widen before the product)."""
     if isinstance(batch, DenseBatch):
-        return batch.x @ w + batch.offset
+        return batch.x.to(w.dtype) @ w + batch.offset
     return gather_dot(w, batch.ids, batch.vals) + batch.offset
 
 
@@ -217,13 +226,16 @@ def attach_feature_major(
     dev = batch.device
     n, k = batch.ids.shape
     ids = batch.ids.cpu().numpy().reshape(-1)
-    vals = batch.vals.cpu().numpy().reshape(-1)
+    # The host builders read float32 (a bfloat16 value widens exactly); the
+    # sorted values keep the batch's dtype and the slab layouts and baked
+    # values take float32, as the reference's builders cast them.
+    vals = batch.vals.float().cpu().numpy().reshape(-1)
     rows = np.repeat(np.arange(n, dtype=np.int32), k)
     order = np.argsort(ids, kind="stable")
     batch = batch._replace(fm=FeatureMajorAux(
         ids=torch.as_tensor(ids[order], device=dev),
         rows=torch.as_tensor(rows[order], device=dev),
-        vals=torch.as_tensor(vals[order], device=dev),
+        vals=torch.as_tensor(vals[order], device=dev).to(batch.vals.dtype),
     ))
     if aligned_dim is not None:
         from photon_tpu_torch.ops.slab_reduce import (
@@ -262,3 +274,69 @@ def attach_feature_major(
 
             batch = batch._replace(benes=build_benes_aux(layout, n, k, device=dev))
     return batch
+
+
+def value_dtype(dtype) -> torch.dtype:
+    """The feature-value storage dtype named by ``dtype`` (a torch dtype, or
+    ``"float32"`` / ``"bfloat16"``); anything else raises."""
+    names = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    out = names.get(dtype) if isinstance(dtype, str) else dtype
+    if out not in names.values():
+        raise ValueError(f"feature values are stored as float32 or bfloat16, not {dtype!r}")
+    return out
+
+
+def batch_astype(batch: Batch, dtype) -> Batch:
+    """Re-store the batch's FEATURE VALUES in ``dtype`` (``torch.bfloat16``
+    or ``"bfloat16"``; float32 leaves them as they are), on their device.
+
+    Counterpart of the reference's ``batch_astype``: only the value streams
+    shrink — ``x``, or ``vals``, ``fm.vals``, the aligned layouts' ``vals``
+    and the baked ``xchg.vals_dest`` — and labels, offsets, weights,
+    coefficients and every reduction stay float32.  No layout or route is
+    rebuilt: the conversion is one pass over each value stream.  The baked
+    stream converts in place so that the margins and the gradient read one
+    value stream: the cast is elementwise, so it commutes with the static
+    permutation that baked it (pads stay zero), and the baked values' guard
+    takes bf16-rounded values within its tolerance.  The conversion rounds
+    to nearest even, as ``ml_dtypes`` does for the reference.
+    """
+    dtype = value_dtype(dtype)
+    if isinstance(batch, DenseBatch):
+        return batch._replace(x=batch.x.to(dtype))
+    out = batch._replace(vals=batch.vals.to(dtype))
+    if out.fm is not None:
+        out = out._replace(fm=out.fm._replace(vals=out.fm.vals.to(dtype)))
+    for aux in ("al", "al_t"):
+        lay = getattr(out, aux)
+        if lay is not None:
+            out = out._replace(**{aux: dataclasses.replace(lay, vals=lay.vals.to(dtype))})
+    if out.xchg is not None and out.xchg.vals_dest is not None:
+        out = out._replace(xchg=dataclasses.replace(
+            out.xchg, vals_dest=out.xchg.vals_dest.to(dtype)))
+    return out
+
+
+def pad_batch(batch: Batch, target_n: int) -> Batch:
+    """Pad a batch to ``target_n`` examples with zero-weight rows (so padded
+    rows contribute nothing to any weighted objective or evaluator).
+
+    The feature-major, aligned and routing layouts depend on the row count
+    and the block structure, and padding them leaf by leaf would corrupt
+    them (the exchange's index planes most of all): they are stripped, and
+    the caller attaches again at the final row count (padded rows carry
+    only zero-value entries, so a layout rebuilt after padding is
+    equivalent)."""
+    n = batch.num_examples
+    if n == target_n:
+        return batch
+    if n > target_n:
+        raise ValueError(f"batch has {n} rows > target {target_n}")
+    pad = target_n - n
+
+    def _pad(t: Tensor) -> Tensor:
+        return torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+
+    if isinstance(batch, DenseBatch):
+        return DenseBatch(*(_pad(t) for t in batch))
+    return SparseBatch(*(_pad(t) for t in batch[:5]))

@@ -98,7 +98,7 @@ def _feature_issues(values: np.ndarray, where: str) -> List[ValidationIssue]:
 def validate_batch(batch, task_type: str) -> List[ValidationIssue]:
     """Validate a DenseBatch/SparseBatch (photon_tpu_torch.data.batch)."""
     def host(t) -> np.ndarray:
-        return t.detach().cpu().numpy()
+        return t.detach().float().cpu().numpy()
 
     issues = validate_columns(
         host(batch.label), host(batch.weight), host(batch.offset), task_type,
@@ -114,8 +114,10 @@ def validate_game_dataset(data, task_type: str) -> List[ValidationIssue]:
     """Validate a GameDataset (photon_tpu_torch.game.data)."""
     issues = validate_columns(data.label, data.weight, data.offset, task_type)
     for name, shard in data.shards.items():
+        from photon_tpu_torch.game.lowp import host_f32
+
         values = shard.x if hasattr(shard, "x") else shard.vals
-        issues += _feature_issues(np.asarray(values), name)
+        issues += _feature_issues(host_f32(values), name)
     return issues
 
 

@@ -40,8 +40,14 @@ that ``--resume`` continues exactly::
 forced ``PHOTON_SPARSE_GRAD``) picks the chunks' route; the default is the
 row-major ``autodiff``.
 
-Not carried (ROADMAP.md queue 1): ``--dtype bfloat16`` (item 9.3), the
-diagnostic reports and multi-process runs (item 10).
+``--dtype bfloat16`` stores the training batch's feature values in bf16
+(``data/batch.batch_astype``), after the normalization statistics and the
+layout attach, so no layout or route is rebuilt; labels, weights,
+coefficients and all arithmetic stay float32, and the validation data
+stays float32.  With ``--stream`` it raises, as the reference does.
+
+Not carried (ROADMAP.md queue 1): the diagnostic reports and multi-process
+runs (item 10).
 """
 
 from __future__ import annotations
@@ -76,6 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--elastic-net-alpha", type=float, default=0.5)
     p.add_argument("--max-iterations", type=int, default=100)
     p.add_argument("--tolerance", type=float, default=1e-7)
+    p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                   help="storage dtype of the FEATURE VALUES (labels, weights, "
+                   "coefficients and all arithmetic stay float32); bfloat16 "
+                   "halves the value stream the sparse hot loop reads")
     p.add_argument("--normalization", default="none", choices=NORMALIZATION_TYPES)
     p.add_argument("--evaluators", default=None,
                    help="comma-separated evaluator names; default per task")
@@ -169,6 +179,8 @@ def _train_streaming(args, device, logger, session) -> dict:
 
     if args.normalization != "none":
         raise ValueError("--stream does not support --normalization")
+    if args.dtype != "float32":
+        raise ValueError("--stream does not support --dtype yet")
     if args.optimizer != "lbfgs" or args.reg_type in ("l1", "elastic_net"):
         raise ValueError("--stream supports the lbfgs optimizer with l2/none "
                          "regularization")
@@ -325,7 +337,7 @@ def _train(args, device, logger, session) -> dict:
     from photon_tpu_torch.core.optimizers.base import OptimizerResult
     from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
     from photon_tpu_torch.core.stats import BasicStatisticalSummary
-    from photon_tpu_torch.data.batch import SparseBatch, attach_feature_major
+    from photon_tpu_torch.data.batch import SparseBatch, attach_feature_major, batch_astype
     from photon_tpu_torch.evaluation.evaluators import (
         MultiEvaluator,
         default_evaluators_for_task,
@@ -370,6 +382,12 @@ def _train(args, device, logger, session) -> dict:
                 aligned_dim=(dim if aligned_layout_wanted(batch.ids.numel(), device)
                              else None),
             )
+    if args.dtype != "float32":
+        # After the normalization statistics (they read full-precision
+        # values) and after the layout attach (the conversion carries every
+        # layout's values along, so nothing is rebuilt).
+        batch = batch_astype(batch, args.dtype)
+        logger.info("feature values stored as %s (float32 arithmetic)", args.dtype)
     if args.evaluators:
         evaluators = common.build_flat_evaluators(args.evaluators)
     else:
@@ -408,7 +426,7 @@ def _train(args, device, logger, session) -> dict:
                 "lambda": lam, "alpha": args.elastic_net_alpha, "dim": int(dim),
                 "num_examples": int(batch.num_examples),
                 "intercept": bool(args.intercept),
-                "normalization": args.normalization, "dtype": "float32",
+                "normalization": args.normalization, "dtype": args.dtype,
                 "variance": args.variance_computation,
                 "warm_start": bool(args.sweep_warm_start),
                 "max_iterations": int(opt_config.max_iterations),
@@ -509,6 +527,7 @@ def _train(args, device, logger, session) -> dict:
         extra_summary={
             "optimizer": optimizer,
             "normalization": args.normalization,
+            "dtype": args.dtype,
             "input_reader": reader,
             "backend": args.backend,
             "device": (torch.cuda.get_device_name(device)

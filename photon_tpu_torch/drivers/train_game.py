@@ -49,11 +49,15 @@ its compute, so device residency is bounded by the chunk window.
 estimate exceeds the budget, with the chunk size whose window fits it.
 Checkpoints then carry the mid-epoch chunk cursor.
 
+``--dtype bfloat16`` stores the training data's feature values in bf16
+(``game/data.dataset_astype``), resident or streamed: every coordinate's
+blocks and chunks move 2 bytes a value, and labels, weights, coefficients
+and all arithmetic stay float32.  The validation data stays float32.
+
 Flags of the reference that the port does not carry yet raise, naming
 their ROADMAP.md queue 1 item: the disk tier (``--max-host-mb``,
-``--spill-dir``, ``--tile-dtype``) and ``--dtype`` other than float32
-(9.3), tuning and multi-process runs (10), and the coordinate key
-``row_split`` (10).
+``--spill-dir``, ``--tile-dtype``; 9.3), tuning and multi-process runs
+(10), and the coordinate key ``row_split`` (10).
 """
 
 from __future__ import annotations
@@ -136,8 +140,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-quarantined", type=int, default=8,
                    help="non-finite solves/score rows a run may quarantine "
                    "before it fails; -1 = unlimited")
-    p.add_argument("--dtype", default="float32",
-                   help="feature value storage (only float32 is ported)")
+    p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                   help="storage dtype of the FEATURE VALUES in every training "
+                   "shard (labels, weights, coefficients and all arithmetic "
+                   "stay float32); bfloat16 halves the value stream each "
+                   "coordinate's gathers read")
     p.add_argument("--initial-model", default=None,
                    help="GAME model directory to warm-start from")
     p.add_argument("--locked-coordinates", default=None,
@@ -352,10 +359,6 @@ def _reject_not_ported(args) -> None:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: {what} waits in ROADMAP.md "
                 f"queue 1, item {item}")
-    if args.dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {args.dtype}: feature storage other than float32 waits "
-            "in ROADMAP.md queue 1, item 9.3")
 
 
 def _validate_resume(args, specs) -> None:
@@ -443,7 +446,7 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
         MultiEvaluator,
         default_evaluators_for_task,
     )
-    from photon_tpu_torch.game.data import split_game_dataset
+    from photon_tpu_torch.game.data import dataset_astype, split_game_dataset
     from photon_tpu_torch.game.estimator import (
         GameEstimator,
         GameOptimizationConfiguration,
@@ -474,6 +477,11 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
                                           index_maps=index_maps)
         elif args.validation_split:
             data, val_data = split_game_dataset(data, args.validation_split)
+        if args.dtype != "float32":
+            # The training data only: the validation data stays float32, so
+            # the metrics do not depend on the storage option.
+            data = dataset_astype(data, args.dtype)
+            logger.info("feature values stored as %s (float32 arithmetic)", args.dtype)
         logger.info("train: %d examples, shards %s on %s", data.num_examples,
                     {n: s.dim for n, s in data.shards.items()}, device)
     if args.data_validation != "off":

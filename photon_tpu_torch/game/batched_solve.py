@@ -161,7 +161,7 @@ class LaneObjective:
     def _xv(self, w: Tensor, batch) -> Tensor:
         """``[B, R]`` products ``w_b . x_br``."""
         if isinstance(batch, DenseBatch):
-            return torch.bmm(batch.x, w[:, :, None])[..., 0]
+            return torch.bmm(batch.x.to(w.dtype), w[:, :, None])[..., 0]
         bsz, rows, k = batch.ids.shape
         wx = torch.gather(w, 1, batch.ids.reshape(bsz, rows * k).long())
         return (wx.view(bsz, rows, k) * batch.vals).sum(-1)
@@ -206,13 +206,21 @@ class LaneObjective:
             v = v + 0.5 * self.l2_weight * torch.sum(wt * wt, dim=-1)
         return v
 
-    def _scatter(self, batch, per_row: Tensor, dim: int) -> Tensor:
-        """``out[b, f] = sum_r per_row[b, r] * x_brf`` (``[B, d]``): a
-        float64 scatter for sparse lanes, a batched matmul for dense."""
+    def _scatter(self, batch, per_row: Tensor, dim: int,
+                 square: bool = False) -> Tensor:
+        """``out[b, f] = sum_r per_row[b, r] * x_brf`` (``x_brf^2`` with
+        ``square``; ``[B, d]``): a float64 scatter for sparse lanes, a
+        batched matmul for dense, in the reference's order of operations (a
+        dense square in the storage dtype, a sparse one in float32 after
+        the coefficient)."""
         if isinstance(batch, DenseBatch):
-            return torch.bmm(per_row[:, None, :], batch.x)[:, 0]
+            x = batch.x * batch.x if square else batch.x
+            return torch.bmm(per_row[:, None, :], x.to(per_row.dtype))[:, 0]
         bsz = per_row.shape[0]
-        terms = (per_row[..., None] * batch.vals).reshape(bsz, -1)
+        terms = per_row[..., None] * batch.vals
+        if square:
+            terms = terms * batch.vals
+        terms = terms.reshape(bsz, -1)
         out = torch.zeros(bsz, dim, dtype=torch.float64, device=per_row.device)
         out.scatter_add_(1, batch.ids.reshape(bsz, -1).long(), terms.double())
         return out.float()
@@ -250,7 +258,7 @@ class LaneObjective:
         d2w = self._curvature(w, batch)
         bsz, d = w.shape
         if isinstance(batch, DenseBatch):
-            h = torch.bmm(batch.x.transpose(1, 2), d2w[..., None] * batch.x)
+            h = torch.bmm(batch.x.to(d2w.dtype).transpose(1, 2), d2w[..., None] * batch.x)
         else:
             vals = batch.vals
             terms = d2w[..., None, None] * vals[..., :, None] * vals[..., None, :]
@@ -265,12 +273,7 @@ class LaneObjective:
     def hessian_diagonal(self, w: Tensor, batch) -> Tensor:
         """``[B, d]``: ``sum_r weight * d2 * x_brf^2 + l2`` per lane."""
         d2w = self._curvature(w, batch)
-        if isinstance(batch, DenseBatch):
-            diag = torch.bmm(d2w[:, None, :], batch.x * batch.x)[:, 0]
-        else:
-            diag = self._scatter(batch._replace(vals=batch.vals * batch.vals), d2w,
-                                 w.shape[1])
-        return diag + self.l2_weight
+        return self._scatter(batch, d2w, w.shape[1], square=True) + self.l2_weight
 
 
 def compute_variances(objective: LaneObjective, kind: str, w: Tensor,

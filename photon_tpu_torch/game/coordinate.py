@@ -64,6 +64,7 @@ from photon_tpu_torch.core.optimizers import OptimizationStatesTracker
 from photon_tpu_torch.core.problem import GlmOptimizationProblem, ProblemConfig
 from photon_tpu_torch.data.batch import DenseBatch, SparseBatch
 from photon_tpu_torch.device import resolve_device
+from photon_tpu_torch.game import lowp
 from photon_tpu_torch.game.batched_solve import (
     LaneObjective,
     record_bin_telemetry,
@@ -666,10 +667,10 @@ class RandomEffectDeviceData:
         dev["label"][sl, po] = put(lab)
         dev["weight"][sl, po] = put(w)
         if dev["dense"]:
-            dev["feats"][0][sl, po] = put(new_x.astype(np.float32))
+            dev["feats"][0][sl, po] = lowp.feature_tensor(new_x, self.device)
         else:
             dev["feats"][0][sl, po] = put(new_ids.astype(np.int64))
-            dev["feats"][1][sl, po] = put(new_vals.astype(np.float32))
+            dev["feats"][1][sl, po] = lowp.feature_tensor(new_vals, self.device)
         if "row_index" in dev:
             dev["row_index"][sl, po] = put(rows.astype(np.int64))
             dev["row_mask"][sl, po] = 1.0
@@ -1172,19 +1173,20 @@ class FactoredRandomEffectCoordinate:
         self._weight = torch.as_tensor(np.asarray(data.weight, np.float32), device=dev)
         self._dense = isinstance(shard, DenseShard)
         if self._dense:
-            self._x = torch.as_tensor(shard.x, device=dev)
+            self._x = lowp.feature_tensor(shard.x, dev)
         else:
             self._ids = torch.as_tensor(shard.ids, device=dev).long()
-            self._vals = torch.as_tensor(shard.vals, device=dev)
+            self._vals = lowp.feature_tensor(shard.vals, dev)
         self._entity_of_row = torch.as_tensor(self.dataset.entity_idx_per_row,
                                               device=dev).long()
 
     def _project_bucket(self, dev: dict, latent: Tensor) -> Tensor:
-        """A bin's features projected by ``L``: ``[E, R, r]``."""
+        """A bin's features projected by ``L``: ``[E, R, r]`` (bf16 features
+        widen before the product)."""
         if dev["dense"]:
-            return torch.einsum("erd,dk->erk", dev["feats"][0], latent)
+            return torch.einsum("erd,dk->erk", dev["feats"][0].to(latent.dtype), latent)
         ids, vals = dev["feats"]
-        return torch.einsum("ernk,ern->erk", latent[ids], vals)
+        return torch.einsum("ernk,ern->erk", latent[ids], vals.to(latent.dtype))
 
     def _latent_value_and_grad(self, flat: Tensor, z_rows: Tensor,
                                offsets: Tensor) -> tuple[Tensor, Tensor]:
@@ -1195,14 +1197,14 @@ class FactoredRandomEffectCoordinate:
         latent = flat.view(self.dim, self.r)
         loss, l2 = self.objective.loss, self.objective.l2_weight
         if self._dense:
-            xl = self._x @ latent
+            xl = self._x.to(latent.dtype) @ latent
         else:
-            xl = torch.einsum("njk,nj->nk", latent[self._ids], self._vals)
+            xl = torch.einsum("njk,nj->nk", latent[self._ids], self._vals.to(latent.dtype))
         z = torch.sum(xl.double() * z_rows.double(), dim=-1) + offsets.double()
         value = torch.sum(self._weight.double() * loss.value(z, self._label.double()))
         per_row = self._weight * loss.d1(z, self._label.double()).float()
         if self._dense:
-            grad = self._x.T @ (per_row[:, None] * z_rows)
+            grad = self._x.to(per_row.dtype).T @ (per_row[:, None] * z_rows)
         else:
             terms = (per_row[:, None] * self._vals)[..., None] * z_rows[:, None, :]
             grad = torch.zeros(self.dim, self.r, dtype=torch.float64, device=flat.device)

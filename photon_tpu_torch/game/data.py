@@ -14,8 +14,9 @@ nothing of the JAX package).  Host-side and columnar:
 
 Entity order, bucket capacities, the size-bin plan and the cap's draws are
 the reference's exactly: the port's tests hold every array to it.  Feature
-values stay float32 (``dataset_astype`` waits with bf16 storage in
-ROADMAP.md queue 1, item 9.3).
+values are float32, or bf16 after :func:`dataset_astype`, held as their
+``uint16`` bit patterns (``game/lowp.py``): every row gather, slice, pad and
+merge here moves them unchanged.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ Float = np.float32
 class DenseShard(NamedTuple):
     """A feature shard stored dense: ``x[i]`` is row i's feature vector."""
 
-    x: np.ndarray  # [n, d] float32
+    x: np.ndarray  # [n, d] float32, or bf16 bits (uint16)
 
     @property
     def dim(self) -> int:
@@ -42,7 +43,7 @@ class SparseShard(NamedTuple):
     """A feature shard in padded-COO layout (see data.batch.SparseBatch)."""
 
     ids: np.ndarray  # [n, k] int32
-    vals: np.ndarray  # [n, k] float32
+    vals: np.ndarray  # [n, k] float32, or bf16 bits (uint16)
     dim_: int
 
     @property
@@ -112,6 +113,37 @@ class GameDataset:
             shards=dict(shards),
             id_columns={} if id_columns is None else dict(id_columns),
         )
+
+
+def dataset_astype(data: GameDataset, dtype) -> GameDataset:
+    """Re-store every shard's FEATURE VALUES in ``dtype`` (``"bfloat16"`` or
+    ``"float32"``, or the torch dtype).
+
+    The GAME counterpart of ``data/batch.batch_astype`` (the reference's
+    ``dataset_astype``): labels, offsets, weights and all arithmetic stay
+    float32; only the stored value stream shrinks, so every coordinate's
+    blocks and gathers move 2 bytes a value.  bf16 values are held as their
+    ``uint16`` bit patterns, rounded to nearest even (the reference's
+    ``ml_dtypes`` bits); uploads view them as ``torch.bfloat16``."""
+    import torch
+
+    from photon_tpu_torch.data.batch import value_dtype
+    from photon_tpu_torch.game.lowp import encode_bf16, host_f32, is_bf16_bits
+
+    target = value_dtype(dtype)
+
+    def cast(values: np.ndarray) -> np.ndarray:
+        if target == torch.float32:
+            return host_f32(values)
+        return values if is_bf16_bits(values) else encode_bf16(values)
+
+    shards: Dict[str, Shard] = {}
+    for name, shard in data.shards.items():
+        if isinstance(shard, DenseShard):
+            shards[name] = DenseShard(cast(shard.x))
+        else:
+            shards[name] = SparseShard(shard.ids, cast(shard.vals), shard.dim_)
+    return dataclasses.replace(data, shards=shards)
 
 
 def take_rows(data: GameDataset, rows: np.ndarray) -> GameDataset:

@@ -118,3 +118,35 @@ def decode_bf16(raw: np.ndarray) -> np.ndarray:
     """f32 decode of :func:`encode_bf16` output (exact widening)."""
     bits = torch.from_numpy(np.ascontiguousarray(raw, np.uint16).view(np.int16))
     return bits.view(torch.bfloat16).to(torch.float32).numpy()
+
+
+# -- host feature values ------------------------------------------------------
+#
+# A GAME shard's feature values live on the host as float32 arrays, or after
+# ``game/data.dataset_astype`` as bf16: their ``uint16`` bit patterns (the
+# port has no numpy bf16 type).  Gathers, slices, padding and concatenation
+# move those bits as they move floats; arithmetic on the host decodes them
+# first (:func:`host_f32`), and an upload views them as ``torch.bfloat16``
+# (:func:`feature_tensor`), so the device holds 2 bytes a value.
+
+
+def is_bf16_bits(values) -> bool:
+    """Whether host feature values are bf16 bit patterns."""
+    return isinstance(values, np.ndarray) and values.dtype == np.uint16
+
+
+def host_f32(values) -> np.ndarray:
+    """Host feature values as float32 (bf16 bits widened exactly)."""
+    if is_bf16_bits(values):
+        return decode_bf16(values)
+    return np.asarray(values, np.float32)
+
+
+def feature_tensor(values, device=None) -> torch.Tensor:
+    """Host feature values as a tensor on ``device``: ``torch.bfloat16`` for
+    bf16 bits, else float32 (a read-only array is copied; torch cannot share
+    it)."""
+    if is_bf16_bits(values):
+        bits = np.require(values, np.uint16, ["C", "W"]).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.require(values, np.float32, ["W"]), device=device)

@@ -73,26 +73,27 @@ def shard_to_batch(shard: Shard, label, offset=None, weight=None, device=None):
     weight = (torch.ones(n, dtype=torch.float32, device=dev)
               if weight is None else _f32(weight, dev))
     if isinstance(shard, DenseShard):
-        return DenseBatch(_f32(shard.x, dev), label, offset, weight)
+        return DenseBatch(lowp.feature_tensor(shard.x, dev), label, offset, weight)
     return SparseBatch(
         torch.as_tensor(np.asarray(shard.ids, np.int32), device=dev),
-        _f32(shard.vals, dev), label, offset, weight,
+        lowp.feature_tensor(shard.vals, dev), label, offset, weight,
     )
 
 
 def shard_feats(shard: Shard, device) -> tuple:
     """A shard's features on ``device``: ``(leaves, dense)`` with leaves
-    ``(x,)`` or ``(ids, vals)``."""
+    ``(x,)`` or ``(ids, vals)``; bf16 values stay bf16
+    (``lowp.feature_tensor``)."""
     if isinstance(shard, DenseShard):
-        return (_f32(shard.x, device),), True
+        return (lowp.feature_tensor(shard.x, device),), True
     return (torch.as_tensor(np.asarray(shard.ids, np.int32), device=device),
-            _f32(shard.vals, device)), False
+            lowp.feature_tensor(shard.vals, device)), False
 
 
 def fixed_margins(w: Tensor, feats: tuple, dense: bool) -> Tensor:
-    """``w . x_i`` per row."""
+    """``w . x_i`` per row (bf16 features widen before the product)."""
     if dense:
-        return feats[0] @ w
+        return feats[0].to(w.dtype) @ w
     ids, vals = feats
     return (w[ids.long()] * vals).sum(-1)
 

@@ -34,6 +34,7 @@ from typing import Optional, Union
 import numpy as np
 
 from photon_tpu_torch.game.data import DenseShard, EntityBucket, Shard, SparseShard
+from photon_tpu_torch.game.lowp import host_f32
 from photon_tpu_torch.game.model import pow2_at_least as _pow2_at_least
 
 
@@ -56,7 +57,7 @@ class IndexMapBucketProjection:
         if isinstance(features, DenseShard):
             # x_local[e, r, j] = x[e, r, proj_ids[e, j]] (0 on padded slots).
             gathered = np.take_along_axis(
-                features.x, self.proj_ids[:, None, :], axis=2
+                host_f32(features.x), self.proj_ids[:, None, :], axis=2
             )
             return DenseShard(gathered * self.mask[:, None, :])
         # Sparse: remap global ids to the entity's local slots.  proj_ids
@@ -89,8 +90,8 @@ def build_index_map_projection(bucket: EntityBucket) -> Optional[IndexMapBucketP
     features = bucket.features
     if isinstance(features, DenseShard):
         dim = features.x.shape[2]
-        active = [np.nonzero(np.any(features.x[e] != 0, axis=0))[0]
-                  for e in range(features.x.shape[0])]
+        x = host_f32(features.x)
+        active = [np.nonzero(np.any(x[e] != 0, axis=0))[0] for e in range(x.shape[0])]
     else:
         dim = features.dim
         active = [np.unique(features.ids[e]) for e in range(features.ids.shape[0])]
@@ -133,11 +134,11 @@ class RandomProjectionMatrix:
 
     def project(self, features: Shard) -> DenseShard:
         if isinstance(features, DenseShard):
-            return DenseShard(features.x @ self.matrix)
+            return DenseShard(host_f32(features.x) @ self.matrix)
         # Sparse rows: sum_t vals[t] * R[ids[t]] -> dense [E, R, p].
         gathered = self.matrix[features.ids]  # [E, R, k, p]
         return DenseShard(
-            np.einsum("erk,erkp->erp", features.vals, gathered).astype(np.float32)
+            np.einsum("erk,erkp->erp", host_f32(features.vals), gathered).astype(np.float32)
         )
 
     def restrict_table(self, table: np.ndarray) -> np.ndarray:

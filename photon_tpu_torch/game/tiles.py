@@ -39,6 +39,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from photon_tpu_torch.game import lowp
 from photon_tpu_torch.telemetry import NULL_SESSION
 
 # Chunks the reference keeps in flight beyond the one being consumed.  The
@@ -166,9 +167,13 @@ class ResidentChunkSource:
 def host_tensors(payload, pin: bool):
     """A host payload (tuples, named tuples and lists of numpy arrays) as CPU
     tensors, copied into pinned memory when the target is a card (so the
-    upload can run beside the compute)."""
+    upload can run beside the compute).  bf16 feature bits
+    (``game/lowp.py``) become ``torch.bfloat16`` tensors, 2 bytes a value."""
     if isinstance(payload, np.ndarray):
-        t = torch.from_numpy(np.require(payload, requirements=["C", "W"]))
+        if lowp.is_bf16_bits(payload):
+            t = lowp.feature_tensor(payload)
+        else:
+            t = torch.from_numpy(np.require(payload, requirements=["C", "W"]))
         return t.pin_memory() if pin else t
     if isinstance(payload, tuple):
         items = [host_tensors(v, pin) for v in payload]

@@ -15,8 +15,14 @@
 // port's scatter sums (data/batch.py scatter_sum): its atomics add into a
 // float64 buffer that is rounded to float32 once.
 //
-// What bounds them: the ids and vals streams (8 bytes per entry) are read
-// once from device memory; w (4 bytes per feature) stays in L2 for the
+// Values come as float32 or bfloat16 (the bf16 feature storage of
+// data/batch.py batch_astype, whose TPU counterpart K1 reads as
+// bf16 and computes in float32 by promotion): each kernel is templated on
+// the value type and widens a value to float32 as it loads it (exact), so
+// everything after the load is the float32 arithmetic of the f32 form.
+//
+// What bounds them: the ids and vals streams (8 bytes per entry, 6 with
+// bf16 values) are read once from device memory; w (4 bytes per feature) stays in L2 for the
 // gather.  The scatter is one atomic per non-zero entry into L2.  On uniform
 // ids the L2's rate of random atomics bounds the kernel long before
 // device-memory bandwidth; under skewed ids (zipf) the atomics of the few
@@ -58,6 +64,7 @@
 //   block into a partials buffer, then one block of the epilogue sums the
 //   partials.  The TPU kernel's sequential accumulation across grid steps is
 //   not carried over: CUDA blocks run in parallel and in no order.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,6 +125,10 @@ __device__ __forceinline__ void loss_value_d1(float z, float y, float& value,
     d1 = ys * dt;
   }
 }
+
+// A stored value widened to float32 (exact for both value types).
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ unsigned table_hash(int id) {
   return (static_cast<unsigned>(id) * 2654435761u) >> (32 - kTableBits);
@@ -219,10 +230,10 @@ __device__ __forceinline__ void flush_hot(const Hot& h,
   }
 }
 
-template <int LOSS, bool HOT>
+template <int LOSS, bool HOT, typename V>
 __global__ void __launch_bounds__(kThreads) fused_value_grad_kernel(
     const float* __restrict__ w, const int32_t* __restrict__ ids,
-    const float* __restrict__ vals, const float* __restrict__ label,
+    const V* __restrict__ vals, const float* __restrict__ label,
     const float* __restrict__ offset, const float* __restrict__ weight, int n,
     int k, int d, float* __restrict__ grad, float* __restrict__ block_value,
     int* __restrict__ bad_ids, const int32_t* __restrict__ hot,
@@ -251,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) fused_value_grad_kernel(
         if (row < n) {
           if (lane < k) {
             id[g] = ids[static_cast<int64_t>(row) * k + lane];
-            v[g] = vals[static_cast<int64_t>(row) * k + lane];
+            v[g] = to_float(vals[static_cast<int64_t>(row) * k + lane]);
           }
           wt[g] = weight[row];
           off[g] = offset[row];
@@ -305,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) fused_value_grad_kernel(
       for (int j = lane; j < k; j += 32) {
         const int id = ids[base + j];
         if (static_cast<unsigned>(id) < static_cast<unsigned>(d)) {
-          m += w[id] * vals[base + j];
+          m += w[id] * to_float(vals[base + j]);
         } else {
           *bad_ids = 1;
         }
@@ -320,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) fused_value_grad_kernel(
       if (coeff == 0.0f) continue;
       for (int j0 = 0; j0 < k; j0 += 32) {
         const int j = j0 + lane;
-        const float v = j < k ? vals[base + j] : 0.0f;
+        const float v = j < k ? to_float(vals[base + j]) : 0.0f;
         int id = v != 0.0f ? ids[base + j] : -1;
         // An id outside [0, d) was flagged by the gather: scatter nothing.
         if (static_cast<unsigned>(id) >= static_cast<unsigned>(d)) id = -1;
@@ -338,10 +349,10 @@ __global__ void __launch_bounds__(kThreads) fused_value_grad_kernel(
   if constexpr (HOT) flush_hot(h, hot_partials);
 }
 
-template <bool HOT>
+template <bool HOT, typename V>
 __global__ void __launch_bounds__(kThreads) row_scatter_kernel(
     const float* __restrict__ r, const int32_t* __restrict__ ids,
-    const float* __restrict__ vals, int n, int k, int d,
+    const V* __restrict__ vals, int n, int k, int d,
     double* __restrict__ out, int* __restrict__ bad_ids,
     const int32_t* __restrict__ hot, double* __restrict__ hot_partials) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -361,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) row_scatter_kernel(
       float v = 0.0f;
       if (j < k) {
         id = ids[base + j];
-        v = vals[base + j];
+        v = to_float(vals[base + j]);
         if (static_cast<unsigned>(id) >= static_cast<unsigned>(d)) {
           *bad_ids = 1;
           id = -1;
@@ -449,24 +460,39 @@ cudaError_t max_blocks(Kernel kernel, size_t smem, int* blocks) {
   return err;
 }
 
-template <int LOSS>
+template <int LOSS, typename V>
 cudaError_t value_grad_blocks(bool hot, int* blocks) {
-  return hot ? max_blocks(fused_value_grad_kernel<LOSS, true>, kHotSmem, blocks)
-             : max_blocks(fused_value_grad_kernel<LOSS, false>, 0, blocks);
+  return hot ? max_blocks(fused_value_grad_kernel<LOSS, true, V>, kHotSmem, blocks)
+             : max_blocks(fused_value_grad_kernel<LOSS, false, V>, 0, blocks);
 }
 
-template <int LOSS>
+template <typename V>
+cudaError_t grid_of(int kernel, bool hot, int* blocks) {
+  switch (kernel) {
+    case kLogistic: return value_grad_blocks<kLogistic, V>(hot, blocks);
+    case kSquared: return value_grad_blocks<kSquared, V>(hot, blocks);
+    case kPoisson: return value_grad_blocks<kPoisson, V>(hot, blocks);
+    case kSmoothedHinge: return value_grad_blocks<kSmoothedHinge, V>(hot, blocks);
+    case kRowScatter:
+      return hot ? max_blocks(row_scatter_kernel<true, V>, kHotSmem, blocks)
+                 : max_blocks(row_scatter_kernel<false, V>, 0, blocks);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int LOSS, typename V>
 void launch_value_grad(int blocks, cudaStream_t stream, const float* w,
-                       const int32_t* ids, const float* vals, const float* label,
+                       const int32_t* ids, const V* vals, const float* label,
                        const float* offset, const float* weight, int n, int k,
                        int d, float* grad, float* partials, int* bad_ids,
                        const int32_t* hot, double* hot_partials) {
   if (hot != nullptr) {
-    fused_value_grad_kernel<LOSS, true><<<blocks, kThreads, kHotSmem, stream>>>(
+    fused_value_grad_kernel<LOSS, true, V><<<blocks, kThreads, kHotSmem, stream>>>(
         w, ids, vals, label, offset, weight, n, k, d, grad, partials, bad_ids, hot,
         hot_partials);
   } else {
-    fused_value_grad_kernel<LOSS, false><<<blocks, kThreads, 0, stream>>>(
+    fused_value_grad_kernel<LOSS, false, V><<<blocks, kThreads, 0, stream>>>(
         w, ids, vals, label, offset, weight, n, k, d, grad, partials, bad_ids, hot,
         hot_partials);
   }
@@ -481,46 +507,12 @@ int launch_epilogue(const float* partials, int blocks, float* value,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// The most blocks of the persistent grid the card holds at once for a
-// kernel form: `kernel` is a loss code (the fused kernel) or -1 (the row
-// scatter), `hot` picks the form with the hot table.  The wrapper takes at
-// most one block per 8 rows of it and sizes the partials buffers by it.
-extern "C" int photon_fused_grid(int kernel, int hot, int* blocks) {
-  switch (kernel) {
-    case kLogistic: return static_cast<int>(value_grad_blocks<kLogistic>(hot, blocks));
-    case kSquared: return static_cast<int>(value_grad_blocks<kSquared>(hot, blocks));
-    case kPoisson: return static_cast<int>(value_grad_blocks<kPoisson>(hot, blocks));
-    case kSmoothedHinge:
-      return static_cast<int>(value_grad_blocks<kSmoothedHinge>(hot, blocks));
-    case kRowScatter:
-      return static_cast<int>(
-          hot ? max_blocks(row_scatter_kernel<true>, kHotSmem, blocks)
-              : max_blocks(row_scatter_kernel<false>, 0, blocks));
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// Launches the fused kernel on `blocks` blocks and the epilogue on `stream`.
-// `grad` must be zeroed by the caller; `partials` holds `blocks` floats of
-// scratch.  `hot` is the hot set ([kHot + 1] int32: distinct ids in [0, d),
-// then their number) or null for the form without it; `hot_partials` holds
-// blocks * kHot doubles of scratch when `hot` is given.  `*bad_ids`, zeroed
-// by the caller, becomes non-zero when any id lies outside [0, d); such
-// entries are neither gathered nor scattered.  Returns the CUDA error code
-// (0 on success).
-extern "C" int photon_fused_value_grad(int loss, const float* w,
-                                       const int32_t* ids, const float* vals,
-                                       const float* label, const float* offset,
-                                       const float* weight, int n, int k,
-                                       int d, float* grad, float* partials,
-                                       int blocks, float* value, int* bad_ids,
-                                       const int32_t* hot, double* hot_partials,
-                                       void* stream_ptr) {
-  if (n <= 0 || k <= 0 || d <= 0 || blocks <= 0) return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+template <typename V>
+int value_grad(int loss, const float* w, const int32_t* ids, const V* vals,
+               const float* label, const float* offset, const float* weight, int n,
+               int k, int d, float* grad, float* partials, int blocks, float* value,
+               int* bad_ids, const int32_t* hot, double* hot_partials,
+               cudaStream_t stream) {
   switch (loss) {
     case kLogistic:
       launch_value_grad<kLogistic>(blocks, stream, w, ids, vals, label, offset, weight,
@@ -548,23 +540,15 @@ extern "C" int photon_fused_value_grad(int loss, const float* w,
                          stream);
 }
 
-// Launches the row scatter on `blocks` blocks, its epilogue and the
-// rounding to float32 on `stream`: out32 = float(sum over entries of
-// r[row] * vals into out64).  `out64` ([d] float64) must be zeroed by the
-// caller; `hot`, `hot_partials` and `bad_ids` are as for
-// photon_fused_value_grad.  Returns the CUDA error code.
-extern "C" int photon_row_scatter(const float* r, const int32_t* ids,
-                                  const float* vals, int n, int k, int d,
-                                  double* out64, float* out32, int blocks,
-                                  int* bad_ids, const int32_t* hot,
-                                  double* hot_partials, void* stream_ptr) {
-  if (n <= 0 || k <= 0 || d <= 0 || blocks <= 0) return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+template <typename V>
+int row_scatter(const float* r, const int32_t* ids, const V* vals, int n, int k,
+                int d, double* out64, float* out32, int blocks, int* bad_ids,
+                const int32_t* hot, double* hot_partials, cudaStream_t stream) {
   if (hot != nullptr) {
-    row_scatter_kernel<true><<<blocks, kThreads, kHotSmem, stream>>>(
+    row_scatter_kernel<true, V><<<blocks, kThreads, kHotSmem, stream>>>(
         r, ids, vals, n, k, d, out64, bad_ids, hot, hot_partials);
   } else {
-    row_scatter_kernel<false><<<blocks, kThreads, 0, stream>>>(
+    row_scatter_kernel<false, V><<<blocks, kThreads, 0, stream>>>(
         r, ids, vals, n, k, d, out64, bad_ids, hot, hot_partials);
   }
   cudaError_t err = cudaGetLastError();
@@ -577,4 +561,66 @@ extern "C" int photon_row_scatter(const float* r, const int32_t* ids,
   const int grid = d < 1024 * 256 ? (d + 255) / 256 : 1024;
   to_float_kernel<<<grid, 256, 0, stream>>>(out64, d, out32);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The most blocks of the persistent grid the card holds at once for a
+// kernel form: `kernel` is a loss code (the fused kernel) or -1 (the row
+// scatter), `hot` picks the form with the hot table, `bf16` the form that
+// reads bfloat16 values.  The wrapper takes at most one block per 8 rows of
+// it and sizes the partials buffers by it.
+extern "C" int photon_fused_grid(int kernel, int hot, int bf16, int* blocks) {
+  return static_cast<int>(bf16 ? grid_of<__nv_bfloat16>(kernel, hot, blocks)
+                               : grid_of<float>(kernel, hot, blocks));
+}
+
+// Launches the fused kernel on `blocks` blocks and the epilogue on `stream`.
+// `vals` holds float32 values, or bfloat16 ones when `bf16` is non-zero.
+// `grad` must be zeroed by the caller; `partials` holds `blocks` floats of
+// scratch.  `hot` is the hot set ([kHot + 1] int32: distinct ids in [0, d),
+// then their number) or null for the form without it; `hot_partials` holds
+// blocks * kHot doubles of scratch when `hot` is given.  `*bad_ids`, zeroed
+// by the caller, becomes non-zero when any id lies outside [0, d); such
+// entries are neither gathered nor scattered.  Returns the CUDA error code
+// (0 on success).
+extern "C" int photon_fused_value_grad(int loss, const float* w,
+                                       const int32_t* ids, const void* vals,
+                                       int bf16, const float* label,
+                                       const float* offset, const float* weight,
+                                       int n, int k, int d, float* grad,
+                                       float* partials, int blocks, float* value,
+                                       int* bad_ids, const int32_t* hot,
+                                       double* hot_partials, void* stream_ptr) {
+  if (n <= 0 || k <= 0 || d <= 0 || blocks <= 0) return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bf16) {
+    return value_grad(loss, w, ids, static_cast<const __nv_bfloat16*>(vals), label,
+                      offset, weight, n, k, d, grad, partials, blocks, value, bad_ids,
+                      hot, hot_partials, stream);
+  }
+  return value_grad(loss, w, ids, static_cast<const float*>(vals), label, offset,
+                    weight, n, k, d, grad, partials, blocks, value, bad_ids, hot,
+                    hot_partials, stream);
+}
+
+// Launches the row scatter on `blocks` blocks, its epilogue and the
+// rounding to float32 on `stream`: out32 = float(sum over entries of
+// r[row] * vals into out64).  `vals` holds float32 values, or bfloat16 ones
+// when `bf16` is non-zero.  `out64` ([d] float64) must be zeroed by the
+// caller; `hot`, `hot_partials` and `bad_ids` are as for
+// photon_fused_value_grad.  Returns the CUDA error code.
+extern "C" int photon_row_scatter(const float* r, const int32_t* ids,
+                                  const void* vals, int bf16, int n, int k, int d,
+                                  double* out64, float* out32, int blocks,
+                                  int* bad_ids, const int32_t* hot,
+                                  double* hot_partials, void* stream_ptr) {
+  if (n <= 0 || k <= 0 || d <= 0 || blocks <= 0) return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bf16) {
+    return row_scatter(r, ids, static_cast<const __nv_bfloat16*>(vals), n, k, d, out64,
+                       out32, blocks, bad_ids, hot, hot_partials, stream);
+  }
+  return row_scatter(r, ids, static_cast<const float*>(vals), n, k, d, out64, out32,
+                     blocks, bad_ids, hot, hot_partials, stream);
 }

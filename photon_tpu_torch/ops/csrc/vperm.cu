@@ -70,6 +70,19 @@
 //
 // K5 reads one 512-byte row of x per output row: coalesced, L1-resident.
 //
+// The half-width payload (PHOTON_XCHG_DTYPE=bfloat16, photon_tpu/ops/
+// vperm.py:1258-1310, where K4-K6 move bf16 streams): every form is a
+// template on the element type, float or a 2-byte word carrying a bf16's
+// bits (uint16_t: the passes only move elements, so the bits pass through
+// unchanged).  The 2-byte forms keep the f32 forms' geometry: the same
+// shared-memory budgets (exchange_smem, expand_smem: the 2-byte tiles use
+// half of the rooms sized for floats), the same cluster sizes and passes,
+// so chunk_form's pick holds for both; a lane loads and the exchanges move
+// runs of 4 elements, 8 bytes in place of 16 (st.shared::cluster.v2.b32 of
+// two packed pairs).  Their index planes are the f32 forms' (6 of K4's 8
+// bytes a slot at bf16 are index bytes), so they cut K4's bytes by a third,
+// not a half.
+//
 // A refused launch (too much shared memory, a cluster that cannot be
 // scheduled) returns its CUDA error; the wrapper raises.  Pure data
 // movement: each form equals its plain PyTorch version bit for bit; pad
@@ -91,13 +104,28 @@ constexpr int kLanes = 128;
 constexpr int kRowsPerBlock = 32;
 constexpr int kThreads = 256;
 
+// Four elements of a row, one load or store: 16 bytes of float, 8 of a
+// 2-byte payload.
+template <typename T> struct Quad;
+template <> struct Quad<float> { using V = float4; };
+template <> struct Quad<uint16_t> { using V = ushort4; };
+
+__device__ __forceinline__ float4 make_quad(float a, float b, float c, float d) {
+  return make_float4(a, b, c, d);
+}
+__device__ __forceinline__ ushort4 make_quad(uint16_t a, uint16_t b, uint16_t c,
+                                             uint16_t d) {
+  return make_ushort4(a, b, c, d);
+}
+
 // out[R, l] for R in this block's rows.  The source element of the
 // composed gather is src[src_row * src_stride + (i1[src_row, c] >> shift)]:
 // K4 passes (x, 128, 0), K6 (dz tile, 128 / k, log2 k).
+template <typename T>
 __global__ void __launch_bounds__(kThreads) global_chunk_kernel(
-    const float* __restrict__ src, int src_stride, int shift,
+    const T* __restrict__ src, int src_stride, int shift,
     const int8_t* __restrict__ i1, const int16_t* __restrict__ i2,
-    const int8_t* __restrict__ i3, float* __restrict__ out, int ch,
+    const int8_t* __restrict__ i3, T* __restrict__ out, int ch,
     int64_t rows) {
   const int lane = threadIdx.x % kLanes;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
@@ -115,22 +143,24 @@ __global__ void __launch_bounds__(kThreads) global_chunk_kernel(
   }
 }
 
-int launch_global(const float* src, int src_stride, int shift,
+template <typename T>
+int launch_global(const T* src, int src_stride, int shift,
                   const int8_t* i1, const int16_t* i2, const int8_t* i3,
-                  float* out, int nc, int ch, void* stream_ptr) {
+                  T* out, int nc, int ch, void* stream_ptr) {
   if (nc <= 0 || ch <= 0 || ch > 32767) return cudaErrorInvalidValue;
   const int64_t rows = static_cast<int64_t>(nc) * ch;
   const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  global_chunk_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream_ptr)>>>(
+  global_chunk_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           static_cast<cudaStream_t>(stream_ptr)>>>(
       src, src_stride, shift, i1, i2, i3, out, ch, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out[r, l] = x[r, c[r, l]] over [rows, 128].
+template <typename T>
 __global__ void __launch_bounds__(kThreads) lane_pass_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ c,
-    float* __restrict__ out, int64_t elems) {
+    const T* __restrict__ x, const int8_t* __restrict__ c,
+    T* __restrict__ out, int64_t elems) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= elems) return;
   out[e] = x[(e / kLanes) * kLanes + c[e]];
@@ -148,13 +178,22 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   return out;
 }
 
-// One 16-byte store into the shared memory of a block of the cluster.  A
-// scalar st.shared::cluster costs a warp about as much as this one does, so
-// the exchange moves 4 floats a lane.
-__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b,
-                                              float c, float d) {
+// One store of 4 elements into the shared memory of a block of the
+// cluster: 16 bytes of float, 8 of a 2-byte payload (two packed pairs, the
+// lower element in the lower half, as memory holds them).  A scalar
+// st.shared::cluster costs a warp about as much as a 16-byte one does, so
+// the exchange moves 4 elements a lane.
+__device__ __forceinline__ void st_cluster_quad(uint32_t addr, float a, float b,
+                                                float c, float d) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
                :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+__device__ __forceinline__ void st_cluster_quad(uint32_t addr, uint16_t a, uint16_t b,
+                                                uint16_t c, uint16_t d) {
+  const uint32_t lo = static_cast<uint32_t>(a) | (static_cast<uint32_t>(b) << 16);
+  const uint32_t hi = static_cast<uint32_t>(c) | (static_cast<uint32_t>(d) << 16);
+  asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};"
+               :: "r"(addr), "r"(lo), "r"(hi) : "memory");
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -165,7 +204,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 constexpr int kXThreads = 1024;
 constexpr int kXWarps = kXThreads / 32;  // = rows of the stage-1 tile
-constexpr int kYPitch = kLanes + 4;      // floats: 16-byte aligned tile rows
+constexpr int kYPitch = kLanes + 4;      // elements: aligned tile rows
 constexpr int kYTileBytes = kXWarps * kYPitch * 4;
 
 // Rows a block owns when stages 2 and 3 run in `passes` passes over them:
@@ -184,7 +223,8 @@ __host__ __device__ int exchange_pitch(int rpp) { return (rpp + 31) / 32 * 32; }
 // A, the block's cpb = 128 / cl columns of y1 over the chunk's ch rows; B,
 // the pass's y2, 128 x pitch f32; the i2 of the block's columns over every
 // block's pass rows (cpb x cl x rpp int16).  ops/vperm.py
-// (exchange_passes) mirrors it.
+// (exchange_passes) mirrors it.  The 2-byte form takes the same budget (its
+// tiles fill half of the rooms), so one rule picks the form for both.
 size_t exchange_smem(int ch, int cl, int passes) {
   const int rpp = exchange_rpb(ch, cl, passes) / passes;
   return 32 + std::max<size_t>(kYTileBytes, static_cast<size_t>(rpp) * kLanes) +
@@ -251,10 +291,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // B holds y2[c, r] at c * pitch + (r ^ (c % 32)): a run of 4 rows stays one
 // aligned 16-byte run (its lanes permuted by c % 4), and stage 3's reads of
 // one row at random columns spread over all 32 banks.
+template <typename T>
 __global__ void __launch_bounds__(kXThreads, 1) exchange_chunk_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ i1,
+    const T* __restrict__ x, const int8_t* __restrict__ i1,
     const int16_t* __restrict__ i2, const int8_t* __restrict__ i3,
-    float* __restrict__ out, int nc, int ch, int rpb, int passes) {
+    T* __restrict__ out, int nc, int ch, int rpb, int passes) {
+  using V = typename Quad<T>::V;
+  constexpr uint32_t kElem = sizeof(T);
   extern __shared__ __align__(16) unsigned char xsmem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cl = static_cast<int>(cluster.num_blocks());
@@ -265,10 +308,10 @@ __global__ void __launch_bounds__(kXThreads, 1) exchange_chunk_kernel(
   const int rows_b = max(0, min(ch - r_begin, rpb));  // a multiple of 8
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const uint32_t bar_i3 = smem_addr(xsmem), bar_i2 = bar_i3 + 8;
-  float* ytile = reinterpret_cast<float*>(xsmem + 32);
+  T* ytile = reinterpret_cast<T*>(xsmem + 32);
   int8_t* i3s = reinterpret_cast<int8_t*>(ytile);  // after stage 1
-  float* a = reinterpret_cast<float*>(xsmem + 32 + max(kYTileBytes, rpp * kLanes));
-  float* b = a + cpb * ch;
+  T* a = reinterpret_cast<T*>(xsmem + 32 + max(kYTileBytes, rpp * kLanes));
+  T* b = a + cpb * ch;
   int16_t* i2s = reinterpret_cast<int16_t*>(b + kLanes * pb);  // [cpb][cl][rpp]
   const uint32_t a_addr = smem_addr(a), b_addr = smem_addr(b);
   uint32_t i3_loads = 0, i2_loads = 0;  // phases begun on each barrier
@@ -317,27 +360,27 @@ __global__ void __launch_bounds__(kXThreads, 1) exchange_chunk_kernel(
 
   // Stage-1 tile loads into one of two register sets: lane L holds src
   // lanes 4L .. 4L+3 of the warp's row and their i1 bytes.
-  float4 x0, x1;
+  V x0, x1;
   uint32_t s0, s1;
-  auto load_tile = [&](int64_t chunk, int t0, float4& xv, uint32_t& sv) {
+  auto load_tile = [&](int64_t chunk, int t0, V& xv, uint32_t& sv) {
     if (warp < rows_b - t0) {
       const int64_t g = chunk * ch + r_begin + t0 + warp;
-      xv = __ldg(reinterpret_cast<const float4*>(x + g * kLanes) + lane);
+      xv = __ldg(reinterpret_cast<const V*>(x + g * kLanes) + lane);
       sv = ldg_u32(i1 + g * kLanes + 4 * lane);
     }
   };
   // Form tile t0 from (xv, sv), refill them with tile t0 + 64 and send the
   // tile's columns to their owners' A.
-  auto stage1_tile = [&](int64_t chunk, int t0, float4& xv, uint32_t& sv) {
+  auto stage1_tile = [&](int64_t chunk, int t0, V& xv, uint32_t& sv) {
     const int nt = min(kXWarps, rows_b - t0);
     const bool mine = warp < nt;
-    float* trow = ytile + warp * kYPitch;
-    const float4 xr = xv;
+    T* trow = ytile + warp * kYPitch;
+    const V xr = xv;
     const uint32_t s = sv;
     if (t0 + 2 * kXWarps < rows_b) load_tile(chunk, t0 + 2 * kXWarps, xv, sv);
-    if (mine) reinterpret_cast<float4*>(trow)[lane] = xr;
+    if (mine) reinterpret_cast<V*>(trow)[lane] = xr;
     __syncwarp();
-    float4 v;
+    V v;
     if (mine) {
       v.x = trow[(s >> 0) & 0x7f];
       v.y = trow[(s >> 8) & 0x7f];
@@ -345,17 +388,17 @@ __global__ void __launch_bounds__(kXThreads, 1) exchange_chunk_kernel(
       v.w = trow[(s >> 24) & 0x7f];
     }
     __syncwarp();
-    if (mine) reinterpret_cast<float4*>(trow)[lane] = v;
+    if (mine) reinterpret_cast<V*>(trow)[lane] = v;
     __syncthreads();
     // Warp w sends columns 4w .. 4w+3: lane L column 4w + L / 8, tile rows
-    // 4(L % 8) .. +3, one 16-byte run into the column's owner's A.
+    // 4(L % 8) .. +3, one run of 4 into the column's owner's A.
     {
       const int c = 4 * warp + lane / 8, t = 4 * (lane % 8);
       const int owner = c / cpb, j = c - owner * cpb;
       if (t < nt) {
-        const float* col = ytile + t * kYPitch + c;
-        st_cluster_v4(map_rank(a_addr + 4 * (j * ch + r_begin + t0 + t), owner),
-                      col[0], col[kYPitch], col[2 * kYPitch], col[3 * kYPitch]);
+        const T* col = ytile + t * kYPitch + c;
+        st_cluster_quad(map_rank(a_addr + kElem * (j * ch + r_begin + t0 + t), owner),
+                        col[0], col[kYPitch], col[2 * kYPitch], col[3 * kYPitch]);
       }
     }
     __syncthreads();
@@ -390,7 +433,7 @@ __global__ void __launch_bounds__(kXThreads, 1) exchange_chunk_kernel(
 
     for (int p = 0; p < passes; ++p) {
       // Stage 2.  Thread e takes run (j, owner) = e / q4 and its pass
-      // rows 4(e % q4) .. +3, one 16-byte run into the owner's B.
+      // rows 4(e % q4) .. +3, one run of 4 into the owner's B.
       mbar_wait(bar_i2, (i2_loads - 1) & 1);
       const int q4 = rpp / 4;
       for (int e = threadIdx.x; e < kLanes * q4; e += kXThreads) {
@@ -400,18 +443,18 @@ __global__ void __launch_bounds__(kXThreads, 1) exchange_chunk_kernel(
         pass_rows(owner, p, lo, hi);
         if (rl < hi - lo) {
           const uint2 w = *reinterpret_cast<const uint2*>(i2s + run * rpp + rl);
-          const float* col = a + j * ch;
-          const float v0 = col[static_cast<int16_t>(w.x & 0xffff)];
-          const float v1 = col[static_cast<int16_t>(w.x >> 16)];
-          const float v2 = col[static_cast<int16_t>(w.y & 0xffff)];
-          const float v3 = col[static_cast<int16_t>(w.y >> 16)];
+          const T* col = a + j * ch;
+          const T v0 = col[static_cast<int16_t>(w.x & 0xffff)];
+          const T v1 = col[static_cast<int16_t>(w.x >> 16)];
+          const T v2 = col[static_cast<int16_t>(w.y & 0xffff)];
+          const T v3 = col[static_cast<int16_t>(w.y >> 16)];
           // Row rl + e goes to lane e ^ (c % 4) of the run at rl ^ (c % 32).
           const int c = rank * cpb + j;
           const bool sw1 = c & 1, sw2 = c & 2;
-          const float a0 = sw1 ? v1 : v0, a1 = sw1 ? v0 : v1;
-          const float a2 = sw1 ? v3 : v2, a3 = sw1 ? v2 : v3;
-          st_cluster_v4(map_rank(b_addr + 4 * (c * pb + (rl ^ (c & 28))), owner),
-                        sw2 ? a2 : a0, sw2 ? a3 : a1, sw2 ? a0 : a2, sw2 ? a1 : a3);
+          const T a0 = sw1 ? v1 : v0, a1 = sw1 ? v0 : v1;
+          const T a2 = sw1 ? v3 : v2, a3 = sw1 ? v2 : v3;
+          st_cluster_quad(map_rank(b_addr + kElem * (c * pb + (rl ^ (c & 28))), owner),
+                          sw2 ? a2 : a0, sw2 ? a3 : a1, sw2 ? a0 : a2, sw2 ? a1 : a3);
         }
       }
       __syncthreads();  // i2s is free: the next pass's (or chunk's) i2
@@ -431,7 +474,7 @@ __global__ void __launch_bounds__(kXThreads, 1) exchange_chunk_kernel(
       for (int t = lo + warp; t < hi; t += kXWarps) {
         const int tl = t - lo;
         const uint32_t cw = *reinterpret_cast<const uint32_t*>(i3s + tl * kLanes + 4 * lane);
-        float4 v;
+        V v;
         int c = (cw >> 0) & 0x7f;
         v.x = b[c * pb + (tl ^ (c & 31))];
         c = (cw >> 8) & 0x7f;
@@ -440,7 +483,7 @@ __global__ void __launch_bounds__(kXThreads, 1) exchange_chunk_kernel(
         v.z = b[c * pb + (tl ^ (c & 31))];
         c = (cw >> 24) & 0x7f;
         v.w = b[c * pb + (tl ^ (c & 31))];
-        *reinterpret_cast<float4*>(out + (row0 + t) * kLanes + 4 * lane) = v;
+        *reinterpret_cast<V*>(out + (row0 + t) * kLanes + 4 * lane) = v;
       }
       __syncthreads();  // i3s (the tile's room) is free
       if (p + 1 < passes) {
@@ -484,10 +527,14 @@ size_t expand_smem(int width, int ch) {
 // rows of stage 3 stream through a ring of four 64-row slots filled by bulk
 // copies (cp.async.bulk on an mbarrier a slot), four tiles ahead; the i2
 // of a tile is in flight two tiles ahead.
+//
+// The 2-byte form keeps the dz rows at half their f32 bytes in the same
+// budget (the selectors stay where the f32 form puts them).
+template <typename T>
 __global__ void __launch_bounds__(kEThreads, 1) expand_chunk_kernel(
-    const float* __restrict__ src, int width, int shift, int bits,
+    const T* __restrict__ src, int width, int shift, int bits,
     const int8_t* __restrict__ i1, const int16_t* __restrict__ i2,
-    const int8_t* __restrict__ i3, float* __restrict__ out, int ch) {
+    const int8_t* __restrict__ i3, T* __restrict__ out, int ch) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int64_t chunk = blockIdx.x;
   const int64_t row0 = chunk * ch;
@@ -520,9 +567,10 @@ __global__ void __launch_bounds__(kEThreads, 1) expand_chunk_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) {  // ch * width * 4: a multiple of 32 bytes
-    mbar_expect(bar_dz, ch * width * 4);
-    bulk_copy(state_addr, src + row0 * width, ch * width * 4, bar_dz);
+  if (threadIdx.x == 0) {  // ch * width * sizeof(T): a multiple of 16 bytes
+    const uint32_t bytes = ch * width * sizeof(T);
+    mbar_expect(bar_dz, bytes);
+    bulk_copy(state_addr, src + row0 * width, bytes, bar_dz);
   }
   for (int n = 0; n < kERing; ++n) issue(n);
 
@@ -547,7 +595,7 @@ __global__ void __launch_bounds__(kEThreads, 1) expand_chunk_kernel(
   // 4 * bits bits; g = 32 / (4 * bits) neighbouring lanes OR them into one
   // word.
   uint32_t* sel = reinterpret_cast<uint32_t*>(state + sel_base);
-  const float* dz = reinterpret_cast<const float*>(state);
+  const T* dz = reinterpret_cast<const T*>(state);
   for (int n = 0; n < tiles; ++n) {
     if (bits) {
       const int t0 = n * kETile, nt = min(kETile, ch - t0);
@@ -593,7 +641,7 @@ __global__ void __launch_bounds__(kEThreads, 1) expand_chunk_kernel(
     wait_slot(n);
     for (int t = warp; t < nt; t += kEWarps) {
       const uint32_t cw = *reinterpret_cast<const uint32_t*>(slot + t * kLanes + 4 * lane);
-      float v[4];
+      T v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = (cw >> (8 * e)) & 0x7f;
@@ -605,8 +653,8 @@ __global__ void __launch_bounds__(kEThreads, 1) expand_chunk_kernel(
         }
         v[e] = dz[r2 * width + sl];
       }
-      *reinterpret_cast<float4*>(out + (row0 + t0 + t) * kLanes + 4 * lane) =
-          make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<typename Quad<T>::V*>(out + (row0 + t0 + t) * kLanes + 4 * lane) =
+          make_quad(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();  // the tile and the slot are free
     issue(n + kERing);
@@ -650,61 +698,66 @@ bool cluster_shape_ok(int nc, int ch, int cl) {
 }
 
 // cudaOccupancyMaxActiveClusters of the exchange form, remembered per
-// (device, ch, cl): a launch asks it once.
+// (device, element size, ch, cl): a launch asks it once.
+template <typename T>
 int exchange_clusters(int ch, int cl, size_t smem, cudaError_t* err) {
-  struct Entry { int device, ch, cl, clusters; };
+  struct Entry { int device, elem, ch, cl, clusters; };
   static Entry cache[16];
   static int used = 0;
   int device = 0;
   *err = cudaGetDevice(&device);
   if (*err != cudaSuccess) return 0;
+  const int elem = static_cast<int>(sizeof(T));
   for (int e = 0; e < used; ++e)
-    if (cache[e].device == device && cache[e].ch == ch && cache[e].cl == cl)
+    if (cache[e].device == device && cache[e].elem == elem && cache[e].ch == ch &&
+        cache[e].cl == cl)
       return cache[e].clusters;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t probe = cluster_config(1, cl, kXThreads, smem, nullptr, &attr);
   int clusters = 0;
-  *err = cudaOccupancyMaxActiveClusters(&clusters, exchange_chunk_kernel, &probe);
+  *err = cudaOccupancyMaxActiveClusters(&clusters, exchange_chunk_kernel<T>, &probe);
   if (*err != cudaSuccess) return 0;
   if (clusters <= 0) {
     *err = cudaErrorLaunchOutOfResources;
     return 0;
   }
-  cache[used % 16] = {device, ch, cl, clusters};
+  cache[used % 16] = {device, elem, ch, cl, clusters};
   used = used < 16 ? used + 1 : 16;
   return clusters;
 }
 
-int launch_exchange(const float* x, const int8_t* i1, const int16_t* i2,
-                    const int8_t* i3, float* out, int nc, int ch, int cl,
+template <typename T>
+int launch_exchange(const T* x, const int8_t* i1, const int16_t* i2,
+                    const int8_t* i3, T* out, int nc, int ch, int cl,
                     void* stream_ptr) {
   if (!cluster_shape_ok(nc, ch, cl)) return cudaErrorInvalidValue;
   const int passes = exchange_passes(ch, cl);
   if (passes == 0) return cudaErrorInvalidValue;
   const size_t smem = exchange_smem(ch, cl, passes);
-  cudaError_t err = prepare(exchange_chunk_kernel, smem, cl);
+  cudaError_t err = prepare(exchange_chunk_kernel<T>, smem, cl);
   if (err != cudaSuccess) return err;
   // As many clusters as the card runs at once, each walking its chunks.
-  const int clusters = exchange_clusters(ch, cl, smem, &err);
+  const int clusters = exchange_clusters<T>(ch, cl, smem, &err);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
       min(nc, clusters), cl, kXThreads, smem, static_cast<cudaStream_t>(stream_ptr), &attr);
-  err = cudaLaunchKernelEx(&cfg, exchange_chunk_kernel, x, i1, i2, i3, out,
+  err = cudaLaunchKernelEx(&cfg, exchange_chunk_kernel<T>, x, i1, i2, i3, out,
                            nc, ch, exchange_rpb(ch, cl, passes), passes);
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_expand(const float* dz, int width, int shift, const int8_t* i1,
-                  const int16_t* i2, const int8_t* i3, float* out, int nc,
+template <typename T>
+int launch_expand(const T* dz, int width, int shift, const int8_t* i1,
+                  const int16_t* i2, const int8_t* i3, T* out, int nc,
                   int ch, cudaStream_t stream) {
   const size_t smem = expand_smem(width, ch);
-  cudaError_t err = prepare(expand_chunk_kernel, smem, 1);
+  cudaError_t err = prepare(expand_chunk_kernel<T>, smem, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(nc, 1, kEThreads, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, expand_chunk_kernel, dz, width, shift,
+  err = cudaLaunchKernelEx(&cfg, expand_chunk_kernel<T>, dz, width, shift,
                            selector_bits(width), i1, i2, i3, out, ch);
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
@@ -717,55 +770,76 @@ int log2_k(int k) {
   return shift;
 }
 
+// The entry points below in each element type: `bf16` non-zero selects the
+// 2-byte form (the src and out pointers then hold bf16 bits).
+template <typename T>
+int chunk_global(const void* x, const int8_t* i1, const int16_t* i2, const int8_t* i3,
+                 void* out, int nc, int ch, int k, void* stream_ptr) {
+  const int shift = log2_k(k);
+  if (shift < 0) return cudaErrorInvalidValue;
+  return launch_global(static_cast<const T*>(x), kLanes / k, shift, i1, i2, i3,
+                       static_cast<T*>(out), nc, ch, stream_ptr);
+}
+
+template <typename T>
+int chunk_cluster(const void* x, const int8_t* i1, const int16_t* i2, const int8_t* i3,
+                  void* out, int nc, int ch, int k, int cl, void* stream_ptr) {
+  const int shift = log2_k(k);
+  if (shift < 0) return cudaErrorInvalidValue;
+  const T* src = static_cast<const T*>(x);
+  T* dst = static_cast<T*>(out);
+  if (k == 1) return launch_exchange(src, i1, i2, i3, dst, nc, ch, cl, stream_ptr);
+  if (!cluster_shape_ok(nc, ch, cl) || cl != 1) return cudaErrorInvalidValue;
+  return launch_expand(src, kLanes / k, shift, i1, i2, i3, dst, nc, ch,
+                       static_cast<cudaStream_t>(stream_ptr));
+}
+
 }  // namespace
 
 // K4, global form: x, i1, i3, out [nc * ch, 128]; i2 [nc * 128, ch].
 // Returns the CUDA error code of the launch (0 on success).
-extern "C" int photon_vperm_chunk(const float* x, const int8_t* i1,
+extern "C" int photon_vperm_chunk(const void* x, const int8_t* i1,
                                   const int16_t* i2, const int8_t* i3,
-                                  float* out, int nc, int ch,
+                                  void* out, int nc, int ch, int bf16,
                                   void* stream_ptr) {
-  return launch_global(x, kLanes, 0, i1, i2, i3, out, nc, ch, stream_ptr);
+  return bf16 ? chunk_global<uint16_t>(x, i1, i2, i3, out, nc, ch, 1, stream_ptr)
+              : chunk_global<float>(x, i1, i2, i3, out, nc, ch, 1, stream_ptr);
 }
 
 // K6, global form: dz [nc * ch, 128 / k] with k a power of two dividing
 // 128; planes and out as K4.
-extern "C" int photon_vperm_chunk_expand(const float* dz, const int8_t* i1,
+extern "C" int photon_vperm_chunk_expand(const void* dz, const int8_t* i1,
                                          const int16_t* i2, const int8_t* i3,
-                                         float* out, int nc, int ch, int k,
+                                         void* out, int nc, int ch, int k, int bf16,
                                          void* stream_ptr) {
-  const int shift = log2_k(k);
-  if (shift < 0) return cudaErrorInvalidValue;
-  return launch_global(dz, kLanes / k, shift, i1, i2, i3, out, nc, ch,
-                       stream_ptr);
+  return bf16 ? chunk_global<uint16_t>(dz, i1, i2, i3, out, nc, ch, k, stream_ptr)
+              : chunk_global<float>(dz, i1, i2, i3, out, nc, ch, k, stream_ptr);
 }
 
 // K4, cluster form (the exchange) with `cl` blocks a chunk (1, 2, 4, 8 or
 // 16); ch a multiple of 8.
-extern "C" int photon_vperm_chunk_cluster(const float* x, const int8_t* i1,
+extern "C" int photon_vperm_chunk_cluster(const void* x, const int8_t* i1,
                                           const int16_t* i2, const int8_t* i3,
-                                          float* out, int nc, int ch, int cl,
+                                          void* out, int nc, int ch, int cl, int bf16,
                                           void* stream_ptr) {
-  return launch_exchange(x, i1, i2, i3, out, nc, ch, cl, stream_ptr);
+  return bf16 ? chunk_cluster<uint16_t>(x, i1, i2, i3, out, nc, ch, 1, cl, stream_ptr)
+              : chunk_cluster<float>(x, i1, i2, i3, out, nc, ch, 1, cl, stream_ptr);
 }
 
 // K6, cluster form: the dz-tile form, one block a chunk (cl = 1); at k = 1
 // the dz tile is 128 wide and K6 is K4, so it takes K4's exchange form.
 extern "C" int photon_vperm_chunk_expand_cluster(
-    const float* dz, const int8_t* i1, const int16_t* i2, const int8_t* i3,
-    float* out, int nc, int ch, int k, int cl, void* stream_ptr) {
-  const int shift = log2_k(k);
-  if (shift < 0) return cudaErrorInvalidValue;
-  if (k == 1) return launch_exchange(dz, i1, i2, i3, out, nc, ch, cl, stream_ptr);
-  if (!cluster_shape_ok(nc, ch, cl) || cl != 1) return cudaErrorInvalidValue;
-  return launch_expand(dz, kLanes / k, shift, i1, i2, i3, out, nc, ch,
-                       static_cast<cudaStream_t>(stream_ptr));
+    const void* dz, const int8_t* i1, const int16_t* i2, const int8_t* i3,
+    void* out, int nc, int ch, int k, int cl, int bf16, void* stream_ptr) {
+  return bf16 ? chunk_cluster<uint16_t>(dz, i1, i2, i3, out, nc, ch, k, cl, stream_ptr)
+              : chunk_cluster<float>(dz, i1, i2, i3, out, nc, ch, k, cl, stream_ptr);
 }
 
 // cudaOccupancyMaxActiveClusters of the cluster form of K4 (k = 0) or K6
-// (k >= 1) at chunk height ch and cluster size cl: how many of its clusters
-// the card runs at once.  Negative: minus the CUDA error code.
-extern "C" int photon_vperm_max_active_clusters(int k, int ch, int cl) {
+// (k >= 1), in its f32 form or (bf16 non-zero) its 2-byte form, at chunk
+// height ch and cluster size cl: how many of its clusters the card runs at
+// once.  Negative: minus the CUDA error code.
+extern "C" int photon_vperm_max_active_clusters(int k, int ch, int cl, int bf16) {
   const int shift = k > 0 ? log2_k(k) : 0;
   if (shift < 0 || !cluster_shape_ok(1, ch, cl))
     return -static_cast<int>(cudaErrorInvalidValue);
@@ -776,12 +850,14 @@ extern "C" int photon_vperm_max_active_clusters(int k, int ch, int cl) {
     const int passes = exchange_passes(ch, cl);
     if (passes == 0) return -static_cast<int>(cudaErrorInvalidValue);
     smem = exchange_smem(ch, cl, passes);
-    fn = reinterpret_cast<const void*>(exchange_chunk_kernel);
+    fn = bf16 ? reinterpret_cast<const void*>(exchange_chunk_kernel<uint16_t>)
+              : reinterpret_cast<const void*>(exchange_chunk_kernel<float>);
     threads = kXThreads;
   } else {
     if (cl != 1) return -static_cast<int>(cudaErrorInvalidValue);
     smem = expand_smem(kLanes >> shift, ch);
-    fn = reinterpret_cast<const void*>(expand_chunk_kernel);
+    fn = bf16 ? reinterpret_cast<const void*>(expand_chunk_kernel<uint16_t>)
+              : reinterpret_cast<const void*>(expand_chunk_kernel<float>);
     threads = kEThreads;
   }
   cudaError_t err = prepare(fn, smem, cl);
@@ -794,13 +870,19 @@ extern "C" int photon_vperm_max_active_clusters(int k, int ch, int cl) {
   return clusters;
 }
 
-// K5: x, c, out [rows, 128].
-extern "C" int photon_vperm_lane(const float* x, const int8_t* c, float* out,
-                                 int64_t rows, void* stream_ptr) {
+// K5: x, c, out [rows, 128], f32 or (bf16 non-zero) 2-byte elements.
+extern "C" int photon_vperm_lane(const void* x, const int8_t* c, void* out,
+                                 int64_t rows, int bf16, void* stream_ptr) {
   if (rows <= 0) return cudaErrorInvalidValue;
   const int64_t elems = rows * kLanes;
   const int64_t blocks = (elems + kThreads - 1) / kThreads;
-  lane_pass_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream_ptr)>>>(x, c, out, elems);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bf16) {
+    lane_pass_kernel<uint16_t><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        static_cast<const uint16_t*>(x), c, static_cast<uint16_t*>(out), elems);
+  } else {
+    lane_pass_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        static_cast<const float*>(x), c, static_cast<float*>(out), elems);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,10 @@ leaves to an XLA scatter.  On a CUDA tensor each is a kernel of
 per-warp slices in shared memory, cold ones by atomics; a deterministic loss
 sum); on a CPU tensor each is its plain version.  ``fused`` is the default
 route of the port's objective on the card (``ops/sparse_grad_select.py``).
-Both raise ``IndexError`` on an id outside ``[0, d)``.
+Both raise ``IndexError`` on an id outside ``[0, d)``.  Values may be
+float32 or bfloat16 (``data/batch.batch_astype``): each kernel has a form
+for either, counted apart in ``bf16_launches``, and every other input and
+all arithmetic stay float32.
 
 Per ``ids`` tensor the wrapper keeps two things.  The hot set
 (:func:`build_hot_set`), built on the device at the first call on the tensor
@@ -50,13 +53,16 @@ HOT_SHARE = 16384
 # rows.
 _ROWS_PER_BLOCK = 8
 _ROW_SCATTER = -1  # photon_fused_grid's code for the row scatter
+# The value types the kernels take.
+VALUE_DTYPES = (torch.float32, torch.bfloat16)
 # ids tensors whose every id the kernel has found inside [0, d):
 # id(tensor) -> (weak reference, tensor version, d).
 _CHECKED_IDS: dict[int, tuple[weakref.ref, int, int]] = {}
 # id(tensor) -> (weak reference, tensor version, d, HotSet).
 _HOT_SETS: dict[int, tuple] = {}
-# (kernel code, hot form, device index) -> the most blocks the card holds.
-_MAX_BLOCKS: dict[tuple[int, bool, int], int] = {}
+# (kernel code, hot form, bf16 form, device index) -> the most blocks the
+# card holds.
+_MAX_BLOCKS: dict[tuple[int, bool, bool, int], int] = {}
 
 
 def _ids_checked(ids: Tensor, d: int) -> bool:
@@ -128,15 +134,16 @@ class _Launch:
         self.name, self.ids, self.d = name, ids, d
         self.hot = hot_set(ids, vals, d)
         use_hot = self.hot.n_hot != 0  # unknown before the first read: take it
-        key = (kernel, use_hot, dev.index)
+        self.bf16 = vals.dtype == torch.bfloat16
+        key = (kernel, use_hot, self.bf16, dev.index)
         if key not in _MAX_BLOCKS:
             fn = self.lib.photon_fused_grid
-            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
             blocks = ctypes.c_int(0)
             with torch.cuda.device(dev):
-                _build.check(fn(kernel, int(use_hot), ctypes.byref(blocks)),
-                             f"{name} grid")
+                _build.check(fn(kernel, int(use_hot), int(self.bf16),
+                                ctypes.byref(blocks)), f"{name} grid")
             _MAX_BLOCKS[key] = blocks.value
         n = ids.shape[0]
         self.blocks = min(_MAX_BLOCKS[key], -(-n // _ROWS_PER_BLOCK))
@@ -166,7 +173,8 @@ def fused_value_and_grad_plain(
     loss: PointwiseLoss, w: Tensor, ids: Tensor, vals: Tensor,
     label: Tensor, offset: Tensor, weight: Tensor,
 ) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version of the fused kernel (same arithmetic)."""
+    """Plain PyTorch version of the fused kernel (same arithmetic; bfloat16
+    values widen to float32 by promotion, as the kernel widens them)."""
     z = gather_dot(w, ids, vals) + offset
     value = torch.sum(weight * loss.value(z, label))
     coeff = weight * loss.d1(z, label)
@@ -180,8 +188,9 @@ def fused_value_and_grad(
     label: Tensor, offset: Tensor, weight: Tensor,
 ) -> tuple[Tensor, Tensor]:
     """``(sum_i weight_i * loss(margin_i, y_i), d/dw of the same)`` in one
-    fused pass; rows with weight 0 contribute nothing.  Raises
-    ``IndexError`` when an id lies outside ``[0, d)``."""
+    fused pass; rows with weight 0 contribute nothing.  ``vals`` float32
+    or bfloat16, every other float input float32.  Raises ``IndexError``
+    when an id lies outside ``[0, d)``."""
     n, k = ids.shape
     d = w.shape[0]
     if w.ndim != 1 or vals.shape != ids.shape or any(
@@ -189,8 +198,11 @@ def fused_value_and_grad(
     ):
         raise ValueError("expected w [d], ids/vals [n, k], label/offset/weight [n]")
     floats = (w, vals, label, offset, weight)
-    if ids.dtype != torch.int32 or any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("ids must be int32 and every other input float32")
+    if ids.dtype != torch.int32 or vals.dtype not in VALUE_DTYPES or any(
+        t.dtype != torch.float32 for t in (w, label, offset, weight)
+    ):
+        raise TypeError("ids must be int32, vals float32 or bfloat16 and every "
+                        "other input float32")
     if any(t.device != ids.device for t in floats):
         raise ValueError("all inputs must share one device")
     if n == 0:
@@ -206,7 +218,8 @@ def fused_value_and_grad(
     run = _Launch("fused_sparse", loss.code, ids, vals, d)
     fn = run.lib.photon_fused_value_grad
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5
     )
     fn.restype = ctypes.c_int
@@ -214,8 +227,9 @@ def fused_value_and_grad(
     partials = torch.empty(run.blocks, dtype=torch.float32, device=w.device)
     value = torch.empty((), dtype=torch.float32, device=w.device)
     fused_value_and_grad.launches += 1
+    fused_value_and_grad.bf16_launches += run.bf16
     _build.check(
-        fn(loss.code, w.data_ptr(), ids.data_ptr(), vals.data_ptr(),
+        fn(loss.code, w.data_ptr(), ids.data_ptr(), vals.data_ptr(), int(run.bf16),
            label.data_ptr(), offset.data_ptr(), weight.data_ptr(), n, k, d,
            grad.data_ptr(), partials.data_ptr(), run.blocks, value.data_ptr(),
            run.bad_ids.data_ptr(), run.hot_ptr, run.hot_partials_ptr, run.stream),
@@ -226,6 +240,7 @@ def fused_value_and_grad(
 
 
 fused_value_and_grad.launches = 0
+fused_value_and_grad.bf16_launches = 0  # of launches, the bf16-value form's
 
 
 def row_scatter_plain(per_row: Tensor, ids: Tensor, vals: Tensor, dim: int) -> Tensor:
@@ -237,19 +252,21 @@ def row_scatter_plain(per_row: Tensor, ids: Tensor, vals: Tensor, dim: int) -> T
 
 def row_scatter(per_row: Tensor, ids: Tensor, vals: Tensor, dim: int) -> Tensor:
     """``g[f] = sum of per_row_i * vals_ij over ids_ij == f`` (``[dim]``
-    float32, summed in float64 and rounded once).  Raises ``IndexError``
-    when an id lies outside ``[0, dim)``."""
+    float32, summed in float64 and rounded once; ``vals`` float32 or
+    bfloat16).  Raises ``IndexError`` when an id lies outside ``[0, dim)``."""
     n, k = ids.shape
     if vals.shape != ids.shape or per_row.shape != (n,):
         raise ValueError("expected ids/vals [n, k] and per_row [n]")
     if per_row.device != ids.device or vals.device != ids.device:
         raise ValueError("all inputs must share one device")
+    if (ids.dtype != torch.int32 or per_row.dtype != torch.float32
+            or vals.dtype not in VALUE_DTYPES):
+        raise TypeError("ids must be int32, per_row float32 and vals float32 "
+                        "or bfloat16")
     if ids.device.type == "cpu":
         return row_scatter_plain(per_row, ids, vals, dim)
     if ids.device.type != "cuda":
         raise ValueError(f"unsupported device {ids.device}")
-    if ids.dtype != torch.int32 or any(t.dtype != torch.float32 for t in (per_row, vals)):
-        raise TypeError("ids must be int32 and per_row and vals float32")
     if not all(t.is_contiguous() for t in (per_row, ids, vals)):
         raise ValueError("the row scatter kernel takes contiguous tensors only")
     if n == 0 or k == 0:
@@ -258,14 +275,15 @@ def row_scatter(per_row: Tensor, ids: Tensor, vals: Tensor, dim: int) -> Tensor:
 
     run = _Launch("row_scatter", _ROW_SCATTER, ids, vals, dim)
     fn = run.lib.photon_row_scatter
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     out64 = torch.zeros(dim, dtype=torch.float64, device=ids.device)
     out = torch.empty(dim, dtype=torch.float32, device=ids.device)
     row_scatter.launches += 1
+    row_scatter.bf16_launches += run.bf16
     _build.check(
-        fn(per_row.data_ptr(), ids.data_ptr(), vals.data_ptr(), n, k, dim,
+        fn(per_row.data_ptr(), ids.data_ptr(), vals.data_ptr(), int(run.bf16), n, k, dim,
            out64.data_ptr(), out.data_ptr(), run.blocks, run.bad_ids.data_ptr(),
            run.hot_ptr, run.hot_partials_ptr, run.stream),
         "row_scatter",
@@ -275,3 +293,4 @@ def row_scatter(per_row: Tensor, ids: Tensor, vals: Tensor, dim: int) -> Tensor:
 
 
 row_scatter.launches = 0
+row_scatter.bf16_launches = 0  # of launches, the bf16-value form's

@@ -51,7 +51,8 @@ class AlignedLayout:
     Arrays (all ``[total_sublanes, 128]`` unless noted):
 
     - ``lo``: int32 slab position (0..7) of each entry's key; 0 for pad slots.
-    - ``vals``: float32 entry values; 0.0 for pad slots.
+    - ``vals``: float32 entry values; 0.0 for pad slots (bfloat16 on a
+      device layout after ``data/batch.batch_astype``).
     - ``rows``: int32 payload index of each entry (the row, in the gradient
       layout); 0 for pad slots (safe with val=0).
     - ``slab_of_tile`` ``[n_tiles]``: int32 slab read by each tile,
@@ -295,7 +296,7 @@ class AlignedLayoutDev:
     in sorted order."""
 
     lo: Tensor  # [total_sub, 128] int32
-    vals: Tensor  # [total_sub, 128] float32
+    vals: Tensor  # [total_sub, 128] float32 (or bfloat16: batch_astype)
     rows: Tensor  # [total_sub, 128] int32
     slab_of_tile: Tensor  # [n_tiles] int32, non-decreasing
     dup_map: Tensor  # [n_slabs * 1024] int32
@@ -416,16 +417,19 @@ def aligned_reduce(pv: Tensor, al: AlignedLayoutDev, dim: int) -> Tensor:
 def aligned_segment_grad(per_row: Tensor, al: AlignedLayoutDev, dim: int) -> Tensor:
     """``g[key] = sum_e per_row[rows_e] * val_e`` over the aligned layout:
     the gradient (``per_row`` = dz over the gradient layout) or the margins
-    (``per_row`` = w over the transposed layout)."""
+    (``per_row`` = w over the transposed layout).  bfloat16 ``vals`` widen
+    in the multiply: the position-reduce reads float32 products, as the
+    reference casts them before its kernel."""
     pv = per_row.index_select(0, al.rows.view(-1)).view(al.rows.shape) * al.vals
-    return aligned_reduce(pv, al, dim)
+    return aligned_reduce(pv.float(), al, dim)
 
 
 def aligned_gather_products_plain(
     w2d: Tensor, slab_of_tile: Tensor, lo: Tensor, vals: Tensor
 ) -> Tensor:
     """Plain PyTorch slab gather: each tile's ``[8, 128]`` slab block, then
-    a gather along its positions by ``lo``, times ``vals``."""
+    a gather along its positions by ``lo``, times ``vals`` (bfloat16 values
+    widen by promotion)."""
     n_tiles = slab_of_tile.shape[0]
     slabs = w2d.view(-1, SUBLANES, LANES).index_select(0, slab_of_tile)
     picked = torch.take_along_dim(
@@ -441,7 +445,8 @@ def aligned_gather_products(
     ``out[t * 128 + s, l] = w2d[slab_of_tile[t] * 8 + lo[t * 128 + s, l], l]
     * vals[t * 128 + s, l]``, with ``w2d = w[dup_map].view(-1, 128)`` (see
     :func:`gather_products`).  ``[total_sub, 128]`` float32, 0.0 in pad
-    slots.
+    slots; ``vals`` float32 or bfloat16 (a form each, the bf16 form's
+    launches counted apart in ``bf16_launches``).
 
     CUDA tensors launch the ``slab_gather`` kernel; CPU tensors take
     :func:`aligned_gather_products_plain`.
@@ -457,10 +462,11 @@ def aligned_gather_products(
         raise ValueError(
             f"w2d must be [n_slabs * {SUBLANES}, {LANES}], got {tuple(w2d.shape)}"
         )
-    if w2d.dtype != torch.float32 or vals.dtype != torch.float32 or (
+    if w2d.dtype != torch.float32 or vals.dtype not in (torch.float32, torch.bfloat16) or (
         lo.dtype != torch.int32 or slab_of_tile.dtype != torch.int32
     ):
-        raise TypeError("w2d and vals must be float32; lo and slab_of_tile int32")
+        raise TypeError("w2d must be float32, vals float32 or bfloat16, lo and "
+                        "slab_of_tile int32")
     if not (w2d.device == slab_of_tile.device == lo.device == vals.device):
         raise ValueError("w2d, slab_of_tile, lo and vals must share one device")
     if w2d.device.type == "cpu":
@@ -472,20 +478,23 @@ def aligned_gather_products(
     from photon_tpu_torch.ops import _build
 
     fn = _build.load("slab_gather").photon_slab_gather
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     out = torch.empty(shape, dtype=torch.float32, device=w2d.device)
     stream = torch.cuda.current_stream(w2d.device).cuda_stream
+    bf16 = vals.dtype == torch.bfloat16
     aligned_gather_products.launches += 1
+    aligned_gather_products.bf16_launches += bf16
     _build.check(
         fn(w2d.data_ptr(), slab_of_tile.data_ptr(), lo.data_ptr(),
-           vals.data_ptr(), n_tiles, out.data_ptr(), stream),
+           vals.data_ptr(), int(bf16), n_tiles, out.data_ptr(), stream),
         "slab_gather",
     )
     return out
 
 
 aligned_gather_products.launches = 0
+aligned_gather_products.bf16_launches = 0  # of launches, the bf16-value form's
 
 
 def gather_products(w: Tensor, layout) -> Tensor:

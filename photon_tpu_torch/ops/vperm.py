@@ -63,17 +63,24 @@ forms, picked before the launch by :func:`chunk_form` from the shape alone:
 Each launches on CUDA tensors (a refused launch raises) and takes its plain
 PyTorch version on CPU tensors; all are pure data movement and equal bit for
 bit.  Index planes are int8 (lanes) and int16 (chunk rows) tensors on the
-route's device.
+route's device.  Each kernel moves float32 or bfloat16 elements, a form
+each (the bf16 forms' launches counted apart in ``bf16_launches``).
+
+The half-width payload (``PHOTON_XCHG_DTYPE=bfloat16``, read at the bake
+and at each evaluation, as the reference reads it): the baked values are
+stored in bf16, and each evaluation casts the moving stream to bf16 before
+the passes (dz before K6; the products, or dz repeated, before K4/K5), then
+widens both the moved stream and the baked values before their multiply, so
+the reduce (K2 or CS) reads float32.
 
 Routes serialize to ``npz`` (:func:`_aux_to_npz`, :func:`_aux_from_npz`,
 the reference's keys) for the streamed chunks' layout cache
 (``data/stream_layouts.py``).
 
-Not ported (``ROADMAP.md`` queue 2): the bf16 payload
-(``PHOTON_XCHG_DTYPE=bfloat16``) raises ``NotImplementedError``; the
-resident route disk cache (``_route_cache_path``) and the sharded, stacked
-routes are not carried (:func:`balanced_blk_census` and ``blk_override``
-are, for the streamed chunks' pow2-padded geometry).
+Not ported (``ROADMAP.md`` queue 2): the resident route disk cache
+(``_route_cache_path``) and the sharded, stacked routes are not carried
+(:func:`balanced_blk_census` and ``blk_override`` are, for the streamed
+chunks' pow2-padded geometry).
 """
 
 from __future__ import annotations
@@ -103,7 +110,6 @@ CH_SMALL = 2048              # chunk rows (1 MB f32 chunks)
 CH_LARGE = 4096              # for domains past 128 small chunks
 MAX_N = 128 * CH_LARGE * LANES   # 2^26: the lane stage holds NC <= 128
 CH_MAX = 8192                # balanced chunk-height cap (int16 i2/b2 planes)
-_QUEUE = "ROADMAP.md queue 2 (xchg follow-ups)"
 
 # Host seconds of the last build_xchg_aux route build.
 route_build_seconds: float = 0.0
@@ -629,17 +635,20 @@ def xchg_reduce_mode() -> str:
     return mode
 
 
-def _check_xchg_env() -> None:
-    """Refuse the JAX package's xchg variants the port does not carry."""
-    xchg_reduce_mode()
+def xchg_payload_dtype() -> torch.dtype:
+    """``PHOTON_XCHG_DTYPE``: the dtype the exchange moves (``float32``, or
+    ``bfloat16`` for the half-width payload); anything else raises."""
     dtype = os.environ.get("PHOTON_XCHG_DTYPE", "float32")
-    if dtype == "bfloat16":
-        raise NotImplementedError(
-            "PHOTON_XCHG_DTYPE=bfloat16 (the half-width exchange payload) "
-            f"is not ported; it waits in {_QUEUE}"
-        )
-    if dtype != "float32":
-        raise ValueError(f"PHOTON_XCHG_DTYPE={dtype!r}; the port supports float32")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"PHOTON_XCHG_DTYPE={dtype!r}; the port supports float32 or bfloat16")
+    return torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+
+def _check_xchg_env() -> None:
+    """Refuse the xchg variants the JAX package does not have."""
+    xchg_reduce_mode()
+    xchg_payload_dtype()
 
 
 def build_xchg_aux(layout, ids: np.ndarray, vals: Optional[np.ndarray] = None,
@@ -697,15 +706,17 @@ def _vals_fp_stride(size: int) -> int:
 
 def bake_vals_dest(aux: XchgAux, vals: np.ndarray) -> XchgAux:
     """Permute the static value stream into destination order once (the
-    route's own passes) and attach it with its fingerprint.  A no-op on a
-    colored ``aligned`` route, whose evaluation multiplies the row-major
-    values before the exchange."""
+    route's own passes) and attach it with its fingerprint; stored in the
+    exchange's payload dtype (:func:`xchg_payload_dtype`), as the reference
+    stores it.  A no-op on a colored ``aligned`` route, whose evaluation
+    multiplies the row-major values before the exchange."""
     balanced = isinstance(aux.route, BalancedRoute)
     if not (balanced or aux.bounds is not None):
         return aux
     flat = np.ascontiguousarray(np.asarray(vals, np.float32).reshape(-1))
     x = _put(flat, aux.route.a1.device if balanced else aux.route.i1.device)
     vd = apply_balanced(x, aux.route) if balanced else apply_vperm(x, aux.route)
+    vd = vd.to(xchg_payload_dtype())
     # A copy: on the CPU ``vals`` may share memory with the batch's tensor.
     fp = flat[::_vals_fp_stride(flat.size)].copy()
     return dataclasses.replace(aux, vals_dest=vd, vals_fp=fp)
@@ -763,6 +774,10 @@ def _aux_from_npz(z, device=None) -> XchgAux:
 
 # -- the kernels --------------------------------------------------------------
 
+# The element types the kernels move (a 4-byte and a 2-byte form each).
+PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_chunk_args(src: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
                       nc: int, ch: int, width: int) -> None:
     rows = nc * ch
@@ -774,10 +789,10 @@ def _check_chunk_args(src: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
             f"[{nc * LANES}, {ch}]; got {tuple(src.shape)}, {tuple(i1.shape)}, "
             f"{tuple(i2.shape)}, {tuple(i3.shape)}"
         )
-    if src.dtype != torch.float32 or i1.dtype != torch.int8 or (
+    if src.dtype not in PAYLOAD_DTYPES or i1.dtype != torch.int8 or (
         i3.dtype != torch.int8 or i2.dtype != torch.int16
     ):
-        raise TypeError("src must be float32, i1/i3 int8 and i2 int16")
+        raise TypeError("src must be float32 or bfloat16, i1/i3 int8 and i2 int16")
     if not (src.device == i1.device == i2.device == i3.device):
         raise ValueError("inputs and index planes must share one device")
 
@@ -879,16 +894,16 @@ def chunk_form(nc: int, ch: int, width: int) -> tuple[str, int]:
     return ("global", 0)
 
 
-def max_active_clusters(ch: int, width: int, cl: int) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of the cluster form at chunk height
-    ``ch`` and cluster size ``cl``: how many such clusters the card runs at
-    once (needs the card)."""
+def max_active_clusters(ch: int, width: int, cl: int, bf16: bool = False) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster form (its 2-byte
+    form with ``bf16``) at chunk height ``ch`` and cluster size ``cl``: how
+    many such clusters the card runs at once (needs the card)."""
     from photon_tpu_torch.ops import _build
 
     fn = _build.load("vperm").photon_vperm_max_active_clusters
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    n = fn(0 if width == LANES else LANES // width, ch, cl)
+    n = fn(0 if width == LANES else LANES // width, ch, cl, int(bf16))
     if n < 0:
         _build.check(-n, "vperm max_active_clusters")
     return n
@@ -903,9 +918,11 @@ def run_chunk_form(wrapper, form: tuple[str, int], src: Tensor, i1: Tensor,
                    i2: Tensor, i3: Tensor, nc: int, ch: int) -> Tensor:
     """Launch ``form`` (``("cluster", CL)`` or ``("global", 0)``) of the
     kernel behind ``wrapper`` (:func:`chunk_pass`: K4; :func:`chunk_expand_pass`:
-    K6) on CUDA tensors; counts the launch on the wrapper, in total and per
-    form.  :func:`chunk_form` picks the form a wrapper launches; this entry
-    also lets a check run the other form.  Raises on CPU tensors."""
+    K6) on CUDA tensors, in the element type of ``src`` (float32, or
+    bfloat16: the 2-byte form of the same geometry); counts the launch on
+    the wrapper, in total, per form and (bf16) in ``bf16_launches``.
+    :func:`chunk_form` picks the form a wrapper launches; this entry also
+    lets a check run the other form.  Raises on CPU tensors."""
     kind, cl = form
     expand = wrapper is chunk_expand_pass
     if kind not in ("cluster", "global") or (kind == "cluster") != (cl in CLUSTER_SIZES):
@@ -915,17 +932,20 @@ def run_chunk_form(wrapper, form: tuple[str, int], src: Tensor, i1: Tensor,
         raise ValueError(f"K4 takes a [rows, {LANES}] source")
     if not _cuda_tensors(src, i1, i2, i3):
         raise ValueError("run_chunk_form launches a kernel: it takes CUDA tensors")
-    out = torch.empty(nc * ch, LANES, dtype=torch.float32, device=src.device)
+    out = torch.empty(nc * ch, LANES, dtype=src.dtype, device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     ptrs = [t.data_ptr() for t in (src, i1, i2, i3, out)]
     k = LANES // src.shape[1]
     name = "vperm_chunk_expand" if expand else "vperm_chunk"
     fn = "photon_" + name + ("_cluster" if kind == "cluster" else "")
-    extra = ([k] if expand else []) + ([cl] if kind == "cluster" else [])
+    bf16 = src.dtype == torch.bfloat16
+    extra = (([k] if expand else []) + ([cl] if kind == "cluster" else [])
+             + [int(bf16)])
     if kind == "cluster":
         _aligned(src, i1, i2, i3, out)
     wrapper.launches += 1
     wrapper.form_launches[kind] += 1
+    wrapper.bf16_launches += bf16
     _launch(f"{name} ({kind} form)", fn,
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * (2 + len(extra)) + [ctypes.c_void_p],
             *ptrs, nc, ch, *extra, stream)
@@ -948,7 +968,7 @@ def chunk_pass_plain(x2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
 def chunk_pass(x2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor, nc: int,
                ch: int) -> Tensor:
     """K4: the micro-Clos within each ``[ch, 128]`` chunk of ``x2d``
-    (``[nc * ch, 128]`` float32): ``out[r, l] = x[r2, i1[r2, c]]`` with
+    (``[nc * ch, 128]`` float32 or bfloat16): ``out[r, l] = x[r2, i1[r2, c]]`` with
     ``c = i3[r, l]`` and ``r2 = i2[c, r]``, all chunk-local.  Launches the
     form :func:`chunk_form` picks."""
     _check_chunk_args(x2d, i1, i2, i3, nc, ch, LANES)
@@ -960,6 +980,7 @@ def chunk_pass(x2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor, nc: int,
 
 chunk_pass.launches = 0
 chunk_pass.form_launches = {"cluster": 0, "global": 0}
+chunk_pass.bf16_launches = 0  # of launches, the 2-byte form's
 
 
 def chunk_expand_pass_plain(dz2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
@@ -972,7 +993,7 @@ def chunk_expand_pass_plain(dz2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
 def chunk_expand_pass(dz2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
                       nc: int, ch: int) -> Tensor:
     """K6: :func:`chunk_pass` over the ``[nc * ch, 128]`` stream that repeats
-    each element of ``dz2d`` (``[nc * ch, 128 / k]`` float32) k times along
+    each element of ``dz2d`` (``[nc * ch, 128 / k]`` float32 or bfloat16) k times along
     the lanes, without writing that stream.  Launches the form
     :func:`chunk_form` picks."""
     width = dz2d.shape[1] if dz2d.ndim == 2 else 0
@@ -987,6 +1008,7 @@ def chunk_expand_pass(dz2d: Tensor, i1: Tensor, i2: Tensor, i3: Tensor,
 
 chunk_expand_pass.launches = 0
 chunk_expand_pass.form_launches = {"cluster": 0, "global": 0}
+chunk_expand_pass.bf16_launches = 0  # of launches, the 2-byte form's
 
 
 def lane_pass_plain(x2d: Tensor, c: Tensor) -> Tensor:
@@ -995,37 +1017,40 @@ def lane_pass_plain(x2d: Tensor, c: Tensor) -> Tensor:
 
 
 def lane_pass(x2d: Tensor, c: Tensor) -> Tensor:
-    """K5: ``out[r, l] = x[r, c[r, l]]`` over ``[rows, 128]`` (float32
-    ``x2d``, int8 ``c``)."""
+    """K5: ``out[r, l] = x[r, c[r, l]]`` over ``[rows, 128]`` (float32 or
+    bfloat16 ``x2d``, int8 ``c``)."""
     if x2d.ndim != 2 or x2d.shape[1] != LANES or c.shape != x2d.shape:
         raise ValueError(
             f"x2d and c must be [rows, {LANES}], got {tuple(x2d.shape)} and "
             f"{tuple(c.shape)}"
         )
-    if x2d.dtype != torch.float32 or c.dtype != torch.int8:
-        raise TypeError("x2d must be float32 and c int8")
+    if x2d.dtype not in PAYLOAD_DTYPES or c.dtype != torch.int8:
+        raise TypeError("x2d must be float32 or bfloat16 and c int8")
     if x2d.device != c.device:
         raise ValueError("x2d and c must share one device")
     if not _cuda_tensors(x2d, c):
         return lane_pass_plain(x2d, c)
     out = torch.empty_like(x2d)
+    bf16 = x2d.dtype == torch.bfloat16
     lane_pass.launches += 1
+    lane_pass.bf16_launches += bf16
     _launch(
         "vperm_lane", "photon_vperm_lane",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
-        x2d.data_ptr(), c.data_ptr(), out.data_ptr(), x2d.shape[0],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+        x2d.data_ptr(), c.data_ptr(), out.data_ptr(), x2d.shape[0], int(bf16),
         torch.cuda.current_stream(x2d.device).cuda_stream,
     )
     return out
 
 
 lane_pass.launches = 0
+lane_pass.bf16_launches = 0  # of launches, the 2-byte form's
 
 
 # -- applying routes ----------------------------------------------------------
 
 def apply_vperm(x: Tensor, route: VpermRoute) -> Tensor:
-    """Apply a colored route to a flat ``[n_in]`` float32 tensor: chunk pass
+    """Apply a colored route to a flat ``[n_in]`` float32 or bfloat16 tensor: chunk pass
     R1, transpose ``[NC, CS] -> [CS, NC]``, the lane-packed middle pass,
     transpose back, chunk pass R2; ``[n_out]`` out.  NC == 1 runs R1 only."""
     nc, ch, cs, total = route.nc, route.ch, route.cs, route.total
@@ -1099,10 +1124,13 @@ def _check_baked_vals(aux: XchgAux, vals: Tensor) -> None:
     """Raise when ``vals`` is not the value array ``aux`` was baked from.
 
     The strided sample is compared element by element (a collapsed norm
-    would miss swapped values) and exactly: the port stores values in
-    float32 only.  The sample costs a device-to-host copy, so it is taken
-    at the first call on each ``vals`` tensor and again after the tensor is
-    changed in place; an optimizer evaluates one batch many times."""
+    would miss swapped values), within the reference's ``rtol=1e-2,
+    atol=1e-6``: ``batch_astype`` may have re-stored the values in bf16
+    after the attach (its rounding is ~2^-9 relative), while the
+    fingerprint keeps the float32 values the attach saw.  The sample costs
+    a device-to-host copy, so it is taken at the first call on each
+    ``vals`` tensor and again after the tensor is changed in place; an
+    optimizer evaluates one batch many times."""
     key = id(vals)
     seen = _CHECKED_VALS.get(key)
     if (seen is not None and seen[0]() is vals and seen[1] == vals._version
@@ -1110,7 +1138,8 @@ def _check_baked_vals(aux: XchgAux, vals: Tensor) -> None:
         return
     flat = vals.reshape(-1)
     sample = flat[::_vals_fp_stride(flat.shape[0])].float().cpu().numpy()
-    if not np.array_equal(sample, aux.vals_fp):
+    if sample.shape != aux.vals_fp.shape or not np.allclose(
+            sample, aux.vals_fp, rtol=1e-2, atol=1e-6):
         raise ValueError(
             "xchg aux has values BAKED at attach time (vals_dest), but the "
             "vals passed here differ from what the attach saw; re-attach "
@@ -1129,25 +1158,34 @@ def _exchange(per_row: Tensor, vals_rowmajor: Tensor, aux: XchgAux) -> Tensor:
     inside stage A, the block transpose, K4 (stage B), the multiply by
     ``vals_dest``.  Otherwise the row-major stream (products, or dz repeated
     when the values are baked) rides the route's passes.  With baked values,
-    ``vals_rowmajor`` must be the value array the attach saw (checked)."""
+    ``vals_rowmajor`` must be the value array the attach saw (checked).
+
+    The stream moves in :func:`xchg_payload_dtype`, as in
+    ``photon_tpu/ops/vperm.py:1258-1310``: dz or the stream is cast to it before the
+    passes, and the moved stream and the baked values both widen to
+    float32 before their multiply (a bf16 product of two rounded operands
+    would round a third time).  The result is float32."""
     _check_xchg_env()
+    payload = xchg_payload_dtype()
     baked = aux.vals_dest is not None
     if baked:
         _check_baked_vals(aux, vals_rowmajor)
     route = aux.route
     balanced = isinstance(route, BalancedRoute)
     if balanced and route.k_expand and baked:
-        moved = apply_balanced_dz(per_row, route)
+        moved = apply_balanced_dz(per_row.float().to(payload), route)
     else:
         if baked:
-            stream = per_row.repeat_interleave(vals_rowmajor.shape[1])
+            stream = per_row.float().repeat_interleave(vals_rowmajor.shape[1])
         else:
-            stream = (per_row[:, None] * vals_rowmajor).reshape(-1)
+            stream = (per_row[:, None] * vals_rowmajor).float().reshape(-1)
+        stream = stream.to(payload)
         moved = (apply_balanced(stream, route) if balanced
                  else apply_vperm(stream, route))
     if baked:
-        moved = moved * aux.vals_dest
-    return moved
+        # The baked values widen inside the multiply (type promotion).
+        return moved.float() * aux.vals_dest
+    return moved.float()
 
 
 def xchg_slot_products(per_row: Tensor, vals_rowmajor: Tensor,

@@ -233,7 +233,7 @@ def test_game_fits_match_reference(slice_runs, tmp_path, task, extra_coords):
     (["--spill-dir", "spill"], "item 9"),
     (["--tuning", "random"], "item 10"),
     (["--coordinator", "localhost:1"], "item 10"),
-    (["--dtype", "bfloat16"], "item 9"),
+    (["--tile-dtype", "bf16"], "item 9"),
 ])
 def test_unported_flags_raise(tmp_path, extra, match):
     args = ["--input", "synthetic-game:10:3:4:3", "--coordinate",
@@ -247,6 +247,7 @@ def test_unported_flags_raise(tmp_path, extra, match):
     ["--checkpoint-dir", "ckpt"],
     ["--checkpoint-dir", "ckpt", "--resume", "auto"],
     ["--faults", "io:read:p=1:times=1", "--checkpoint"],
+    ["--dtype", "bfloat16"],
 ])
 def test_formerly_unported_flags_run(tmp_path, monkeypatch, extra):
     """The item 6 flags, which raised before, now train."""

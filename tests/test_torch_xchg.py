@@ -160,11 +160,12 @@ def test_train_cli_xchg_matches_fm_auc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("var,value,error,match", [
-    # The cumsum reduce is ported (tests/test_torch_stream_kernels.py); a
-    # mode the JAX package does not have is refused.
+    # The cumsum reduce and the bf16 payload are ported
+    # (tests/test_torch_stream_kernels.py, tests/test_torch_bf16_storage.py);
+    # a mode or payload the JAX package does not have is refused.
     ("PHOTON_XCHG_REDUCE", "segment", ValueError, "aligned or cumsum"),
-    ("PHOTON_XCHG_DTYPE", "bfloat16", NotImplementedError, "ROADMAP.md queue 2"),
-], ids=["PHOTON_XCHG_REDUCE-unknown", "PHOTON_XCHG_DTYPE-bfloat16"])
+    ("PHOTON_XCHG_DTYPE", "float16", ValueError, "float32 or bfloat16"),
+], ids=["PHOTON_XCHG_REDUCE-unknown", "PHOTON_XCHG_DTYPE-float16"])
 def test_unported_variants_raise(monkeypatch, var, value, error, match):
     arrays = _arrays(64, 4, 16, seed=3)
     monkeypatch.setenv(var, value)
