@@ -241,14 +241,36 @@ Phases (any failure exits non-zero and prints no result line):
    on the card and the host: card and host under phase 6's gates, the AUC
    within 0.05 of the f32 run (phase 6's, phase 12's), the value streams'
    and a chunk's bytes f32 against bf16.  (b) and (c) run after phase 12.
+14. the disk tier of streamed GAME training, every launch count set to 0
+   just before each fit or run and read after (each must read 0), the
+   stores under a temporary directory: (a) phase 12 (a)'s dataset and plan
+   spilled to a tile store, its host cache budgeted at three chunks'
+   entries so every pass evicts: a warm-up and a timed fit at f32, rows/s
+   against phase 12's streamed fit, the stall and prefetch-overlap seconds
+   of each tier, the cache's hits, misses and evictions, its peak bytes
+   within the budget (or one larger entry; a gate), the store's bytes, the
+   write-back seconds a sweep, the device bytes in flight within phase
+   12's three-chunk bound (a gate), both fits equal to phase 12's streamed
+   fits bit for bit (a gate, or within the spread of those two if they
+   differ); then one fit each at the bf16 and int8 tiers, disk bytes
+   against f32's, training AUC within ``tile_metric_tol_for`` (a gate), and
+   one with ``PHOTON_TILE_COMPRESS=1`` equal to the uncompressed fit (a
+   gate); (b) ``train_game --stream-chunks 50000 --spill-dir`` on phase 6's
+   Avro file and split on the card and the host under phase 6's gates, the
+   card run equal to phase 12 (b)'s card run (a gate); killed by
+   ``descent:kill`` and resumed with ``--resume auto`` at f32 and int8,
+   equal to the uninterrupted run with the tiles adopted (a gate); one tile
+   byte flipped (``CorruptTileError``, a gate) and one tile deleted (rebuilt
+   once, equal; a gate) on copies of the killed f32 state; and
+   ``--max-host-mb 20`` alone turning streaming and spilling on (a gate).
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
 that the training paths launch none of them; K1's and K2's
 ``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's,
 ``phase9_launches`` phase 9's, ``phase10_launches`` phase 10's, every
-kernel's ``phase11_launches`` phase 11's and ``phase12_launches`` phase
-12's; CS's ``launches`` count phase 11, its main path; the bf16 forms'
+kernel's ``phase11_launches`` phase 11's, ``phase12_launches`` phase
+12's and ``phase14_launches`` phase 14's; CS's ``launches`` count phase 11, its main path; the bf16 forms'
 entries, ``*_bf16``, count phase 13 (a), their main path); the last
 line is ``{"ok": true, "device":
 {...}}``.
@@ -4668,8 +4690,10 @@ def ooc_residency(dev, data, config, chunk_rows: int, window_bound: int,
     return out
 
 
-def run_ooc_scenario(dev) -> dict:
-    """Phase 12 (a); every launch count set to 0 just before each fit."""
+def run_ooc_scenario(dev, keep: dict | None = None) -> dict:
+    """Phase 12 (a); every launch count set to 0 just before each fit.  With
+    ``keep``, the dataset, the plan and the streamed fits' weights and
+    training scores (warm-up and timed) stay there for phase 14."""
     from photon_tpu_torch.data.synthetic import make_game_dataset
     from photon_tpu_torch.evaluation.metrics import area_under_roc_curve
     from photon_tpu_torch.game.estimator import GameEstimator
@@ -4702,8 +4726,11 @@ def run_ooc_scenario(dev) -> dict:
         if name == "streamed":
             # The warm-up fit under the sync debug mode: every synchronizing
             # call of a streamed fit, against the chunks it delivered.
-            _, warned = sync_warnings(lambda: est.fit([config]))
+            warm, warned = sync_warnings(lambda: est.fit([config]))
             syncs = [m for m in warned if "called a synchronizing" in m]
+            if keep is not None:
+                keep["streamed_fits"] = [model_weights(warm[0].model)]
+            del warm
         else:
             est.fit([config])
             syncs = None
@@ -4741,6 +4768,9 @@ def run_ooc_scenario(dev) -> dict:
         models[name] = scores
         if name == "streamed":
             streamed_model = result.model
+            if keep is not None:
+                keep["streamed_fits"].append(model_weights(result.model))
+                keep["streamed_scores"] = scores.cpu().numpy()
         out[name] = run
         log(f"  (a) {name}: warm-up {warm_s:.2f} s, timed fit {wall:.2f} s "
             f"({run['rows_per_s']:,.0f} rows/s; iterations "
@@ -4773,9 +4803,19 @@ def run_ooc_scenario(dev) -> dict:
     if s["launches"]:
         raise AssertionError(f"phase 12 (a): hand-written kernels launched on the "
                              f"streamed path: {s['launches']}")
+    if keep is not None:
+        keep.update(data=data, config=config, chunk_rows=chunk_rows,
+                    window_bound=window_bound,
+                    streamed_rows_per_s=s["rows_per_s"])
     del data, label, weight, models, streamed_model
     torch.cuda.empty_cache()
     return out
+
+
+def model_weights(model) -> dict:
+    """A GAME model's coefficients and tables as host arrays."""
+    return {name: (m.table if hasattr(m, "table") else m.coefficients.means)
+            .detach().cpu().numpy().copy() for name, m in model.coordinates.items()}
 
 
 def stream_game_args(avro: str, out: str, backend: str, *extra) -> list:
@@ -4821,8 +4861,9 @@ def pass_split(card: list, host: list) -> list:
     return out
 
 
-def run_stream_game(game: dict) -> dict:
-    """Phase 12 (b); every launch count set to 0 just before each run."""
+def run_stream_game(game: dict, keep: dict | None = None) -> dict:
+    """Phase 12 (b); every launch count set to 0 just before each run.  With
+    ``keep``, the card run's weights stay there for phase 14."""
     from photon_tpu_torch.drivers import train_game
     from photon_tpu_torch.fault.checkpoint import DescentCheckpointer
     from photon_tpu_torch.fault.injection import InjectedKillError
@@ -4907,6 +4948,9 @@ def run_stream_game(game: dict) -> dict:
                                  f"host {ref}")
     card_model = model("card")
     out["card_vs_host"] = diffs(card_model, model("host"))
+    if keep is not None:
+        keep.update(cli_card_weights=model_weights(card_model),
+                    cli_card_vs_host=out["card_vs_host"])
     if max(out["card_vs_host"].values()) > GAME_COEF_TOL:
         raise AssertionError(f"phase 12 (b): card and host differ {out['card_vs_host']}")
     out["pass_split"] = pass_split(out["pass_values"]["card"], out["pass_values"]["host"])
@@ -4954,9 +4998,9 @@ def run_stream_game(game: dict) -> dict:
     return out
 
 
-def run_streamed_game(dev, game: dict) -> dict:
-    """Phase 12."""
-    return {"ooc": run_ooc_scenario(dev), "cli": run_stream_game(game)}
+def run_streamed_game(dev, game: dict, keep: dict | None = None) -> dict:
+    """Phase 12 (``keep``: what phase 14 reuses)."""
+    return {"ooc": run_ooc_scenario(dev, keep), "cli": run_stream_game(game, keep)}
 
 
 def phase12_launches(sgame: dict) -> dict:
@@ -4965,6 +5009,363 @@ def phase12_launches(sgame: dict) -> dict:
             for name in ("resident", "streamed")}
     runs.update({f"train_game_{name}": row["launches"]
                  for name, row in sgame["cli"]["runs"].items()})
+    return runs
+
+# Phase 14: the disk tier of streamed GAME training.  (a) phase 12 (a)'s
+# out-of-core scenario (its dataset and plan, kept from phase 12) spilled to
+# a tile store with a host cache of three chunks' entries, so every pass
+# evicts: a warm-up and a timed fit at f32 held to phase 12's streamed fits
+# bit for bit, then one fit each at the bf16 and int8 tiers (training AUC
+# within tile_metric_tol_for of f32) and one with PHOTON_TILE_COMPRESS=1
+# (bit for bit).  (b) train_game --stream-chunks --spill-dir on phase 6's
+# Avro file and split: card and host under phase 6's gates, the card run
+# against phase 12 (b)'s card run bit for bit; a mid-epoch kill and
+# --resume auto at f32 and int8 (exact), a flipped tile byte
+# (CorruptTileError), a deleted tile (rebuilt, exact) and --max-host-mb
+# alone.
+SPILL_CACHE_CHUNKS = 3
+SPILL_TIERS = ("bf16", "int8")
+SPILL_KILL_TIERS = ("f32", "int8")
+SPILL_HOST_MB = 20.0  # phase 6's training split estimates ~37 MB on the host
+
+
+def spill_stats(session, est) -> dict:
+    """The disk tier's counters and the cache's and store's shape."""
+    tier = {(name, t): counter_total_labeled(session, name, tier=t)
+            for name in ("stream.stall_s", "stream.prefetch_overlap_s")
+            for t in ("disk", "h2d")}
+    return {
+        "stall_s": {t: tier[("stream.stall_s", t)] for t in ("disk", "h2d")},
+        "prefetch_overlap_s": {t: tier[("stream.prefetch_overlap_s", t)]
+                               for t in ("disk", "h2d")},
+        **{key: counter_total(session, f"tiles.{key}")
+           for key in ("cache_hits", "cache_misses", "cache_evictions",
+                       "writeback_flush_s", "store_reads", "store_writes")},
+        "chunks": counter_total(session, "stream.chunks"),
+        "disk_bytes": est._spill.store.disk_bytes,
+        "cache_peak_bytes": est._spill.cache.peak_bytes,
+        "cache_largest_entry_bytes": est._spill.cache.largest_entry_bytes,
+        "peak_in_flight_bytes": est._stream_streamer().peak_in_flight_bytes,
+    }
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: (delta(v, before[k]) if isinstance(v, dict) else v - before[k])
+            for k, v in after.items()}
+
+
+def weights_equal(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[name], b[name]) for name in a)
+
+
+def weights_gap(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[name] - b[name]).max()) for name in a)
+
+
+def run_spill_scenario(dev, keep: dict, root: str) -> dict:
+    """Phase 14 (a); every launch count set to 0 just before each fit."""
+    from photon_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_tpu_torch.game.estimator import GameEstimator
+    from photon_tpu_torch.game.lowp import tile_metric_tol_for
+    from photon_tpu_torch.game.tiles import per_row_bytes
+    from photon_tpu_torch.telemetry import TelemetrySession
+
+    counters = kernel_wrappers()
+    data, config, chunk_rows = keep["data"], keep["config"], keep["chunk_rows"]
+    n = data.num_examples
+    budget = SPILL_CACHE_CHUNKS * chunk_rows * per_row_bytes(data)
+    label = torch.as_tensor(data.label, device=dev)
+    weight = torch.as_tensor(data.weight, device=dev)
+    # Two host-resident streamed fits of phase 12: where they differ, some
+    # card op orders its sums differently from run to run, and the spilled
+    # fits are held to that spread instead of to equality.
+    ref_warm, ref = keep["streamed_fits"]
+    spread = weights_gap(ref_warm, ref)
+    out = {"budget_bytes": budget, "rows": n, "chunk_rows": chunk_rows,
+           "streamed_fit_spread": spread, "runs": {}}
+    log(f"  (a) {n:,} rows in chunks of {chunk_rows:,}, host cache budget {budget:,} B "
+        f"({SPILL_CACHE_CHUNKS} chunks' entries); phase 12's two streamed fits differ by "
+        f"{spread:.3e}")
+
+    def fit(name: str, tier: str = "f32", timed: bool = False, compress: bool = False):
+        session = TelemetrySession(f"chip-smoke-spill-{name}")
+        store = os.path.join(root, f"store_{name}")
+        if compress:
+            os.environ["PHOTON_TILE_COMPRESS"] = "1"
+        try:
+            est = GameEstimator("logistic_regression", data, device=dev, telemetry=session,
+                                stream_chunks=chunk_rows, spill_dir=store,
+                                max_host_mb=budget / (1 << 20), tile_dtype=tier)
+            t0 = time.monotonic()
+            est._spill_context()
+            spill_s = time.monotonic() - t0
+            row = {"tier": tier, "spill_s": spill_s}
+            fits = ["warm_up", "timed"] if timed else ["timed"]
+            for which in fits:
+                for c in counters:
+                    c.launches = 0
+                before = spill_stats(session, est)
+                t0 = time.monotonic()
+                result = est.fit([config])[0]
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                launches = launches_of(counters)
+                if launches:
+                    raise AssertionError(f"phase 14 (a) {name}: hand-written kernels "
+                                         f"launched on the spilled path: {launches}")
+                row[f"{which}_weights"] = model_weights(result.model)
+                row.update({f"{which}_s": wall, f"{which}_launches": launches})
+                if which == "timed":
+                    row.update(wall_s=wall, rows_per_s=OOC_ITERATIONS * n / wall,
+                               **delta(spill_stats(session, est), before))
+                    for key in ("disk_bytes", "cache_peak_bytes",
+                                "cache_largest_entry_bytes", "peak_in_flight_bytes"):
+                        row[key] = spill_stats(session, est)[key]
+                    row["writeback_flush_s_per_sweep"] = (row["writeback_flush_s"]
+                                                          / OOC_ITERATIONS)
+                    scores = torch.as_tensor(result.model.score(data), device=dev)
+                    row["finite"] = bool(torch.isfinite(scores).all())
+                    row["train_auc"] = float(area_under_roc_curve(scores, label, weight))
+                    row["scores"] = scores.cpu().numpy()
+            del est, result
+        finally:
+            os.environ.pop("PHOTON_TILE_COMPRESS", None)
+        weights = row.pop("timed_weights")
+        warm_weights = row.pop("warm_up_weights", None)
+        scores = row.pop("scores")
+        out["runs"][name] = row
+        log(f"  (a) {name} ({tier}{', compressed' if compress else ''}): spill "
+            f"{row['spill_s']:.2f} s, timed fit {row['wall_s']:.2f} s "
+            f"({row['rows_per_s']:,.0f} rows/s; phase 12's streamed fit "
+            f"{keep['streamed_rows_per_s']:,.0f}); stall disk {row['stall_s']['disk']:.3f} / "
+            f"h2d {row['stall_s']['h2d']:.3f} s, overlap disk "
+            f"{row['prefetch_overlap_s']['disk']:.3f} / h2d "
+            f"{row['prefetch_overlap_s']['h2d']:.3f} s; cache hits "
+            f"{row['cache_hits']:.0f}, misses {row['cache_misses']:.0f}, evictions "
+            f"{row['cache_evictions']:.0f}, peak {row['cache_peak_bytes']:,} of "
+            f"{budget:,} B; disk {row['disk_bytes']:,} B; write-back "
+            f"{row['writeback_flush_s_per_sweep']:.3f} s a sweep; in flight "
+            f"{row['peak_in_flight_bytes']:,} of {keep['window_bound']:,} B; train AUC "
+            f"{row['train_auc']:.6f}")
+        if not row["finite"]:
+            raise AssertionError(f"phase 14 (a) {name}: the spilled fit is not finite")
+        allowed = max(budget, row["cache_largest_entry_bytes"])
+        if row["cache_peak_bytes"] > allowed:
+            raise AssertionError(f"phase 14 (a) {name}: the host cache held "
+                                 f"{row['cache_peak_bytes']} B past its {allowed} B")
+        if not row["cache_evictions"]:
+            raise AssertionError(f"phase 14 (a) {name}: the cache never evicted")
+        if not 0 < row["peak_in_flight_bytes"] <= keep["window_bound"]:
+            raise AssertionError(f"phase 14 (a) {name}: {row['peak_in_flight_bytes']} B "
+                                 f"in flight past the {keep['window_bound']} B window")
+        return weights, warm_weights, scores
+
+    f32, f32_warm, f32_scores = fit("f32", timed=True)
+    gaps = {"timed": weights_gap(f32, ref), "warm_up": weights_gap(f32_warm, ref_warm),
+            "scores": float(np.abs(f32_scores - keep["streamed_scores"]).max())}
+    out["f32_vs_streamed"] = gaps
+    out["rows_per_s_vs_streamed"] = (out["runs"]["f32"]["rows_per_s"]
+                                     / keep["streamed_rows_per_s"])
+    log(f"  (a) spilled f32 against phase 12's streamed fits: {gaps} (bound {spread:.3e}); "
+        f"rows/s spilled / streamed {out['rows_per_s_vs_streamed']:.3f}")
+    if max(gaps.values()) > spread:
+        raise AssertionError(f"phase 14 (a): the spilled fit is off the host-resident "
+                             f"streamed fit by {gaps}")
+    auc = out["runs"]["f32"]["train_auc"]
+    for tier in SPILL_TIERS:
+        weights, _, _ = fit(tier, tier=tier)
+        row = out["runs"][tier]
+        row["auc_gap"] = abs(row["train_auc"] - auc)
+        row["disk_bytes_vs_f32"] = row["disk_bytes"] / out["runs"]["f32"]["disk_bytes"]
+        row["weights_gap"] = weights_gap(weights, f32)
+        log(f"  (a) {tier}: disk {row['disk_bytes_vs_f32']:.3f} of f32's, training AUC "
+            f"|diff| {row['auc_gap']:.3e} (tolerance {tile_metric_tol_for(tier):g}), "
+            f"weights |diff| {row['weights_gap']:.3e}")
+        if row["auc_gap"] > tile_metric_tol_for(tier):
+            raise AssertionError(f"phase 14 (a) {tier}: the AUC is off f32's")
+    compressed, _, _ = fit("f32_compressed", compress=True)
+    out["compressed_equal"] = weights_equal(compressed, f32)
+    log(f"  (a) PHOTON_TILE_COMPRESS=1: disk "
+        f"{out['runs']['f32_compressed']['disk_bytes']:,} B, equal to the uncompressed "
+        f"fit {out['compressed_equal']}")
+    if not out["compressed_equal"]:
+        raise AssertionError("phase 14 (a): the compressed fit differs")
+    del label, weight
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_spill_game(game: dict, keep: dict, root: str) -> dict:
+    """Phase 14 (b); every launch count set to 0 just before each run."""
+    from photon_tpu_torch.drivers import train_game
+    from photon_tpu_torch.fault.injection import InjectedKillError
+    from photon_tpu_torch.game.model_io import load_game_model
+    from photon_tpu_torch.game.tile_store import CorruptTileError, TileStore
+    from photon_tpu_torch.game.tiles import RESIDUAL_TILE_KIND
+
+    counters = kernel_wrappers()
+    chunks = ["--stream-chunks", str(STREAM_GAME_CHUNK_ROWS)]
+    out = {"runs": {}}
+
+    def run(name, backend, *extra, kill=False, raises=None):
+        run_dir = os.path.join(root, name)
+        for c in counters:
+            c.launches = 0
+        t0 = time.monotonic()
+        summary, outcome = None, "finished"
+        try:
+            summary = train_game.run(train_game.build_parser().parse_args(
+                stream_game_args(game["avro"], run_dir, backend, *extra)))
+        except InjectedKillError:
+            outcome = "killed"
+        except CorruptTileError:
+            outcome = "corrupt"
+        if backend == "gpu":
+            torch.cuda.synchronize()
+        want = "killed" if kill else (raises or "finished")
+        if outcome != want:
+            raise AssertionError(f"phase 14 (b) {name}: {outcome}, expected {want}")
+        row = {"backend": backend, "wall_s": time.monotonic() - t0, "outcome": outcome,
+               "launches": launches_of(counters), "dir": run_dir}
+        if row["launches"]:
+            raise AssertionError(f"phase 14 (b) {name}: hand-written kernels launched on "
+                                 f"the spilled path: {row['launches']}")
+        if summary is not None:
+            metrics = run_report_metrics(run_dir)
+
+            def count(key, **labels):
+                m = metric(metrics, "counters", key, **labels)
+                return m["value"] if m else 0
+
+            gauge = {m["name"]: m["value"] for m in metrics["gauges"] if not m["labels"]}
+            row.update(best_metrics=summary["best_metrics"],
+                       stream_chunks=summary["stream_chunks"],
+                       descent_iteration_s=[h["seconds"] for h in
+                                            summary["sweep"][0]["history"]],
+                       stall_s={t: count("stream.stall_s", tier=t) for t in ("disk", "h2d")},
+                       rebuilt=count("tiles.rebuilt"),
+                       rebuilt_unverified=count("tiles.rebuilt_unverified"),
+                       cache_evictions=count("tiles.cache_evictions"),
+                       spilled=gauge.get("stream.spilled"),
+                       disk_bytes=gauge.get("tiles.disk_bytes"),
+                       host_estimate_bytes=gauge.get("stream.host_estimate_bytes"))
+        out["runs"][name] = row
+        log(f"  (b) {name} ({backend}): {outcome}, {row['wall_s']:.2f} s"
+            + (f", chunk rows {row['stream_chunks']}, iterations "
+               f"{[round(x, 3) for x in row['descent_iteration_s']]} s, metrics "
+               f"{row['best_metrics']}, stall {row['stall_s']}, evictions "
+               f"{row['cache_evictions']:.0f}, disk {row['disk_bytes']}, rebuilt "
+               f"{row['rebuilt']:.0f}" if summary is not None else ""))
+        return row
+
+    def weights(name):
+        return model_weights(load_game_model(os.path.join(root, name, "best_model"),
+                                             device="cpu")[0])
+
+    def store(name):
+        return ["--spill-dir", os.path.join(root, f"store_{name}")]
+
+    os.environ.pop("PHOTON_SPARSE_GRAD", None)
+    run("card", "gpu", *chunks, *store("card"))
+    run("host", "cpu", *chunks, *store("host"))
+    card, host = out["runs"]["card"], out["runs"]["host"]
+    for key, ref in host["best_metrics"].items():
+        if abs(card["best_metrics"][key] - ref) > GAME_METRIC_ATOL:
+            raise AssertionError(f"phase 14 (b): {key} card {card['best_metrics'][key]} "
+                                 f"host {ref}")
+    card_w = weights("card")
+    out["card_vs_host"] = {k: float(np.abs(v - weights("host")[k]).max())
+                           for k, v in card_w.items()}
+    out["card_vs_streamed_card"] = weights_gap(card_w, keep["cli_card_weights"])
+    log(f"  (b) card vs host {out['card_vs_host']} (phase 12 (b)'s streamed: "
+        f"{keep['cli_card_vs_host']}); the spilled card run against phase 12 (b)'s "
+        f"streamed card run: {out['card_vs_streamed_card']:.3e}")
+    if max(out["card_vs_host"].values()) > GAME_COEF_TOL:
+        raise AssertionError(f"phase 14 (b): card and host differ {out['card_vs_host']}")
+    if out["card_vs_streamed_card"] != 0.0:
+        raise AssertionError("phase 14 (b): the spilled card run differs from the "
+                             "host-resident streamed one")
+    for tier in SPILL_KILL_TIERS:
+        codec = ["--tile-dtype", tier]
+        ck = ["--checkpoint-dir", os.path.join(root, f"ck_{tier}")]
+        base = "card"
+        if tier != "f32":
+            base = f"card_{tier}"
+            run(base, "gpu", *chunks, *store(base), *codec)
+        run(f"killed_{tier}", "gpu", *chunks, *store(tier), *codec, *ck, "--faults",
+            STREAM_GAME_KILL, kill=True)
+        if tier == "f32":
+            # Copies of the killed state: one with a tile byte flipped, one
+            # with a tile gone.
+            for case in ("corrupt", "stale"):
+                shutil.copytree(os.path.join(root, "ck_f32"),
+                                os.path.join(root, f"ck_{case}"))
+                shutil.copytree(os.path.join(root, "store_f32"),
+                                os.path.join(root, f"store_{case}"))
+        run(f"resumed_{tier}", "gpu", *chunks, *store(tier), *codec, *ck,
+            "--resume", "auto")
+        gap = weights_gap(weights(f"resumed_{tier}"), weights(base))
+        same = out["runs"][f"resumed_{tier}"]["best_metrics"] == out["runs"][base]["best_metrics"]
+        out[f"resumed_vs_uninterrupted_{tier}"] = gap
+        log(f"  (b) {tier}: resumed against uninterrupted {gap:.3e}, metrics equal {same}, "
+            f"rebuilt {out['runs'][f'resumed_{tier}']['rebuilt']:.0f}")
+        if gap != 0.0 or not same:
+            raise AssertionError(f"phase 14 (b) {tier}: the resumed model differs")
+        if out["runs"][f"resumed_{tier}"]["rebuilt"]:
+            raise AssertionError(f"phase 14 (b) {tier}: the resume rebuilt flushed tiles")
+    tiles = TileStore(os.path.join(root, "store_corrupt"))
+    path = tiles.path(RESIDUAL_TILE_KIND, 0)
+    with open(path, "r+b") as f:
+        f.seek(-5, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(-5, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    run("corrupt", "gpu", *chunks, *store("corrupt"),
+        "--checkpoint-dir", os.path.join(root, "ck_corrupt"), "--resume", "auto",
+        raises="corrupt")
+    TileStore(os.path.join(root, "store_stale")).delete(RESIDUAL_TILE_KIND, 1)
+    stale = run("stale", "gpu", *chunks, *store("stale"),
+                "--checkpoint-dir", os.path.join(root, "ck_stale"), "--resume", "auto")
+    out["stale_vs_uninterrupted"] = weights_gap(weights("stale"), weights("card"))
+    log(f"  (b) a flipped tile byte: CorruptTileError; a deleted tile: rebuilt "
+        f"{stale['rebuilt']:.0f} (unverified {stale['rebuilt_unverified']:.0f}), against "
+        f"the uninterrupted run {out['stale_vs_uninterrupted']:.3e}")
+    if stale["rebuilt"] != 1 or stale["rebuilt_unverified"]:
+        raise AssertionError(f"phase 14 (b): the stale tiles were not rebuilt ({stale})")
+    if (out["stale_vs_uninterrupted"] != 0.0
+            or stale["best_metrics"] != out["runs"]["card"]["best_metrics"]):
+        raise AssertionError("phase 14 (b): the rebuilt resume differs")
+    budget = run("max_host_mb", "gpu", "--max-host-mb", str(SPILL_HOST_MB))
+    out["max_host_mb"] = {key: budget[key] for key in (
+        "stream_chunks", "spilled", "host_estimate_bytes", "disk_bytes", "cache_evictions")}
+    out["max_host_mb"]["mb"] = SPILL_HOST_MB
+    log(f"  (b) --max-host-mb {SPILL_HOST_MB:g}: {out['max_host_mb']}")
+    if not (budget["stream_chunks"] and budget["spilled"] == 1
+            and os.path.isdir(os.path.join(budget["dir"], "tile_store"))):
+        raise AssertionError("phase 14 (b): --max-host-mb did not turn streaming and "
+                             "spilling on")
+    return out
+
+
+def run_spill(dev, game: dict, keep: dict) -> dict:
+    """Phase 14, its stores under a temporary directory."""
+    root = tempfile.mkdtemp(prefix="phase14-", dir=os.path.dirname(game["avro"]))
+    try:
+        return {"ooc": run_spill_scenario(dev, keep, os.path.join(root, "a")),
+                "cli": run_spill_game(game, keep, os.path.join(root, "b"))}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase14_launches(spill: dict) -> dict:
+    """Every hand-written kernel's launches in each phase-14 fit and run."""
+    runs = {}
+    for name, row in spill["ooc"]["runs"].items():
+        for which in ("warm_up", "timed"):
+            if f"{which}_launches" in row:
+                runs[f"ooc_{name}_{which}"] = row[f"{which}_launches"]
+    runs.update({f"train_game_{name}": row["launches"]
+                 for name, row in spill["cli"]["runs"].items()})
     return runs
 
 # Phase 13: bf16 feature storage and the half-width exchange payload.  (a)
@@ -5682,7 +6083,8 @@ def main() -> int:
         t12 = time.monotonic()
         log("phase 12: streamed GAME training (the out-of-core scenario, then "
             "train_game --stream-chunks with a mid-epoch kill and resume)")
-        sgame = run_streamed_game(dev, game)
+        keep: dict = {}  # phase 12's data and fits, for phase 14
+        sgame = run_streamed_game(dev, game, keep)
         sgame["seconds"] = time.monotonic() - t12
         log(f"  phase 12 took {sgame['seconds']:.1f} s")
 
@@ -5694,6 +6096,15 @@ def main() -> int:
         bf16["seconds_bc"] = time.monotonic() - t13
         log(f"  phase 13 (b) and (c) took {bf16['seconds_bc']:.1f} s; phase 13 in all "
             f"{bf16['seconds_a'] + bf16['seconds_bc']:.1f} s")
+
+        t14 = time.monotonic()
+        log("phase 14: the disk tier (the out-of-core scenario spilled at f32, bf16 and "
+            "int8, then train_game --spill-dir with kills, a corrupt and a stale tile)")
+        spill = run_spill(dev, game, keep)
+        del keep
+        spill["seconds"] = time.monotonic() - t14
+        log(f"  phase 14 took {spill['seconds']:.1f} s; the script so far "
+            f"{time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(game_tmp, ignore_errors=True)
 
@@ -5834,6 +6245,7 @@ def main() -> int:
     log(f"phase 11: {json.dumps(stream, default=str)}")
     log(f"phase 12: {json.dumps(sgame, default=str)}")
     log(f"phase 13: {json.dumps({k: v for k, v in bf16.items()}, default=str)}")
+    log(f"phase 14: {json.dumps(spill, default=str)}")
     log(f"bf16 edge shapes: {json.dumps(kb16['edges'])}")
     wrapper_names = {"fused_sparse": "fused_value_and_grad", "row_scatter": "row_scatter",
                      "position_reduce": "position_partial_sums",
@@ -5842,12 +6254,16 @@ def main() -> int:
                      "slab_gather": "aligned_gather_products",
                      "compensated_scan": "compensated_scan"}
     p12 = phase12_launches(sgame)
+    p14 = phase14_launches(spill)
     for entry in kernels:
         wrapper = wrapper_names.get(entry["name"], entry["name"])
         entry["phase11_launches"] = phase11_launches(stream, wrapper)
         # The streamed GAME path runs no hand-written kernel (expected 0).
         entry["phase12_launches"] = {run: launches.get(wrapper, 0)
                                      for run, launches in p12.items()}
+        # The disk tier runs no hand-written kernel either (expected 0).
+        entry["phase14_launches"] = {run: launches.get(wrapper, 0)
+                                     for run, launches in p14.items()}
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

@@ -47,7 +47,13 @@ score tables as host tiles, each chunk copied to the device one ahead of
 its compute, so device residency is bounded by the chunk window.
 ``--max-resident-mb`` turns it on by itself when the resident fit's
 estimate exceeds the budget, with the chunk size whose window fits it.
-Checkpoints then carry the mid-epoch chunk cursor.
+Checkpoints then carry the mid-epoch chunk cursor.  ``--spill-dir D``
+adds the disk tier (``game/tile_store.py``): the feature chunks and the
+residual tiles in part files under D, read through an LRU host cache of
+``--max-host-mb`` MB, stored under the ``--tile-dtype`` codec (f32, bf16
+or int8).  ``--max-host-mb`` alone turns streaming and spilling on (under
+``<output-dir>/tile_store``) when the streamed fit's host estimate
+exceeds it.
 
 ``--dtype bfloat16`` stores the training data's feature values in bf16
 (``game/data.dataset_astype``), resident or streamed: every coordinate's
@@ -55,9 +61,8 @@ blocks and chunks move 2 bytes a value, and labels, weights, coefficients
 and all arithmetic stay float32.  The validation data stays float32.
 
 Flags of the reference that the port does not carry yet raise, naming
-their ROADMAP.md queue 1 item: the disk tier (``--max-host-mb``,
-``--spill-dir``, ``--tile-dtype``; 9.3), tuning and multi-process runs
-(10), and the coordinate key ``row_split`` (10).
+their ROADMAP.md queue 1 item: tuning and multi-process runs (10), and the
+coordinate key ``row_split`` (10).
 """
 
 from __future__ import annotations
@@ -74,9 +79,6 @@ from photon_tpu_torch.drivers import common
 # (flag, its ROADMAP.md queue 1 item, what waits there): given at all,
 # each raises.
 _NOT_PORTED = (
-    ("max_host_mb", 9.3, "the disk-backed tile store"),
-    ("spill_dir", 9.3, "the disk-backed tile store"),
-    ("tile_dtype", 9.3, "the disk-backed tile store"),
     ("tuning", 10, "hyperparameter tuning"),
     ("coordinator", 10, "multi-process runs"),
 )
@@ -133,6 +135,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device budget in MB: when the resident fit's estimate "
                    "exceeds it, streaming turns on with a chunk size whose "
                    "in-flight window fits the budget (--stream-chunks wins)")
+    p.add_argument("--max-host-mb", type=float, default=None,
+                   help="host budget in MB for the streamed fit: when its host "
+                   "estimate (feature chunks and score tiles) exceeds it, the "
+                   "disk-backed tile store turns on (under --spill-dir, else "
+                   "<output-dir>/tile_store) with an LRU host cache of this "
+                   "size, and streaming too if no other flag turned it on.  The "
+                   "input is still read whole once to build the store")
+    p.add_argument("--spill-dir", default=None,
+                   help="directory of the disk-backed tile store (feature chunks "
+                   "and score tiles, a part file each a chunk); forces spilling. "
+                   "Requires streamed mode")
+    p.add_argument("--tile-dtype", choices=("f32", "bf16", "int8"), default="f32",
+                   help="storage codec of the tile store: bf16 halves and int8 "
+                   "(a per-row absmax scale) quarters the spilled feature values "
+                   "and score tiles; all arithmetic stays f32.  Requires "
+                   "--spill-dir (or a --max-host-mb that derives one)")
     p.add_argument("--evaluators", default=None,
                    help="comma-separated evaluator names; default per task")
     p.add_argument("--model-format", default="avro", choices=("avro", "json"))
@@ -379,9 +397,15 @@ def _validate_resume(args, specs) -> None:
 
 
 def _stream_rows(args, data, n_coordinates: int, session, logger):
-    """The chunk size of a streamed fit, or None for a resident one: the
-    reference's rule (``photon_tpu/drivers/train_game.py:543-564``)."""
-    from photon_tpu_torch.game.tiles import chunk_rows_for_budget, resident_bytes_estimate
+    """``(chunk rows, spill directory)``: the chunk size of a streamed fit
+    (None for a resident one) and its tile store (None: host-resident
+    tiles).  The reference's rule (``photon_tpu/drivers/train_game.py:
+    543-610``)."""
+    from photon_tpu_torch.game.tiles import (
+        chunk_rows_for_budget,
+        resident_bytes_estimate,
+        stream_host_bytes_estimate,
+    )
 
     rows = None
     if args.stream_chunks is not None:
@@ -396,13 +420,38 @@ def _stream_rows(args, data, n_coordinates: int, session, logger):
             logger.info("resident estimate %.1f MB exceeds --max-resident-mb %.1f: "
                         "streaming enabled with %d-row chunks",
                         estimate / (1 << 20), args.max_resident_mb, rows)
+    if args.max_host_mb is not None and args.max_host_mb <= 0:
+        raise ValueError(f"--max-host-mb must be > 0, got {args.max_host_mb}")
+    spill_dir = args.spill_dir
+    if args.max_host_mb is not None:
+        # The host's side of the budget: a dataset past it streams and
+        # spills instead of holding its chunks and tiles in memory.
+        host_estimate = stream_host_bytes_estimate(data, n_coordinates=n_coordinates)
+        session.gauge("stream.host_estimate_bytes").set(host_estimate)
+        if host_estimate > int(args.max_host_mb * (1 << 20)):
+            if rows is None:
+                rows = chunk_rows_for_budget(data, args.max_host_mb)
+                logger.info("host estimate %.1f MB exceeds --max-host-mb %.1f: "
+                            "streaming enabled with %d-row chunks",
+                            host_estimate / (1 << 20), args.max_host_mb, rows)
+            if spill_dir is None:
+                spill_dir = os.path.join(args.output_dir, "tile_store")
+            logger.info("host estimate %.1f MB exceeds --max-host-mb %.1f: "
+                        "disk-backed tile store enabled at %s",
+                        host_estimate / (1 << 20), args.max_host_mb, spill_dir)
+    if spill_dir is not None and not rows:
+        raise ValueError(
+            "--spill-dir requires streamed mode (--stream-chunks or a "
+            "--max-resident-mb/--max-host-mb budget the dataset exceeds)")
+    if spill_dir is not None:
+        session.gauge("stream.spilled").set(1)
     if rows:
         if (args.residuals not in (None, "auto")
                 or args.validation_pipeline not in (None, "auto")):
             logger.info("streamed descent replaces --residuals/"
                         "--validation-pipeline; ignoring the explicit flags")
         session.gauge("stream.chunk_rows").set(rows)
-    return rows
+    return rows, spill_dir
 
 
 def _model_checkpoint_fn(args, index_maps, logger):
@@ -497,7 +546,7 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
         initial_model, _ = load_game_model(args.initial_model, index_maps, device=device)
     locked = ([c.strip() for c in args.locked_coordinates.split(",") if c.strip()]
               if args.locked_coordinates else [])
-    stream_rows = _stream_rows(args, data, len(specs), session, logger)
+    stream_rows, spill_dir = _stream_rows(args, data, len(specs), session, logger)
     estimator = GameEstimator(
         args.task, data, validation_data=val_data,
         evaluators=evaluators if val_data is not None else None,
@@ -506,7 +555,9 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
         # were reported above.
         residual_mode=None if stream_rows else args.residuals,
         validation_mode=None if stream_rows else args.validation_pipeline,
-        stream_chunks=stream_rows, telemetry=session,
+        stream_chunks=stream_rows, telemetry=session, spill_dir=spill_dir,
+        max_host_mb=args.max_host_mb if spill_dir is not None else None,
+        tile_dtype=args.tile_dtype,
     )
     max_quarantined = None if args.max_quarantined < 0 else args.max_quarantined
     checkpoint_fn = (_model_checkpoint_fn(args, index_maps, logger)

@@ -21,9 +21,10 @@ grows the cached device layouts in place for rows appended between fits
 descent (``game/stream_descent.py``): the training data and the score
 state stay in host memory as row chunks and score tiles, and the chunks
 stream to the device one ahead of the compute, so device residency is
-bounded by the chunk window, not the dataset.  The disk-backed tile store
-(``spill_dir``, ROADMAP.md queue 1, item 9.3) and the mesh (item 10)
-raise.
+bounded by the chunk window, not the dataset.  ``spill_dir`` adds the disk
+tier (``game/tile_store.py``): feature chunks and residual tiles in part
+files, served through an LRU host cache of ``max_host_mb``, stored under
+the ``tile_dtype`` codec.  The mesh (ROADMAP.md queue 1, item 10) raises.
 """
 
 from __future__ import annotations
@@ -106,7 +107,18 @@ class GameEstimator:
         stream_chunks: Optional[int] = None,
         spill_dir: Optional[str] = None,
         telemetry=None,
+        max_host_mb: Optional[float] = None,
+        tile_dtype: Optional[str] = None,
     ):
+        """``spill_dir`` (with ``stream_chunks``) keeps the streamed fit's
+        feature chunks and residual tiles in a tile store there, behind a
+        host cache of ``max_host_mb`` MB (None: unbounded, still
+        disk-backed); ``tile_dtype`` (with ``spill_dir``) is the store's
+        codec for feature values and score tiles, ``f32`` (exact, the
+        default), ``bf16`` or ``int8``.  The training dataset itself and the
+        random-effect bin layouts stay in host memory."""
+        from photon_tpu_torch.game.lowp import TILE_DTYPES, check_dtype
+
         if mesh is not None:
             raise _not_ported("the device mesh", 10)
         if isinstance(normalization, NormalizationContext):
@@ -127,8 +139,22 @@ class GameEstimator:
                     "drop the explicit residual_mode/validation_mode (got "
                     f"{residual_mode!r}/{validation_mode!r})")
             self.stream_chunks = int(stream_chunks)
-        if spill_dir is not None:
-            raise _not_ported("the disk-backed tile store", 9.3)
+        if spill_dir is not None and not self.stream_chunks:
+            raise ValueError(
+                "spill_dir (the disk-backed tile store) requires stream_chunks: "
+                "the disk tier spills the streamed fit's host working set")
+        if max_host_mb is not None:
+            if max_host_mb <= 0:
+                raise ValueError(f"max_host_mb must be > 0, got {max_host_mb}")
+            if spill_dir is None:
+                raise ValueError("max_host_mb bounds the spill host cache; set "
+                                 "spill_dir (or let the driver derive one)")
+        self.spill_dir = spill_dir
+        self.max_host_mb = max_host_mb
+        self.tile_dtype = check_dtype(tile_dtype, TILE_DTYPES, "tile dtype")
+        if self.tile_dtype != "f32" and spill_dir is None:
+            raise ValueError("tile_dtype selects the disk tier's storage codec; set "
+                             "spill_dir (host-resident tiles are always f32)")
         self.task_type = task_type
         self.training_data = training_data
         self.validation_data = validation_data
@@ -146,6 +172,7 @@ class GameEstimator:
         # across the sweep (its stall and overlap counters accumulate).
         self._stream_data_cache: Dict[tuple, object] = {}
         self._streamer = None
+        self._spill = None
 
     def _validation_scoring_cache(self) -> Optional[DeviceScoringCache]:
         """The shared validation cache when validation runs on the device."""
@@ -206,6 +233,36 @@ class GameEstimator:
             self._streamer = ChunkStreamer(self.telemetry, device=self.device)
         return self._streamer
 
+    def _spill_context(self):
+        """The disk tier of a spilled fit, built once an estimator: the
+        store, the host cache of ``max_host_mb`` and the chunk source over
+        them.  Building it spills the training data's feature chunks,
+        unless a run over the same dataset and plan already did (a resume
+        reuses the store)."""
+        if self.spill_dir is None:
+            return None
+        if self._spill is None:
+            from photon_tpu_torch.game.tile_store import TileStore
+            from photon_tpu_torch.game.tiles import (
+                HostTileCache,
+                SpillContext,
+                SpilledChunkSource,
+                spill_dataset,
+            )
+
+            store = TileStore(self.spill_dir, telemetry=self.telemetry,
+                              tile_dtype=self.tile_dtype)
+            cache = HostTileCache(
+                max_bytes=(None if self.max_host_mb is None
+                           else int(self.max_host_mb * (1 << 20))),
+                telemetry=self.telemetry)
+            plan = self._stream_plan()
+            spill_dataset(store, self.training_data, plan, telemetry=self.telemetry)
+            self._spill = SpillContext(
+                store=store, cache=cache,
+                source=SpilledChunkSource(store, plan, cache, telemetry=self.telemetry))
+        return self._spill
+
     def _build_stream_coordinates(self, config: GameOptimizationConfiguration) -> dict:
         """The streamed coordinates: nothing uploads at build time; fixed
         effects stream row chunks, random effects entity sub-blocks of host
@@ -218,12 +275,14 @@ class GameEstimator:
         )
 
         plan, streamer = self._stream_plan(), self._stream_streamer()
+        spill = self._spill_context()
+        source = spill.source if spill is not None else None
         coords = {}
         for name, cc in config.coordinates.items():
             if isinstance(cc, FixedEffectCoordinateConfig):
                 coords[name] = StreamedFixedEffectCoordinate(
                     self.training_data, cc, self.task_type, plan, streamer,
-                    normalization=self.normalization.get(cc.shard_name))
+                    normalization=self.normalization.get(cc.shard_name), source=source)
             elif isinstance(cc, FactoredRandomEffectCoordinateConfig):
                 raise ValueError(
                     f"coordinate {name!r}: factored_random coordinates have no "
@@ -235,7 +294,7 @@ class GameEstimator:
                         self.training_data, cc)
                 coords[name] = StreamedRandomEffectCoordinate(
                     self.training_data, cc, self.task_type, plan, streamer,
-                    host_data=self._stream_data_cache[cc.data_key])
+                    host_data=self._stream_data_cache[cc.data_key], source=source)
             else:
                 raise TypeError(f"unknown coordinate config {type(cc)!r}")
         for name, coord in coords.items():
@@ -285,8 +344,10 @@ class GameEstimator:
                     self.telemetry.counter(
                         "estimator.device_data_rebuilds", kind="fixed").inc()
         # The streamed host layouts have no in-place growth: they rebuild at
-        # the grown row count on the next fit.
+        # the grown row count on the next fit, and the grown data spills
+        # again under its own fingerprint.
         self._stream_data_cache.clear()
+        self._spill = None
         self.training_data = data
 
     def _expected_fingerprint(self, config: GameOptimizationConfiguration,
@@ -397,6 +458,7 @@ class GameEstimator:
                     self.training_data, self.validation_data, self.evaluators,
                     plan=self._stream_plan(), streamer=self._stream_streamer(),
                     logger=self.logger, telemetry=self.telemetry,
+                    spill=self._spill_context(),
                 )
             else:
                 loop = CoordinateDescent(

@@ -23,29 +23,44 @@ from typing import Tuple
 import numpy as np
 import torch
 
+# The storage dtypes of the two byte movers: serving gather tables
+# (``GameScorer(table_dtype=...)``) and tile-store arrays
+# (``TileStore(tile_dtype=...)``).
 TABLE_DTYPES = ("f32", "bf16", "int8")
+TILE_DTYPES = TABLE_DTYPES
 
 # Serve-time parity bounds against the f32 host oracle (worst |delta| per
 # request), per table dtype: the reference's measured bounds with ~4x
 # headroom (bf16 lands ~1e-2 worst case, int8 ~3e-2 on unit-scale data).
 PARITY_TOL = {"f32": 1e-3, "bf16": 5e-2, "int8": 2e-1}
 
+# Spilled-training metric bounds against the f32 fit (absolute, per
+# validation metric): lossy feature and score-tile storage moves the fit
+# itself, so the bounds are wider than serving's.  f32 keeps the exact
+# tier's 1e-6.  The reference's values.
+TILE_METRIC_TOL = {"f32": 1e-6, "bf16": 5e-2, "int8": 2e-1}
 
-def check_dtype(dtype) -> str:
-    """Validate and normalize a table-dtype token (None -> ``"f32"``)."""
+
+def check_dtype(dtype, kinds: Tuple[str, ...] = TABLE_DTYPES,
+                what: str = "table dtype") -> str:
+    """Validate and normalize a storage-dtype token of ``kinds`` (None ->
+    ``"f32"``); ``what`` names it in the error."""
     if dtype is None:
         return "f32"
     dtype = str(dtype)
-    if dtype not in TABLE_DTYPES:
-        raise ValueError(
-            f"unknown table dtype {dtype!r}; expected one of {TABLE_DTYPES}"
-        )
+    if dtype not in kinds:
+        raise ValueError(f"unknown {what} {dtype!r}; expected one of {kinds}")
     return dtype
 
 
 def parity_tol_for(dtype) -> float:
     """The serve-time canary parity bound for one table dtype."""
     return PARITY_TOL[check_dtype(dtype)]
+
+
+def tile_metric_tol_for(dtype) -> float:
+    """The spilled-fit metric parity bound for one tile dtype."""
+    return TILE_METRIC_TOL[check_dtype(dtype, TILE_DTYPES, "tile dtype")]
 
 
 # -- int8 rows ----------------------------------------------------------------

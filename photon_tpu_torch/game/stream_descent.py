@@ -34,8 +34,17 @@ to the checkpointer, so a fit killed mid-epoch resumes at that coordinate
 boundary with the same tiles (the digests are checked at load).  The
 ``descent:kill`` fault site fires both at the iteration boundary and before
 each coordinate.  The checkpoint is the reference's format: either package
-resumes the other's.  The disk tier (``spill``) waits in ROADMAP.md queue
-1, item 9.3.
+resumes the other's.
+
+With a ``SpillContext`` (``spill``) the residual tiles and the feature
+chunks live one tier lower, in the part files of ``game/tile_store.py``
+behind the budgeted host cache; the loop keeps its shape.  Chunk loads
+read disk -> host -> device, the dirty tiles are written back at the end of
+every sweep and before every checkpoint, and a spilled checkpoint carries
+no score rows: its tile digests reference the tiles on disk.  A resume
+adopts them when their digests match, rebuilds them from the checkpointed
+models when they are stale, and refuses a corrupt part file
+(``CorruptTileError``).
 """
 
 from __future__ import annotations
@@ -89,6 +98,9 @@ from photon_tpu_torch.game.tiles import (
     ChunkStreamer,
     HostBuffer,
     NeumaierAccumulator,
+    ResidentChunkSource,
+    SpillContext,
+    SpilledResidualTable,
     TiledResidualTable,
     TiledValidationTable,
     cached_entity_index,
@@ -156,7 +168,8 @@ class StreamedFixedEffectCoordinate:
     kind = "fixed"
 
     def __init__(self, data: GameDataset, config, task_type: str,
-                 plan: ChunkPlan, streamer: ChunkStreamer, normalization=None):
+                 plan: ChunkPlan, streamer: ChunkStreamer, normalization=None,
+                 source=None):
         from photon_tpu_torch.core.objective import GlmObjective
 
         if config.downsampling_rate < 1.0:
@@ -185,17 +198,18 @@ class StreamedFixedEffectCoordinate:
         self._dense = isinstance(shard, DenseShard)
         self.objective = GlmObjective.create(task_type, config.problem.regularization)
         self.fault_name: Optional[str] = None
+        # Where the chunks' features come from: host slices of ``data``, or
+        # the spilled disk tier through the host cache.
+        self.source = source or ResidentChunkSource(data, plan)
 
     def _chunk_batch(self, k: int, offsets: list):
         """Worker-side chunk load: chunk ``k``'s rows and this coordinate's
         training offsets, host arrays."""
-        lo, hi = self.plan.bounds(k)
-        shard = self.data.shard(self.config.shard_name)
-        label, weight = self.data.label[lo:hi], self.data.weight[lo:hi]
+        sub = self.source.chunk(k)
+        shard = sub.shard(self.config.shard_name)
         if self._dense:
-            return DenseBatch(shard.x[lo:hi], label, offsets[k], weight)
-        return SparseBatch(shard.ids[lo:hi], shard.vals[lo:hi], label, offsets[k],
-                           weight)
+            return DenseBatch(shard.x, sub.label, offsets[k], sub.weight)
+        return SparseBatch(shard.ids, shard.vals, sub.label, offsets[k], sub.weight)
 
     def _streamed_value_and_grad(self, w: torch.Tensor, offsets: list):
         """One pass: each chunk's data value and gradient on the device,
@@ -267,7 +281,8 @@ class StreamedFixedEffectCoordinate:
         """Training-data margins assembled chunk by chunk (host ``[n]``)."""
         if model.shard_name != self.config.shard_name:
             return np.asarray(model.score(self.data), np.float32)
-        return score_model_chunks(model, self.data, self.plan, self.streamer)
+        return score_model_chunks(model, self.data, self.plan, self.streamer,
+                                  source=self.source)
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +355,8 @@ class StreamedRandomEffectCoordinate:
 
     def __init__(self, data: GameDataset, config, task_type: str, plan: ChunkPlan,
                  streamer: ChunkStreamer,
-                 host_data: Optional[StreamedRandomEffectHostData] = None):
+                 host_data: Optional[StreamedRandomEffectHostData] = None,
+                 source=None):
         from photon_tpu_torch.core.objective import GlmObjective
 
         if config.projection != "none":
@@ -355,6 +371,7 @@ class StreamedRandomEffectCoordinate:
         self.plan = plan
         self.streamer = streamer
         self.device = streamer.device
+        self.source = source  # the spilled chunk features, for re-scoring
         self.device_data = host_data or StreamedRandomEffectHostData(data, config)
         self.dataset = self.device_data.dataset
         self.dim = self.dataset.dim
@@ -494,7 +511,7 @@ class StreamedRandomEffectCoordinate:
             idx = entity_index_for(self.data.id_columns[self.config.entity_column],
                                    np.asarray(model.keys))
         return score_model_chunks(model, self.data, self.plan, self.streamer,
-                                  entity_idx=idx)
+                                  entity_idx=idx, source=self.source)
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +547,7 @@ class StreamedCoordinateDescent:
                  validation_data: Optional[GameDataset] = None, evaluators=None,
                  plan: Optional[ChunkPlan] = None,
                  streamer: Optional[ChunkStreamer] = None, logger=None,
-                 telemetry=None):
+                 telemetry=None, spill: Optional[SpillContext] = None):
         if not coordinates:
             raise ValueError("StreamedCoordinateDescent needs at least one coordinate")
         self.coordinates = dict(coordinates)
@@ -543,6 +560,7 @@ class StreamedCoordinateDescent:
         n = training_data.num_examples
         self.plan = plan or ChunkPlan(n, max(1, n))
         self.streamer = streamer or ChunkStreamer(self.telemetry)
+        self.spill = spill
         self._val_idx_cache = entity_index_cache()
 
     # -- helpers -------------------------------------------------------------
@@ -594,7 +612,9 @@ class StreamedCoordinateDescent:
             quarantined=quarantined, fingerprint=fp,
             stream={"chunk_rows": int(self.plan.chunk_rows), "cursor": int(cursor),
                     "seq": int(seq), "tile_digests": residuals.tile_digests(),
-                    "spilled": False},
+                    # Informational: a spilled snapshot's rows are empty and
+                    # its digests reference the tiles on disk.
+                    "spilled": self.spill is not None},
         )
 
     # -- run -----------------------------------------------------------------
@@ -623,19 +643,49 @@ class StreamedCoordinateDescent:
         return result
 
     def _resume(self, resume_state: DescentState, residuals, val_table):
-        """Restore ``resume_state`` into the tables; returns its models."""
+        """Restore ``resume_state`` into the tables; returns its models.
+
+        Saved rows load into the tiles, and must match the checkpoint's
+        digests (else ``CheckpointError``).  A spilled checkpoint saves
+        none: a spilled table adopts the tiles on disk (a corrupt one
+        raises ``CorruptTileError``).  Where those disagree with the
+        digests (a kill in the middle of a write-back, another residency
+        than the writer's), the tiles are rebuilt from the checkpointed
+        models, a pure function of them.  Rebuilt tiles that still differ
+        from the digests were scored by other arithmetic than the writer's
+        (the JAX package's, which does not write back before a mid-epoch
+        checkpoint, or another device): they are kept, counted in
+        ``tiles.rebuilt_unverified``, where the reference refuses."""
         stream_meta = resume_state.stream or {}
-        if stream_meta.get("spilled"):
-            raise CheckpointError(
-                "the checkpoint references spilled score tiles; the disk-backed "
-                "tile store waits in ROADMAP.md queue 1, item 9.3")
         models = dict(resume_state.models)
-        residuals.load_rows(resume_state.residual_rows)
+        rows = resume_state.residual_rows
+        if rows:
+            residuals.load_rows(rows)
+        elif isinstance(residuals, SpilledResidualTable):
+            residuals.attach_resume()
         saved = stream_meta.get("tile_digests")
         if saved is not None and residuals.tile_digests() != list(saved):
-            raise CheckpointError(
-                "score-tile digests do not match the checkpoint's (per-chunk "
-                "state diverged); refusing to resume")
+            if rows:
+                raise CheckpointError(
+                    "score-tile digests do not match the checkpoint's (per-chunk "
+                    "state diverged); refusing to resume")
+            self.telemetry.counter("tiles.rebuilt").inc()
+            self.logger.info("the score tiles do not match the checkpoint; "
+                             "rebuilding them from the checkpointed models")
+            if isinstance(residuals, SpilledResidualTable):
+                # Dropping the part files is the zero state.
+                residuals.reset_store()
+            else:
+                residuals.clear()
+            for name, model in models.items():
+                residuals.update(name, self.coordinates[name].score_stream(model))
+            residuals.drain_guard_flags()  # checkpointed rows were guarded
+            if residuals.tile_digests() != list(saved):
+                self.telemetry.counter("tiles.rebuilt_unverified").inc()
+                self.logger.warning(
+                    "the rebuilt score tiles differ from the checkpoint's digests "
+                    "(another package's or device's arithmetic); resuming from the "
+                    "rebuild")
         if val_table is not None:
             # The validation tiles are not saved: the saved models re-score
             # them exactly as the uninterrupted run did.
@@ -667,10 +717,21 @@ class StreamedCoordinateDescent:
         fp = self._fingerprint(config_key, locked=locked,
                                warm_start=initial_model is not None)
         models: Dict[str, object] = {}
-        with telemetry.span("descent.residuals.init", mode=STREAM_RESIDUAL_MODE):
-            residuals = TiledResidualTable(self.training_data.offset,
-                                           names=list(self.coordinates),
-                                           plan=self.plan, telemetry=telemetry)
+        with telemetry.span("descent.residuals.init", mode=STREAM_RESIDUAL_MODE,
+                            spilled=self.spill is not None):
+            if self.spill is not None:
+                residuals = SpilledResidualTable(
+                    self.training_data.offset, names=list(self.coordinates),
+                    plan=self.plan, store=self.spill.store, cache=self.spill.cache,
+                    telemetry=telemetry)
+                if resume_state is None:
+                    # A fresh fit must not read a previous run's tiles as its
+                    # zero state.
+                    residuals.reset_store()
+            else:
+                residuals = TiledResidualTable(self.training_data.offset,
+                                               names=list(self.coordinates),
+                                               plan=self.plan, telemetry=telemetry)
         val_table = None
         if self.validation_data is not None and self.evaluators is not None:
             val_table = TiledValidationTable(self.validation_data.offset,
@@ -749,6 +810,18 @@ class StreamedCoordinateDescent:
                 hint = ("no checkpointer configured — a restart begins from "
                         "scratch (set --checkpoint-dir)")
             raise PreemptedError(f"preempted ({preemption_reason()}) {where}; {hint}")
+
+        def save(state: DescentState, **where) -> None:
+            # The write-back first: the checkpoint's digests must describe
+            # tiles a resume can read.
+            writeback(where.get("iteration"))
+            with telemetry.span("descent.checkpoint.save", **where):
+                checkpointer.save(state)
+
+        def writeback(iteration) -> None:
+            if isinstance(residuals, SpilledResidualTable):
+                with telemetry.span("tiles.writeback_flush", iteration=iteration):
+                    residuals.flush()
 
         def record(name: str, info) -> None:
             nonlocal quarantined_total
@@ -833,9 +906,7 @@ class StreamedCoordinateDescent:
                         state = self._snapshot(it - 1, pos + 1, num_iterations, models,
                                                best_model, best_metrics, best_iteration,
                                                history, residuals, quarantined_total, fp)
-                        with telemetry.span("descent.checkpoint.save", iteration=it,
-                                            cursor=pos + 1):
-                            checkpointer.save(state)
+                        save(state, iteration=it, cursor=pos + 1)
                 if deferred:
                     # host-sync: the iteration's one read of the deferred
                     # solve statistics.
@@ -861,6 +932,8 @@ class StreamedCoordinateDescent:
                     iter_span.set_attribute("metrics", metrics)
                     for key, value in metrics.items():
                         telemetry.gauge("descent.validation_metric", metric=key).set(value)
+            # The sweep's write-back: every tile its updates dirtied, once.
+            writeback(it)
             telemetry.counter("descent.iterations").inc()
             # The chunk-budget residency gauge: the streamer's measured
             # in-flight peak is the device footprint of the streamed data.
@@ -885,8 +958,7 @@ class StreamedCoordinateDescent:
                 state = self._snapshot(it, 0, num_iterations, models, best_model,
                                        best_metrics, best_iteration, history, residuals,
                                        quarantined_total, fp)
-                with telemetry.span("descent.checkpoint.save", iteration=it):
-                    checkpointer.save(state)
+                save(state, iteration=it)
         assert best_model is not None
         return DescentResult(best_model=best_model, last_model=game_model,
                              best_metrics=best_metrics, history=history)

@@ -184,7 +184,7 @@ def _render_streaming_section(report: dict) -> list:
     cache = {
         name: plain(name, counters)
         for name in ("tiles.cache_hits", "tiles.cache_misses",
-                     "tiles.cache_evictions")
+                     "tiles.cache_evictions", "tiles.rebuilt")
         if plain(name, counters) is not None
     }
     for name in ("tiles.host_cache_bytes", "tiles.disk_bytes"):

@@ -343,14 +343,17 @@ def test_unported_library_paths_raise(tmp_path):
     rand = coordinate.RandomEffectCoordinateConfig("re0", "re0", problem)
     cases = [
         (lambda: GameEstimator("logistic_regression", data, mesh=object()), "item 10"),
-        (lambda: GameEstimator("logistic_regression", data, stream_chunks=4,
-                               spill_dir="spill"), "item 9"),
         (lambda: coordinate.RandomEffectCoordinateConfig("r", "r", row_split=True),
          "item 10"),
     ]
     for make, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             make()
+    # The item 9 path is ported: a streamed fit spilled to a tile store.
+    spilled = GameEstimator("logistic_regression", data, device="cpu", stream_chunks=4,
+                            spill_dir=str(tmp_path / "spill"))
+    spilled.fit([GameOptimizationConfiguration(coordinates={"fixed": fixed})])
+    assert any(n.startswith("feat-") for n in os.listdir(tmp_path / "spill"))
     # The item 5 paths are ported: the elastic-net lane objective, the
     # Newton-CG and row-split routes, projections.
     lane = batched_solve.LaneObjective.of(GlmObjective.create(

@@ -229,11 +229,8 @@ def test_game_fits_match_reference(slice_runs, tmp_path, task, extra_coords):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--max-host-mb", "1"], "item 9"),
-    (["--spill-dir", "spill"], "item 9"),
     (["--tuning", "random"], "item 10"),
     (["--coordinator", "localhost:1"], "item 10"),
-    (["--tile-dtype", "bf16"], "item 9"),
 ])
 def test_unported_flags_raise(tmp_path, extra, match):
     args = ["--input", "synthetic-game:10:3:4:3", "--coordinate",
@@ -248,9 +245,12 @@ def test_unported_flags_raise(tmp_path, extra, match):
     ["--checkpoint-dir", "ckpt", "--resume", "auto"],
     ["--faults", "io:read:p=1:times=1", "--checkpoint"],
     ["--dtype", "bfloat16"],
+    ["--max-host-mb", "0.0001"],
+    ["--stream-chunks", "7", "--spill-dir", "spill"],
+    ["--stream-chunks", "7", "--spill-dir", "spill", "--tile-dtype", "bf16"],
 ])
 def test_formerly_unported_flags_run(tmp_path, monkeypatch, extra):
-    """The item 6 flags, which raised before, now train."""
+    """The item 6 and item 9 flags, which raised before, now train."""
     monkeypatch.setenv("PHOTON_IO_RETRY_BASE_S", "0")
     monkeypatch.chdir(tmp_path)
     args = ["--input", "synthetic-game:10:3:4:3", "--coordinate",

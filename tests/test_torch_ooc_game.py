@@ -675,9 +675,12 @@ def test_stream_mode_gates(game_data):
     with pytest.raises(ValueError, match="residual"):
         GameEstimator("linear_regression", train, device="cpu", residual_mode="host",
                       stream_chunks=CHUNK)
-    with pytest.raises(NotImplementedError, match="9.3"):
-        GameEstimator("linear_regression", train, device="cpu", stream_chunks=CHUNK,
-                      spill_dir="x")
+    # The disk tier (ported): spill_dir with streaming, refused without it.
+    spilled = GameEstimator("linear_regression", train, device="cpu", stream_chunks=CHUNK,
+                            spill_dir="x")
+    assert spilled.spill_dir == "x" and spilled.tile_dtype == "f32"
+    with pytest.raises(ValueError, match="stream_chunks"):
+        GameEstimator("linear_regression", train, device="cpu", spill_dir="x")
     from photon_tpu_torch.game.coordinate import FactoredRandomEffectCoordinateConfig
 
     cases = [
@@ -724,10 +727,11 @@ def test_train_game_stream_chunks_driver(tmp_path):
     with pytest.raises(ValueError, match="stream-chunks"):
         train_game.run(train_game.build_parser().parse_args(
             [*DRIVER_ARGS, "--stream-chunks", "0", "--output-dir", str(tmp_path / "b")]))
-    with pytest.raises(NotImplementedError, match="9.3"):
-        train_game.run(train_game.build_parser().parse_args(
-            [*DRIVER_ARGS, "--stream-chunks", "53", "--max-host-mb", "1",
-             "--output-dir", str(tmp_path / "c")]))
+    # A host budget the data exceeds spills to <output-dir>/tile_store.
+    train_game.run(train_game.build_parser().parse_args(
+        [*DRIVER_ARGS, "--stream-chunks", "53", "--max-host-mb", "0.001",
+         "--output-dir", str(tmp_path / "c")]))
+    assert (tmp_path / "c" / "tile_store" / "dataset.json").is_file()
 
 
 def test_train_game_max_resident_mb_auto_enables(tmp_path):
