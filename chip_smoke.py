@@ -263,6 +263,26 @@ Phases (any failure exits non-zero and prints no result line):
    byte flipped (``CorruptTileError``, a gate) and one tile deleted (rebuilt
    once, equal; a gate) on copies of the killed f32 state; and
    ``--max-host-mb 20`` alone turning streaming and spilling on (a gate).
+15. the self-healing subprocess fleet over TCP on phase 6's ``fused``
+   model, every launch count set to 0 just before and read after (each
+   must read 0): (a) ``serve_game --transport tcp --replica-backend
+   subprocess --replicas 2 --supervise`` with phase 8 (c)'s traffic, storm
+   and deadline: every request served or shed exactly once (``scores.txt``
+   walked against each request's host oracle), the served scores within
+   ``PARITY_TOL["f32"]``, each child on ``cuda`` with no capture and no
+   allocator segment after warmup and one host sync a batch; requests/s,
+   p50 and p99 beside phase 8 (c)'s thread fleet, each child's spawn
+   seconds and card memory; (b) a supervised two-child fleet under a
+   closed loop, child r0 SIGKILLed a third of the way in: every request
+   answered once within the f32 gate, the reroutes counted, the death
+   declared, the child respawned, its rejoin probe passed and readmitted
+   (the timeline and the seconds from the kill to the rejoin); (c) on that
+   fleet under load, a rollout of phase 8's retrained model with the
+   parity gate, then ``rollout_with_rebuild`` of it grown by 2200 users
+   past the per-user table's capacity: no request lost, every response
+   wholly one model's, the tail the grown model's, two new children; (d)
+   a 0.6 s partition of r0's links, shorter than the lease: a lease miss
+   counted, no death declared, the requests sent into it answered.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
@@ -270,7 +290,8 @@ that the training paths launch none of them; K1's and K2's
 ``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's,
 ``phase9_launches`` phase 9's, ``phase10_launches`` phase 10's, every
 kernel's ``phase11_launches`` phase 11's, ``phase12_launches`` phase
-12's and ``phase14_launches`` phase 14's; CS's ``launches`` count phase 11, its main path; the bf16 forms'
+12's, ``phase14_launches`` phase 14's and ``phase15_launches`` phase
+15's; CS's ``launches`` count phase 11, its main path; the bf16 forms'
 entries, ``*_bf16``, count phase 13 (a), their main path); the last
 line is ``{"ok": true, "device":
 {...}}``.
@@ -2804,17 +2825,9 @@ GAME_BAGS = ["--feature-bags", "global=global,per_user=per_user",
 
 def kernel_wrappers() -> list:
     """Every hand-written kernel's wrapper; each counts its launches."""
-    from photon_tpu_torch.ops import probe_kernels as pk
-    from photon_tpu_torch.ops import vperm as vp
-    from photon_tpu_torch.ops.fused_sparse import fused_value_and_grad, row_scatter
-    from photon_tpu_torch.ops.slab_reduce import (
-        aligned_gather_products,
-        position_partial_sums,
-    )
+    from photon_tpu_torch import ops
 
-    return [fused_value_and_grad, row_scatter, position_partial_sums, vp.chunk_pass,
-            vp.lane_pass, vp.chunk_expand_pass, aligned_gather_products,
-            vp.compensated_scan, *pk.KERNELS]
+    return ops.kernel_wrappers()
 
 
 def counter_total(session, name: str) -> float:
@@ -5368,6 +5381,492 @@ def phase14_launches(spill: dict) -> dict:
                  for name, row in spill["cli"]["runs"].items()})
     return runs
 
+# Phase 15: the self-healing subprocess fleet over TCP, on phase 6's
+# ``fused`` model (config 4 at full width), the model phase 8 serves.  (a)
+# serve_game --transport tcp --replica-backend subprocess --supervise with
+# phase 8 (c)'s traffic, storm and deadline; (b) one child SIGKILLed under
+# closed-loop load on a supervised two-child fleet; (c) on that fleet,
+# under load, a rollout of phase 8's retrained model, then
+# rollout_with_rebuild of it grown past the per-user table's capacity; (d)
+# one netfault cell: a partition of FLEET15_PARTITION_S, shorter than the
+# lease, that heals with no death declared.
+FLEET15_REQUESTS = 600
+FLEET15_PROBE_INTERVAL_S = 0.05
+FLEET15_PROBE_DEADLINE_S = 1.0
+FLEET15_PARTITION_S = 0.6
+FLEET15_REJOIN_TIMEOUT_S = 120.0
+# New per-user keys for (c): phase 6's 6040 users fill 6041 of the
+# 8192-row table, so 2200 more outgrow it and the swap refuses.
+FLEET15_NEW_ENTITIES = 2200
+
+
+def match_served(scores: np.ndarray, oracle: list, tol: float) -> tuple:
+    """serve_game's ``scores.txt`` holds the served requests' rows in
+    request order: walk it against each request's oracle, taking a request
+    as served when its rows come next within ``tol`` and as shed otherwise.
+    Returns ``(served, shed, worst, rows_left)``: every request is one or
+    the other exactly once when ``rows_left`` is 0 and the counts are the
+    summary's."""
+    pos, served, shed, worst = 0, 0, 0, 0.0
+    for want in oracle:
+        got = scores[pos:pos + len(want)]
+        gap = float(np.abs(got - want).max()) if len(got) == len(want) else np.inf
+        if gap <= tol:
+            served += 1
+            worst = max(worst, gap)
+            pos += len(want)
+        else:
+            shed += 1
+    return served, shed, worst, len(scores) - pos
+
+
+def card_used_bytes(dev) -> int | None:
+    """Bytes in use on the card by every process (``torch.cuda.mem_get_info``);
+    None off the card."""
+    if dev.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(dev)
+    return int(total - free)
+
+
+def log_children(tag: str, children: list) -> None:
+    for c in children:
+        log(f"  {tag} child {c['replica']} (pid {c['pid']}) on {c['device']}: spawn "
+            f"{c['spawn_s']:.2f} s (warmup {c['warmup_s']:.2f} s), captures "
+            f"{c['captures_at_warmup']} -> {c['captures']}, allocator segments "
+            f"{c['segments_at_warmup']} -> {c['segments']}, host syncs "
+            f"{c['host_syncs']:.0f} for {c['batches']:.0f} batches, reserved "
+            f"{c['memory_reserved']:,} bytes, peak allocated "
+            f"{c['max_memory_allocated']:,} bytes")
+
+
+def run_fleet_serve_game(game: dict, inproc: dict) -> dict:
+    """(a): serve_game over TCP with two supervised subprocess replicas on
+    phase 8 (c)'s traffic; every request served or shed once, the served
+    scores within PARITY_TOL["f32"] of the host oracle, each child on the
+    card with no capture, no allocator segment after warmup and one host
+    sync a batch."""
+    from photon_tpu_torch.drivers import serve_game
+    from photon_tpu_torch.drivers.train_game import _load_game_data
+    from photon_tpu_torch.game.lowp import PARITY_TOL
+    from photon_tpu_torch.game.model_io import load_game_model
+    from photon_tpu_torch.serving import generate_traffic, host_score_request
+
+    model_dir = os.path.join(game["run_dirs"]["fused"], "best_model")
+    out_dir = os.path.join(os.path.dirname(game["avro"]), "served_tcp")
+    args = serve_game.build_parser().parse_args([
+        "--model", model_dir, "--input", game["avro"], *GAME_BAGS,
+        "--requests", str(FLEET_REQUESTS), "--clients", str(SERVING_CLIENTS),
+        "--replicas", "2", "--traffic", "powerlaw", "--storm-frac", "0.1",
+        "--deadline-ms", str(FLEET_DEADLINE_MS), "--max-batch", str(SERVING_MAX_BATCH),
+        "--max-delay-ms", "1", "--transport", "tcp", "--replica-backend", "subprocess",
+        "--supervise", "--probe-interval-ms", "100", "--backend", "gpu",
+        "--output-dir", out_dir])
+    t0 = time.monotonic()
+    summary = serve_game.run(args)
+    summary["run_s"] = time.monotonic() - t0
+    host, maps = load_game_model(model_dir, device="cpu")
+    data, _ = _load_game_data(args.input, args, index_maps=maps)
+    items = generate_traffic(data, host, serve_game.traffic_spec(args)).items
+    oracle = [host_score_request(host, item.request) for item in items]
+    scores = np.atleast_1d(np.loadtxt(os.path.join(out_dir, "scores.txt")))
+    served, shed, worst, left = match_served(scores, oracle, PARITY_TOL["f32"])
+    summary.update(matched_served=served, matched_shed=shed, worst_parity=worst)
+    log(f"  (a) serve_game --transport tcp --replica-backend subprocess --supervise: "
+        f"{summary['served']}/{summary['requests']} served, {summary['shed']} shed "
+        f"(matched {served} served and {shed} shed against the host oracle, worst "
+        f"|delta| {worst:.3e}, tolerance {PARITY_TOL['f32']:g}), {summary['qps']} "
+        f"requests/s, p50 {summary['latency_p50_ms']} ms, p99 "
+        f"{summary['latency_p99_ms']} ms; in-process thread fleet (phase 8 (c), this "
+        f"call): {inproc['qps']} requests/s, p50 {inproc['latency_p50_ms']} ms, p99 "
+        f"{inproc['latency_p99_ms']} ms; deaths {summary['replica_deaths']}, run "
+        f"{summary['run_s']:.2f} s")
+    log_children("(a)", summary["children"])
+    if left or served != summary["served"] or shed != summary["shed"] or not served:
+        raise AssertionError(f"serve_game tcp: requests not served or shed exactly once "
+                             f"({served} served, {shed} shed, {left} rows left)")
+    if summary["served"] + summary["shed"] != FLEET_REQUESTS or not summary["supervised"]:
+        raise AssertionError("serve_game tcp: requests lost or the fleet unsupervised")
+    if len(summary["children"]) != 2 or summary["replica_deaths"]:
+        raise AssertionError("serve_game tcp: a child died in a healthy run")
+    for c in summary["children"]:
+        if not str(c["device"]).startswith("cuda"):
+            raise AssertionError(f"serve_game tcp: child {c['replica']} on {c['device']}")
+        if c["captures"] != c["captures_at_warmup"] or c["segments"] != c["segments_at_warmup"]:
+            raise AssertionError(f"serve_game tcp: child {c['replica']} captured or "
+                                 "allocated a segment after warmup")
+        if c["host_syncs"] != c["batches"] or not c["batches"]:
+            raise AssertionError(f"serve_game tcp: child {c['replica']} host syncs "
+                                 f"{c['host_syncs']} for {c['batches']} batches")
+    return summary
+
+
+def supervisor_timeline(session, replica: str) -> list:
+    steps = [(m["value"], m["labels"].get("phase"))
+             for m in session.registry.snapshot()["gauges"]
+             if m["name"] == "serving.supervisor_step" and m["labels"].get("replica") == replica]
+    return [phase for _, phase in sorted(steps)]
+
+
+def new_user_keys(model) -> np.ndarray:
+    """FLEET15_NEW_ENTITIES keys past ``model``'s per-user vocabulary, of
+    its key type."""
+    keys = np.asarray(model.coordinates["per_user"].keys)
+    if keys.dtype.kind in "iu":
+        return keys.max() + 1 + np.arange(FLEET15_NEW_ENTITIES, dtype=keys.dtype)
+    return np.asarray([f"new-user-{i:05d}" for i in range(FLEET15_NEW_ENTITIES)])
+
+
+def grown_model(model, new_keys: np.ndarray):
+    """``model`` with ``new_keys`` as new per-user entities, their rows
+    drawn from a seed: the vocabulary outgrows its serving table's
+    capacity, and a request for a new user tells the grown model apart."""
+    import dataclasses
+
+    from photon_tpu_torch.game.data import entity_index_for
+
+    coord = model.coordinates["per_user"]
+    grown = coord.with_entities(np.unique(np.concatenate([np.asarray(coord.keys), new_keys])))
+    rows = torch.as_tensor(entity_index_for(new_keys, grown.keys),
+                           device=grown.table.device).long()
+    values = np.random.default_rng(15).normal(0.0, 0.5, (len(rows), grown.dim))
+    table = grown.table.clone()
+    table[rows] = torch.as_tensor(values, dtype=table.dtype, device=table.device)
+    grown = dataclasses.replace(grown, table=table)
+    return dataclasses.replace(model, coordinates={**model.coordinates, "per_user": grown})
+
+
+def with_new_users(request, new_keys: np.ndarray):
+    """``request`` with its users replaced by ``new_keys``."""
+    import dataclasses
+
+    users = new_keys[np.arange(request.num_rows) % len(new_keys)]
+    return dataclasses.replace(request, entity_ids={**request.entity_ids, "userId": users})
+
+
+def fleet_load(fleet, items: list, until: threading.Event) -> tuple:
+    """Closed loops of SERVING_CLIENTS clients over ``items`` on a thread,
+    pass after pass until ``until`` is set; returns ``(thread, result)``:
+    ``result`` gets every pass's ``outcomes``, the loops' ``wall`` and the
+    ``passes``."""
+    from photon_tpu_torch.serving import run_closed_loop_outcomes
+
+    result: dict = {"outcomes": [], "wall": 0.0, "passes": 0}
+
+    def drive():
+        while True:
+            outcomes, wall = run_closed_loop_outcomes(
+                lambda tid: (lambda item: fleet.score(item.request)), items,
+                clients=SERVING_CLIENTS)
+            result["outcomes"].extend(outcomes)
+            result["wall"] += wall
+            result["passes"] += 1
+            if until.is_set():
+                return
+
+    thread = threading.Thread(target=drive)
+    thread.start()
+    return thread, result
+
+
+def wait_admitted(session, target: float, thread) -> None:
+    admitted = session.registry.counter("serving.admitted")
+    while admitted.value < target and thread.is_alive():
+        time.sleep(0.001)
+
+
+def rewire(replica) -> None:
+    """Close a child replica's sockets: its next exchange redials through
+    ``maybe_shim``, so an installed (or cleared) fault plan takes effect."""
+    for chan in ("_data", "_ctrl"):
+        try:
+            getattr(replica.scorer, chan).close()
+        except OSError:
+            pass
+
+
+def run_fleet_chaos(game: dict, dev) -> dict:
+    """(b)-(d) on one supervised two-child fleet on the card."""
+    import argparse
+
+    from photon_tpu_torch.drivers.train_game import _load_game_data
+    from photon_tpu_torch.game.lowp import PARITY_TOL
+    from photon_tpu_torch.game.model_io import load_game_model
+    from photon_tpu_torch.serving import (
+        ServingFleet,
+        SupervisorPolicy,
+        TrafficSpec,
+        generate_traffic,
+        host_score_request,
+        request_spec_for_dataset,
+    )
+    from photon_tpu_torch.serving.netfault import NetFaultPlan, partition, set_net_plan
+    from photon_tpu_torch.telemetry import TelemetrySession
+
+    model_dir = os.path.join(game["run_dirs"]["fused"], "best_model")
+    retrained = os.path.join(os.path.dirname(game["avro"]), "retrained", "best_model")
+    if not os.path.isdir(retrained):
+        retrained = retrain(game)
+    old, maps = load_game_model(model_dir, device=dev)
+    old_host, _ = load_game_model(model_dir, device="cpu")
+    new, _ = load_game_model(retrained, device=dev)
+    new_host, _ = load_game_model(retrained, device="cpu")
+    args = argparse.Namespace(feature_bags=GAME_BAGS[1], id_columns=GAME_BAGS[3])
+    data, _ = _load_game_data(game["avro"], args, index_maps=maps)
+
+    def traffic(seed: int) -> list:
+        return generate_traffic(data, old_host, TrafficSpec(
+            requests=FLEET15_REQUESTS, mean_rows=SERVING_MEAN_ROWS,
+            max_rows=SERVING_MAX_BATCH, storm_frac=0.1, seed=seed)).items
+
+    session = TelemetrySession("fleet15")
+    used0 = card_used_bytes(dev)
+    t0 = time.monotonic()
+    fleet = ServingFleet(old, replicas=2, device=dev, backend="subprocess",
+                         request_spec=request_spec_for_dataset(old, data),
+                         max_batch=SERVING_MAX_BATCH, max_delay_s=0.001,
+                         telemetry=session).warmup()
+    out = {"fleet_spawn_s": time.monotonic() - t0}
+    used1 = card_used_bytes(dev)
+    out["children_card_bytes"] = None if used0 is None else used1 - used0
+    log(f"  (b) two children spawned side by side and warm in {out['fleet_spawn_s']:.2f} s; "
+        f"the card's used bytes grew by {out['children_card_bytes']} (mem_get_info before "
+        f"and after their start: two CUDA contexts, graph pools and tables)")
+    sup = fleet.supervise(SupervisorPolicy(
+        probe_interval_s=FLEET15_PROBE_INTERVAL_S, probe_deadline_s=FLEET15_PROBE_DEADLINE_S,
+        respawn_base_s=0.0, respawn_jitter=0.0))
+    try:
+        out["crash"] = fleet_crash(fleet, session, traffic(2), old_host, PARITY_TOL["f32"])
+        out["rollout"] = fleet_rollout(fleet, session, traffic(3), (old_host, new, new_host))
+        sup.stop()
+        out["netfault"] = fleet_partition(fleet, sup, session, traffic(4)[:20],
+                                          new_host, NetFaultPlan, partition, set_net_plan)
+    finally:
+        set_net_plan(None)
+        fleet.close()
+    # Every child the fleet ran: those it let go (the killed one, those a
+    # rebuild retired), each at its last stats pull, and those it closed.
+    out["children"] = [c for r in fleet.replicas
+                       for c in (*r.retired_children, r.child_report())]
+    log_children("(b)-(d)", out["children"])
+    return out
+
+
+def fleet_crash(fleet, session, items, host_model, tol) -> dict:
+    """(b): SIGKILL child r0 a third of the way into a closed loop; every
+    request answered once within ``tol`` of the host oracle, the death
+    declared, the child respawned, its rejoin probe passed and readmitted."""
+    import signal
+
+    from photon_tpu_torch.serving import host_score_request
+
+    r0 = fleet.replicas[0]
+    done = threading.Event()
+    thread, result = fleet_load(fleet, items, done)
+    wait_admitted(session, len(items) // 3, thread)
+    pid = r0.child_pid
+    r0.pull_stats()  # the child's counts, kernel launches among them, before it dies
+    t_kill = time.monotonic()
+    os.kill(pid, signal.SIGKILL)
+    declared = rejoined = None
+    while time.monotonic() - t_kill < FLEET15_REJOIN_TIMEOUT_S:
+        if declared is None and not r0.alive:
+            declared = time.monotonic()
+        if declared is not None and r0.alive:
+            rejoined = time.monotonic()
+            break
+        time.sleep(0.002)
+    done.set()
+    thread.join(timeout=600)
+    if thread.is_alive() or rejoined is None:
+        raise AssertionError("fleet crash: the traffic or the rejoin did not finish")
+    oracle = {id(item): host_score_request(host_model, item.request) for item in items}
+    worst = 0.0
+    for o in result["outcomes"]:
+        if o.status != "ok":
+            raise AssertionError(f"fleet crash: a request failed ({o.status}: {o.reason})")
+        worst = max(worst, float(np.abs(o.scores - oracle[id(o.item)]).max()))
+    timeline = supervisor_timeline(session, "r0")
+    out = {
+        "requests": len(result["outcomes"]), "passes": result["passes"],
+        "wall_s": result["wall"],
+        "worst_parity": worst, "killed_pid": pid, "new_pid": r0.child_pid,
+        "declared_after_s": declared - t_kill, "rejoined_after_s": rejoined - t_kill,
+        "rerouted": counter_total_labeled(session, "serving.rerouted", replica="r0"),
+        "deaths": counter_total_labeled(session, "serving.replica_deaths", replica="r0"),
+        "resurrections": counter_total_labeled(session, "serving.replica_resurrections",
+                                               replica="r0"),
+        "timeline": timeline, "respawn": r0.child_report(),
+    }
+    log(f"  (b) SIGKILL of child r0 (pid {pid}) a third into a closed loop of "
+        f"{len(items)}-request passes ({out['requests']} requests in {out['passes']}): "
+        f"every request answered once (worst |delta| {worst:.3e}), {out['rerouted']:.0f} "
+        f"rerouted, death declared after {out['declared_after_s']:.3f} s, rejoined after "
+        f"{out['rejoined_after_s']:.2f} s (respawn {out['respawn']['spawn_s']:.2f} s) as pid "
+        f"{out['new_pid']}; timeline {timeline}; deaths {out['deaths']:.0f}, "
+        f"resurrections {out['resurrections']:.0f}; loop {out['wall_s']:.2f} s")
+    if worst > tol or out["deaths"] != 1 or out["resurrections"] != 1:
+        raise AssertionError("fleet crash: parity, or not one death and one resurrection")
+    # A ping can reach the dead child before its exit code does: a lease
+    # miss may come first.
+    steps = [phase for phase in timeline if phase != "lease-miss"]
+    if steps != ["died-crash", "respawn", "rejoin-probe", "rejoined"] or pid == r0.child_pid:
+        raise AssertionError(f"fleet crash: timeline {timeline}")
+    return out
+
+
+def fleet_rollout(fleet, session, items, models) -> dict:
+    """(c): under a closed loop, a rollout of the retrained model (the
+    canary held to its host oracle), then rollout_with_rebuild of it grown
+    past the per-user table's capacity (two new children at twice the
+    capacity).  No request lost; every response wholly one model's; the
+    tail the grown model's."""
+    from photon_tpu_torch.serving import host_score_request
+
+    old_host, new, new_host = models
+    new_keys = new_user_keys(new_host)
+    grown, grown_host = grown_model(new, new_keys), grown_model(new_host, new_keys)
+    done = threading.Event()
+    thread, result = fleet_load(fleet, items, done)
+    wait_admitted(session, session.registry.counter("serving.admitted").value
+                  + len(items) // 4, thread)
+    t0 = time.monotonic()
+    fleet.rollout(new, probe_oracle=lambda req: host_score_request(new_host, req))
+    rollout_s = time.monotonic() - t0
+    pids = [r.child_pid for r in fleet.replicas]
+    t0 = time.monotonic()
+    rebuilt = fleet.rollout_with_rebuild(grown)
+    rebuild_s = time.monotonic() - t0
+    done.set()
+    thread.join(timeout=600)
+    if thread.is_alive():
+        raise AssertionError("fleet rollout: the traffic did not finish")
+    oracles = {name: {id(item): host_score_request(m, item.request) for item in items}
+               for name, m in (("old", old_host), ("new", new_host), ("grown", grown_host))}
+    verdicts = []
+    for o in result["outcomes"]:
+        if o.status != "ok":
+            raise AssertionError(f"fleet rollout: a request failed ({o.status}: {o.reason})")
+        hits = [name for name, oracle in oracles.items()
+                if np.allclose(o.scores, oracle[id(o.item)], rtol=0, atol=ROLLOUT_ATOL)]
+        if not hits:
+            raise AssertionError("fleet rollout: a response matches no model")
+        verdicts.append(hits)
+    counts: dict = {}
+    for hits in verdicts:
+        counts["/".join(hits)] = counts.get("/".join(hits), 0) + 1
+    # The old, new and grown models agree on known users; new users tell
+    # the grown model's rows apart.
+    probe = with_new_users(items[0].request, new_keys)
+    grown_gap = float(np.abs(fleet.score(probe) - host_score_request(grown_host, probe)).max())
+    new_gap = float(np.abs(host_score_request(new_host, probe)
+                           - host_score_request(grown_host, probe)).max())
+    out = {"requests": len(verdicts), "passes": result["passes"], "rollout_s": rollout_s,
+           "rebuild_s": rebuild_s,
+           "rebuilt": rebuilt, "responses": counts, "pids_before_rebuild": pids,
+           "pids_after_rebuild": [r.child_pid for r in fleet.replicas],
+           "version": fleet.current_model()[1], "new_users_gap": grown_gap,
+           "new_users_gap_to_new_model": new_gap,
+           "fleet_rebuilds": counter_total(session, "serving.fleet_rebuilds"),
+           "rollbacks": counter_total(session, "serving.rollout_rollbacks")}
+    log(f"  (c) under {len(verdicts)} requests ({result['passes']} passes): rollout of the "
+        f"retrained model "
+        f"{rollout_s:.2f} s, then rollout_with_rebuild past the capacity ({FLEET15_NEW_ENTITIES} "
+        f"new users) {rebuild_s:.2f} s (rebuilt {rebuilt}, children {pids} -> "
+        f"{out['pids_after_rebuild']}); none lost; responses {counts}; fleet version "
+        f"{out['version']}, rollbacks {out['rollbacks']:.0f}; new users against the grown "
+        f"model's oracle |delta| {grown_gap:.3e} (the retrained model's oracle is "
+        f"{new_gap:.3e} away)")
+    # The last pass ends after the cutover: its last response is the grown
+    # model's.
+    if not rebuilt or "grown" not in verdicts[-1] or out["rollbacks"]:
+        raise AssertionError("fleet rollout: the rebuild did not land the grown model")
+    if grown_gap > ROLLOUT_ATOL or new_gap <= ROLLOUT_ATOL:
+        raise AssertionError("fleet rollout: the fleet does not serve the grown rows")
+    if fleet.current_model()[0] is not grown or set(pids) & set(out["pids_after_rebuild"]):
+        raise AssertionError("fleet rollout: the fleet does not serve the rebuilt children")
+    return out
+
+
+def fleet_partition(fleet, sup, session, requests, host_model, NetFaultPlan, partition,
+                    set_net_plan) -> dict:
+    """(d): a partition of both of r0's links, FLEET15_PARTITION_S long and
+    shorter than the lease: the supervisor counts a lease miss and declares
+    no death; requests sent into the partition are answered after it
+    heals."""
+    from photon_tpu_torch.serving import host_score_request
+
+    r0 = fleet.replicas[0]
+    deaths0 = counter_total(session, "serving.replica_deaths")
+    misses0 = counter_total(session, "serving.lease_probe_misses")
+    sup.check_once()
+    plan = NetFaultPlan([partition("r0:*", 0.0, FLEET15_PARTITION_S)], seed=21)
+    r0.scorer.exchange_timeout_s = 0.25
+    set_net_plan(plan)
+    rewire(r0)
+    t0 = time.monotonic()
+    futures = [r0.submit(item.request) for item in requests]
+    sup.check_once()
+    alive_in_partition = r0.alive
+    got = [f.result(timeout=60) for f in futures]
+    answered_s = time.monotonic() - t0
+    time.sleep(max(0.0, FLEET15_PARTITION_S - (time.monotonic() - t0)))
+    sup.check_once()
+    set_net_plan(None)
+    rewire(r0)
+    worst = max(float(np.abs(g - host_score_request(host_model, item.request)).max())
+                for g, item in zip(got, requests))
+    out = {"partition_s": FLEET15_PARTITION_S, "alive_in_partition": alive_in_partition,
+           "alive_after": r0.alive, "answered_after_s": answered_s, "worst_parity": worst,
+           "lease_misses": counter_total(session, "serving.lease_probe_misses") - misses0,
+           "deaths": counter_total(session, "serving.replica_deaths") - deaths0,
+           "partitioned_frames": plan.total("partitioned"),
+           "resends": counter_total(session, "serving.exchange_resends")}
+    log(f"  (d) partition of r0 for {FLEET15_PARTITION_S} s: {out['lease_misses']:.0f} lease "
+        f"miss(es), {out['deaths']:.0f} deaths, {out['partitioned_frames']} frames "
+        f"black-holed, {out['resends']:.0f} exchange resends; {len(requests)} requests "
+        f"sent into it answered after {answered_s:.2f} s (worst |delta| {worst:.3e})")
+    if out["deaths"] or not alive_in_partition or not r0.alive or not out["lease_misses"]:
+        raise AssertionError("fleet partition: a death declared, or no lease miss counted")
+    if worst > ROLLOUT_ATOL or not out["partitioned_frames"]:
+        raise AssertionError("fleet partition: parity, or nothing was partitioned")
+    return out
+
+
+def fleet_kernel_launches(fleet15: dict) -> dict:
+    """Phase 15's launches of every kernel, gated at 0: this process's
+    (its counts set to 0 just before the phase) plus every child's.  The
+    scoring runs in the children; each starts its counts at 0 and reports
+    them in its stats frame, read here at its last pull (a retired child's
+    after its drain, the killed child's just before the kill, the others'
+    at the fleet's close)."""
+    from photon_tpu_torch.ops import launch_counts
+
+    counts = launch_counts()
+    children = fleet15["serve_game"]["children"] + fleet15["children"]
+    for c in children:
+        if c["kernel_launches"] is None:
+            raise AssertionError(f"phase 15: child {c['replica']} (pid {c['pid']}) "
+                                 "reported no kernel counts")
+        for name, n in c["kernel_launches"].items():
+            counts[name] = counts.get(name, 0) + n
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"  phase 15 launched {launched or 'no hand-written kernel'} in this process and "
+        f"its {len(children)} children (pids {[c['pid'] for c in children]}), each "
+        "child's counts from its last stats frame")
+    if launched:
+        raise AssertionError(f"phase 15: the serving fleet launched kernels: {launched}")
+    return counts
+
+
+def run_subprocess_fleet(game: dict, serving: dict, dev) -> dict:
+    """Phase 15: (a) serve_game over TCP with subprocess replicas, (b)-(d)
+    a crash, a rollout and rebuild, and a partition on one fleet."""
+    out = {"serve_game": run_fleet_serve_game(game, serving["serve_game"])}
+    out.update(run_fleet_chaos(game, dev))
+    return out
+
+
 # Phase 13: bf16 feature storage and the half-width exchange payload.  (a)
 # runs right after phase 3 on phase 2's prepared batches: each draw's batch
 # converted by batch_astype (no layout or route rebuilt), then per route
@@ -6105,6 +6604,20 @@ def main() -> int:
         spill["seconds"] = time.monotonic() - t14
         log(f"  phase 14 took {spill['seconds']:.1f} s; the script so far "
             f"{time.monotonic() - t_start:.1f} s")
+
+        t15 = time.monotonic()
+        log("phase 15: the self-healing subprocess fleet over TCP (serve_game --transport "
+            "tcp --replica-backend subprocess --supervise, a child killed under load, a "
+            "rollout and a rebuild past the capacity, a partition)")
+        for c in kernel_counters:
+            c.launches = 0
+            if hasattr(c, "bf16_launches"):
+                c.bf16_launches = 0
+        fleet15 = run_subprocess_fleet(game, serving, dev)
+        fleet15["kernel_launches"] = fleet_kernel_launches(fleet15)
+        fleet15["seconds"] = time.monotonic() - t15
+        log(f"  phase 15 took {fleet15['seconds']:.1f} s; the script so far "
+            f"{time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(game_tmp, ignore_errors=True)
 
@@ -6246,6 +6759,7 @@ def main() -> int:
     log(f"phase 12: {json.dumps(sgame, default=str)}")
     log(f"phase 13: {json.dumps({k: v for k, v in bf16.items()}, default=str)}")
     log(f"phase 14: {json.dumps(spill, default=str)}")
+    log(f"phase 15: {json.dumps(fleet15, default=str)}")
     log(f"bf16 edge shapes: {json.dumps(kb16['edges'])}")
     wrapper_names = {"fused_sparse": "fused_value_and_grad", "row_scatter": "row_scatter",
                      "position_reduce": "position_partial_sums",
@@ -6264,6 +6778,11 @@ def main() -> int:
         # The disk tier runs no hand-written kernel either (expected 0).
         entry["phase14_launches"] = {run: launches.get(wrapper, 0)
                                      for run, launches in p14.items()}
+        # Nor does the subprocess fleet (phase 15 gates 0); a bf16 form
+        # counts its wrapper's bf16 launches.
+        base = entry["name"].removesuffix("_bf16")
+        entry["phase15_launches"] = fleet15["kernel_launches"].get(
+            wrapper_names.get(base, base) + entry["name"][len(base):], 0)
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")
     log(f"total seconds: {time.monotonic() - t_start:.1f}")

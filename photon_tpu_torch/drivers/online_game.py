@@ -19,8 +19,8 @@ resumes from its descent checkpoint and a restarted run re-merges the
 parts the feed already published.  The final model and
 ``online_summary.json`` land in ``--output-dir``.  ``--backend gpu`` (the
 default) trains and serves on the card; ``--backend cpu`` on the host.
-``--transport tcp`` and ``--replica-backend subprocess`` raise, naming
-ROADMAP.md queue 1, item 7.
+The fleet is the in-process thread fleet, as in the reference: this driver
+has no socket ingest and no subprocess replicas (``serve_game`` has both).
 """
 
 from __future__ import annotations
@@ -79,22 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "counter")
     p.add_argument("--max-quarantined", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--transport", choices=("inproc", "tcp"), default="inproc",
-                   help="tcp is not ported (ROADMAP.md queue 1, item 7)")
-    p.add_argument("--replica-backend", choices=("thread", "subprocess"),
-                   default="thread",
-                   help="subprocess is not ported (ROADMAP.md queue 1, item 7)")
     common.add_telemetry_arg(p)
     return p
 
 
 def run(args: argparse.Namespace) -> dict:
-    for flag, given in (("--transport tcp", args.transport == "tcp"),
-                        ("--replica-backend subprocess",
-                         args.replica_backend == "subprocess")):
-        if given:
-            raise NotImplementedError(
-                f"{flag} waits in ROADMAP.md queue 1, item 7")
     logger = common.RunLogger("photon_tpu_torch.online_game")
     os.makedirs(args.output_dir, exist_ok=True)
     with common.telemetry_run(args, "online_game", logger) as session:

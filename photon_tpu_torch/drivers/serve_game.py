@@ -1,15 +1,21 @@
 """Online GAME scoring driver: a replica fleet serving seeded traffic.
 
-Counterpart of ``photon_tpu/drivers/serve_game.py``, in-process: load a
-saved GAME model ONCE, build ``--replicas`` scorer replicas (each with its
-own tables on the device, its own CUDA stream and one captured graph per
-bucket) behind the deadline-aware fleet router, capture every replica's
-bucket ladder, then drive a seeded traffic stream through the fleet with
+Counterpart of ``photon_tpu/drivers/serve_game.py``: load a saved GAME
+model ONCE, build ``--replicas`` scorer replicas (each with its own tables
+on the device, its own CUDA stream and one captured graph per bucket)
+behind the deadline-aware fleet router, capture every replica's bucket
+ladder, then drive a seeded traffic stream through the fleet with
 closed-loop clients.  ``--traffic powerlaw`` (default) draws requests from
 the traffic generator (power-law entity popularity, an optional cold-start
 storm); ``--traffic geometric`` cuts consecutive row windows of geometric
 sizes.  ``--deadline-ms`` arms admission control (a request whose
 queue-wait projection blows the budget is shed and counted, never queued).
+``--transport tcp`` serves over the loopback socket ingest (each client a
+``ScoringClient`` connection) instead of submitting in-process;
+``--replica-backend subprocess`` runs each replica as a child process
+with its own CUDA context; ``--supervise`` attaches the self-healing
+supervisor (health probes every ``--probe-interval-ms``, resurrection,
+quarantine).
 
 Scores land in ``<output-dir>/scores.txt`` in request order (admitted
 requests only), ``serving_summary.json`` beside them, and the run report
@@ -19,12 +25,12 @@ carries the ``serving.*`` block:
         --model out/best_model --input test.avro \\
         --feature-bags global=global,per_user=per_user --id-columns userId \\
         --requests 500 --clients 8 --replicas 2 --deadline-ms 25 \\
+        --transport tcp --replica-backend subprocess --supervise \\
         --max-batch 128 --max-delay-ms 2 --output-dir served
 
 ``--backend gpu`` (the default) runs on the card and fails without one.
-``--transport tcp``, ``--replica-backend subprocess``, ``--supervise``,
-``--models`` > 1, ``--splits`` and ``--tenant-queue-rows`` wait in
-ROADMAP.md queue 1, item 7.
+``--models`` > 1, ``--splits`` and ``--tenant-queue-rows`` wait for the
+multi-model arena in ROADMAP.md queue 1, item 7.5.
 """
 
 from __future__ import annotations
@@ -74,15 +80,20 @@ def build_parser() -> argparse.ArgumentParser:
                    "segment (unknown entities; powerlaw traffic)")
     p.add_argument("--transport", choices=("inproc", "tcp"),
                    default="inproc",
-                   help="inproc: submit straight to the router; tcp is "
-                   "not ported (ROADMAP.md queue 1, item 7)")
+                   help="inproc: submit straight to the router; tcp: "
+                   "serve over the loopback socket ingest")
     p.add_argument("--replica-backend", choices=("thread", "subprocess"),
                    default="thread",
-                   help="replica runtime: threads in this process; "
-                   "subprocess is not ported (ROADMAP.md queue 1, item 7)")
+                   help="replica runtime: threads in this process, or one "
+                   "child process per replica (its own CUDA context, frame "
+                   "protocol over loopback)")
     p.add_argument("--supervise", action="store_true",
-                   help="not ported: the self-healing supervisor "
-                   "(ROADMAP.md queue 1, item 7)")
+                   help="attach the self-healing supervisor: health probes "
+                   "(exit code, heartbeat, ping, known-answer score vs the "
+                   "host oracle), backed-off resurrection with a "
+                   "canary-gated rejoin, flap quarantine")
+    p.add_argument("--probe-interval-ms", type=float, default=500.0,
+                   help="supervisor health-probe interval")
     p.add_argument("--deadline-ms", type=float, default=0.0,
                    help="per-request deadline budget; 0 disables "
                    "admission shedding")
@@ -100,13 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "scale); every accumulation stays f32")
     p.add_argument("--models", type=int, default=1,
                    help="tenant models hosted per replica; more than 1 is "
-                   "not ported (ROADMAP.md queue 1, item 7)")
+                   "not ported (ROADMAP.md queue 1, item 7.5)")
     p.add_argument("--splits", default=None,
                    help="not ported: traffic split spec 'm0=0.7,m1=0.3' "
-                   "(ROADMAP.md queue 1, item 7)")
+                   "(ROADMAP.md queue 1, item 7.5)")
     p.add_argument("--tenant-queue-rows", type=int, default=0,
                    help="not ported: per-tenant admission budget "
-                   "(ROADMAP.md queue 1, item 7)")
+                   "(ROADMAP.md queue 1, item 7.5)")
     return p
 
 
@@ -120,11 +131,25 @@ def request_sizes(n_requests: int, mean: float, cap: int,
     return geometric_sizes(n_requests, mean, cap, np.random.default_rng(seed))
 
 
+def traffic_spec(args):
+    """The request stream the arguments ask for (the one definition a
+    caller that checks the served scores regenerates the stream from)."""
+    from photon_tpu_torch.serving.traffic import TrafficSpec
+
+    return TrafficSpec(
+        requests=args.requests,
+        mean_rows=args.request_rows_mean,
+        max_rows=args.max_batch,
+        popularity=args.traffic,
+        alpha=args.popularity_alpha,
+        storm_frac=args.storm_frac if args.traffic == "powerlaw" else 0.0,
+        deadline_ms=args.deadline_ms if args.deadline_ms > 0 else None,
+        seed=args.seed,
+    )
+
+
 def _reject_not_ported(args) -> None:
     flags = (
-        ("--transport tcp", args.transport == "tcp"),
-        ("--replica-backend subprocess", args.replica_backend == "subprocess"),
-        ("--supervise", args.supervise),
         ("--models > 1", args.models > 1),
         ("--splits", args.splits is not None),
         ("--tenant-queue-rows", args.tenant_queue_rows > 0),
@@ -133,7 +158,7 @@ def _reject_not_ported(args) -> None:
         if given:
             raise NotImplementedError(
                 f"serve_game {flag} is not ported yet; it waits in "
-                "ROADMAP.md queue 1, item 7"
+                "ROADMAP.md queue 1, item 7.5"
             )
 
 
@@ -151,8 +176,9 @@ def _run(args, device, logger, session) -> dict:
     from photon_tpu_torch.game.model_io import load_game_model
     from photon_tpu_torch.serving import (
         AdmissionPolicy,
+        ScoringClient,
         ServingFleet,
-        TrafficSpec,
+        SupervisorPolicy,
         generate_traffic,
         request_spec_for_dataset,
         run_closed_loop_outcomes,
@@ -175,6 +201,7 @@ def _run(args, device, logger, session) -> dict:
             model,
             replicas=args.replicas,
             device=device,
+            backend=args.replica_backend,
             request_spec=request_spec_for_dataset(model, data),
             max_batch=args.max_batch,
             max_delay_s=args.max_delay_ms / 1000.0,
@@ -182,24 +209,30 @@ def _run(args, device, logger, session) -> dict:
             admission=AdmissionPolicy(default_deadline_s=deadline_s),
             table_dtype=args.table_dtype,
         ).warmup()
-        logger.info("fleet warm: %d thread replicas, %d programs captured",
-                    args.replicas, fleet.compilations)
+        if args.supervise:
+            fleet.supervise(
+                SupervisorPolicy(
+                    probe_interval_s=args.probe_interval_ms / 1000.0
+                ),
+                logger=logger,
+            )
+        logger.info("fleet warm: %d %s replicas, %d programs captured%s",
+                    args.replicas, args.replica_backend, fleet.compilations,
+                    ", supervised" if args.supervise else "")
 
-    spec = TrafficSpec(
-        requests=args.requests,
-        mean_rows=args.request_rows_mean,
-        max_rows=args.max_batch,
-        popularity=args.traffic,
-        alpha=args.popularity_alpha,
-        storm_frac=args.storm_frac if args.traffic == "powerlaw" else 0.0,
-        deadline_ms=args.deadline_ms if args.deadline_ms > 0 else None,
-        seed=args.seed,
-    )
-    traffic = generate_traffic(data, model, spec)
+    traffic = generate_traffic(data, model, traffic_spec(args))
+
+    server = fleet.serve() if args.transport == "tcp" else None
+    clients: list = []
 
     def factory(tid: int):
-        return lambda item: fleet.score(item.request,
-                                        deadline_s=item.deadline_s)
+        if server is None:
+            return lambda item: fleet.score(item.request,
+                                            deadline_s=item.deadline_s)
+        client = ScoringClient(server.address, telemetry=session)
+        clients.append(client)
+        return lambda item: client.score(item.request,
+                                         deadline_s=item.deadline_s)
 
     try:
         with logger.timed("serve"):
@@ -207,6 +240,8 @@ def _run(args, device, logger, session) -> dict:
                 factory, traffic.items, clients=args.clients
             )
     finally:
+        for client in clients:
+            client.close()
         fleet.close()
 
     ok = [o for o in outcomes if o.status == "ok"]
@@ -261,7 +296,7 @@ def _run(args, device, logger, session) -> dict:
         "compiled_programs": fleet.compilations,
         "replicas": args.replicas,
         "replica_backend": args.replica_backend,
-        "supervised": False,
+        "supervised": bool(args.supervise),
         "replica_deaths": int(_counter("serving.replica_deaths")),
         "resurrections": int(_counter("serving.replica_resurrections")),
         "quarantined": int(_counter("serving.replica_quarantined")),
@@ -272,6 +307,11 @@ def _run(args, device, logger, session) -> dict:
         "models": args.models,
         "splits": None,
         "tenant_shed": 0,
+        # Each child replica's device, captures and allocator segments at
+        # warmup and at its last stats pull, card memory, host syncs and
+        # batches (subprocess backend; empty for threads).
+        "children": [r.child_report() for r in fleet.replicas
+                     if hasattr(r, "child_report")],
     }
     publish_text(
         args.output_dir, "serving_summary.json",

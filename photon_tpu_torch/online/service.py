@@ -137,7 +137,7 @@ class OnlineLearningService:
         if model_id is not None:
             raise NotImplementedError(
                 "a per-tenant publish (model_id=) waits with the serving "
-                "arena in ROADMAP.md queue 1, item 7")
+                "arena in ROADMAP.md queue 1, item 7.5")
         self.estimator = estimator
         self.configuration = configuration
         self.feed = feed

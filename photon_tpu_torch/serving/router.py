@@ -7,9 +7,11 @@ overheads *around* the math dominate — is why this layer exists at all):
 
 - :class:`ScorerReplica` — one :class:`~photon_tpu_torch.serving.scorer.GameScorer`
   owning its own device-resident tables behind its own dedicated
-  :class:`~photon_tpu_torch.serving.batcher.RequestBatcher`.  Replicas are
-  thread-backed; each scorer owns its tables, its CUDA stream and its
-  captured graphs.
+  :class:`~photon_tpu_torch.serving.batcher.RequestBatcher`.  A thread
+  replica's scorer owns its tables, its CUDA stream and its captured
+  graphs; a subprocess replica
+  (:class:`~photon_tpu_torch.serving.replica_proc.SubprocessReplica`)
+  keeps the same surface over a child process.
 - :class:`FleetRouter` — queue-depth-aware dispatch across the healthy
   replicas (least projected wait, from each replica's live ``pending_rows``
   and an EWMA of its measured per-row service time), deadline-aware
@@ -52,10 +54,13 @@ from photon_tpu_torch.serving.scorer import GameScorer, ScoringRequest
 _heartbeat_nonce = itertools.count(1)
 
 
-def not_ported(what: str) -> NotImplementedError:
-    """The one refusal of a fleet feature that is not ported yet."""
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The one refusal of a fleet feature that is not ported yet: ``item``
+    is its ROADMAP.md queue 1 item (7.4 the observability plane, 7.5 the
+    multi-model arena)."""
     return NotImplementedError(
-        f"{what} is not ported yet; it waits in ROADMAP.md queue 1, item 7"
+        f"{what} is not ported yet; it waits in ROADMAP.md queue 1, "
+        f"item {item}"
     )
 
 
@@ -180,12 +185,13 @@ class _KillableScorer:
     declares the ``serve:replica_kill`` and ``replica:crash`` fault sites
     so CI can kill/crash a named replica's scoring path deterministically,
     (2) latches death — once a kill fired, every later batch on this
-    replica raises :class:`ReplicaDeadError` (a dead replica stays dead;
-    the one-shot fault rule must not let the next batch silently
-    succeed) — and (3) marks watchdog heartbeats around each batch.  An
-    injected ``replica:hang`` WEDGES the batch (the thread-backed shape
-    of a hung runtime) until the replica is declared dead from outside
-    or :attr:`HANG_CAP_S` passes."""
+    replica raises :class:`ReplicaDeadError` (a dead replica stays dead
+    until the supervisor resurrects it; the one-shot fault rule must not
+    let the next batch silently succeed) — and (3) marks watchdog
+    heartbeats around each batch, the progress signal the supervisor's
+    hang detection reads.  An injected ``replica:hang`` WEDGES the batch
+    (the thread-backed shape of a hung runtime) until the replica is
+    declared dead from outside or :attr:`HANG_CAP_S` passes."""
 
     # The wedge-simulation backstop: an unsupervised hung replica fails its
     # batch after this long instead of holding the batcher thread forever.
@@ -207,7 +213,11 @@ class _KillableScorer:
 
     def score_batch(self, request: ScoringRequest) -> np.ndarray:
         replica = self._replica
-        if not replica.alive:
+        # ``rejoining`` lifts the dead-latch for the supervisor's rejoin
+        # parity probes only: the replica is still OUT of the dispatch set
+        # (alive stays False until revive), so no caller traffic can reach
+        # a replica that has not passed its canary gate.
+        if not replica.alive and not replica.rejoining:
             raise ReplicaDeadError(f"replica {replica.replica_id} is dead")
         heartbeat(replica.heartbeat_site)
         if consume_hang_injection(replica.replica_id):
@@ -225,7 +235,15 @@ class _KillableScorer:
             fault_point("replica:crash", replica=replica.replica_id)
         except InjectedKillError as e:
             self._die("crash", e)
-        scores = self._scorer.score_batch(request)
+        try:
+            scores = self._scorer.score_batch(request)
+        except ReplicaDeadError:
+            # The backend itself died mid-batch (a subprocess child's
+            # connection dropped): latch it like an injected crash.
+            if replica.alive:
+                replica.death_cause = replica.death_cause or "crash"
+                replica.alive = False
+            raise
         heartbeat(replica.heartbeat_site)
         return scores
 
@@ -234,9 +252,15 @@ class ScorerReplica:
     """One serving replica: scorer + dedicated batcher + health/latency
     state the router dispatches on.
 
-    ``generation`` counts cutovers — death accounting is per (replica,
-    generation), so a rebuilt replica's next death is a new event;
-    ``death_cause`` labels the death counter (kill/crash/hang/error)."""
+    Supervision surface (the fleet supervisor drives these):
+    ``generation`` counts resurrections and cutovers — death accounting is
+    per (replica, generation), so a replica that dies, rejoins, and dies
+    again is two deaths, not one latched event; ``death_cause`` labels the
+    death counter (kill/crash/hang/parity/lease/error); ``quarantined`` is
+    the permanent flap verdict; :meth:`respawn` stands the serving path
+    back up (re-warmed, fresh batcher) WITHOUT returning it to dispatch —
+    only :meth:`FleetRouter.revive`, after the canary-gated rejoin probe,
+    does that."""
 
     def __init__(
         self,
@@ -254,15 +278,14 @@ class ScorerReplica:
         self.heartbeat_site = replica_heartbeat_site(replica_id)
         self.generation = 0
         self.death_cause: Optional[str] = None
+        self.quarantined = False
+        # True between respawn and revive: the supervisor's rejoin probes
+        # may score, the router still never dispatches (alive is False).
+        self.rejoining = False
         self._max_batch = max_batch
         self._max_delay_s = max_delay_s
         self.telemetry = telemetry or scorer.telemetry or NULL_SESSION
-        self.batcher = RequestBatcher(
-            _KillableScorer(self, scorer),
-            max_batch=max_batch,
-            max_delay_s=max_delay_s,
-            telemetry=self.telemetry,
-        )
+        self.batcher = self._new_batcher()
         # EWMA seconds-per-PADDED-row through this replica (queue wait
         # included), the router's projection basis.  None until the first
         # completion: a cold replica admits optimistically.
@@ -315,18 +338,65 @@ class ScorerReplica:
         backend produces after this point."""
         old_batcher = self.batcher
         self.scorer = scorer
-        self.batcher = RequestBatcher(
-            _KillableScorer(self, scorer),
+        self.batcher = self._new_batcher()
+        old_batcher.close()
+
+    def _new_batcher(self) -> RequestBatcher:
+        """A batcher over the current scorer, behind the kill/heartbeat
+        hook."""
+        return RequestBatcher(
+            _KillableScorer(self, self.scorer),
             max_batch=self._max_batch,
             max_delay_s=self._max_delay_s,
             telemetry=self.telemetry,
         )
-        old_batcher.close()
+
+    # -- supervision ---------------------------------------------------------
+    def poll_exit(self) -> Optional[int]:
+        """Exit code of the replica's backing process, or None while it
+        runs.  Thread-backed replicas have no backing process — always
+        None; the subprocess replica overrides this with the child's
+        ``Popen.poll()``."""
+        return None
 
     def abandon_pending(self, exc: BaseException) -> None:
         """Fail everything queued on (and in flight through) this replica
-        so the router's done-callbacks reroute it."""
+        so the router's done-callbacks reroute it — the supervisor's
+        teardown step when it declares a replica dead."""
         self.batcher.abandon(exc)
+
+    def abandon_for_respawn(self) -> None:
+        """First step of every respawn: fail whatever the dead batcher
+        still held (the router reroutes it exactly once)."""
+        self.batcher.abandon(
+            ReplicaDeadError(f"replica {self.replica_id} is being respawned")
+        )
+
+    def attach_fresh_batcher(self) -> None:
+        """Last step of every respawn: a fresh batcher over the (re)stood
+        scorer, and ``rejoining`` lifted so ONLY the supervisor's rejoin
+        probes can score — shared by the thread and subprocess respawn
+        paths so their rebuild semantics cannot drift."""
+        self.batcher = self._new_batcher()
+        self.rejoining = True
+
+    def respawn(self, model=None) -> None:
+        """Stand the dead serving path back up: abandon whatever the old
+        batcher still held, sync the scorer to ``model`` (the fleet's
+        CURRENT model — a replica resurrected mid-rollout must come back
+        on the model the fleet serves now, never the one it died on),
+        re-warm the bucket ladder, and attach a fresh batcher.  For a
+        thread-backed replica the runtime survived the "crash", so the
+        re-warm finds every bucket's program already captured — nothing
+        captures again; the subprocess replica overrides this with a real
+        child respawn.  The replica stays OUT of the dispatch set until
+        ``router.revive()`` after the rejoin parity probe."""
+        fault_point("replica:spawn", replica=self.replica_id)
+        self.abandon_for_respawn()
+        if model is not None and model is not self.scorer.model:
+            self.scorer.swap_model(model)
+        self.scorer.warmup()
+        self.attach_fresh_batcher()
 
     def close(self) -> None:
         retire_heartbeat(self.heartbeat_site)
@@ -356,7 +426,7 @@ class AdmissionPolicy:
     def __post_init__(self):
         if self.tenant_queue_rows is not None:
             raise not_ported("the per-tenant admission budget "
-                             "(tenant_queue_rows)")
+                             "(tenant_queue_rows)", "7.5")
 
 
 class _Entry:
@@ -595,10 +665,10 @@ class FleetRouter:
 
     def mark_unhealthy(self, replica: ScorerReplica, cause: str,
                        detail: str = "") -> None:
-        """Declare a replica dead (a failed rebuild or rollback swap).
-        Death accounting + heartbeat retire; the caller tears down
-        in-flight work via ``replica.abandon_pending`` so the router
-        reroutes it."""
+        """Declare a replica dead (a failed health probe — hang, crash,
+        parity, lease — or a failed rebuild or rollback swap).  Death
+        accounting + heartbeat retire; the caller tears down in-flight
+        work via ``replica.abandon_pending`` so the router reroutes it."""
         self._mark_dead(
             replica,
             RuntimeError(
@@ -606,6 +676,29 @@ class FleetRouter:
             ),
             cause=cause,
         )
+
+    def revive(self, replica: ScorerReplica) -> None:
+        """Return a resurrected replica to the dispatch set.  The
+        supervisor calls this ONLY after the canary-gated rejoin parity
+        probe passed — resurrection is gated exactly like a rollout canary.
+        The generation bump re-arms death accounting; the pace EWMA resets
+        so the rejoined replica admits optimistically like a cold one."""
+        with self._lock:
+            replica.generation += 1
+            replica.death_cause = None
+            replica.row_seconds = None
+            replica.rejoining = False
+            replica.alive = True
+            # Sync the backend's membership stamp: frames the revived
+            # replica sends from here on carry the new generation, and any
+            # answer still in flight from the OLD incarnation is fenced by
+            # the exchange loop's stale-generation check.
+            scorer = replica.scorer
+            if hasattr(scorer, "generation"):
+                scorer.generation = replica.generation
+        self.telemetry.counter(
+            "serving.replica_resurrections", replica=replica.replica_id
+        ).inc()
 
     def cutover(self, replica: ScorerReplica) -> None:
         """Publish a background-rebuild cutover: bump the
@@ -618,13 +711,17 @@ class FleetRouter:
         with self._lock:
             replica.generation += 1
             replica.row_seconds = None
+            scorer = replica.scorer
+            if hasattr(scorer, "generation"):
+                scorer.generation = replica.generation
         self.telemetry.counter(
             "serving.replica_rebuilds", replica=replica.replica_id
         ).inc()
 
     def recent_requests(self) -> List[ScoringRequest]:
-        """The mirror of recently admitted requests — the rollout canary's
-        and the rebuild canary's traffic sample."""
+        """The mirror of recently admitted requests — the rollout canary's,
+        the rebuild canary's and the supervisor's rejoin probe's traffic
+        sample."""
         return list(self._mirror)
 
     # -- canary rollout ------------------------------------------------------
@@ -666,7 +763,7 @@ class FleetRouter:
         ``model_id`` (one tenant slice of a multi-model arena) is not
         ported and raises."""
         if model_id is not None:
-            raise not_ported("a per-tenant rollout (model_id=)")
+            raise not_ported("a per-tenant rollout (model_id=)", "7.5")
         oracle = probe_oracle or (
             lambda req: host_score_request(model, req)
         )
@@ -695,7 +792,8 @@ class FleetRouter:
             # the measured bound per dtype is an observable distribution,
             # not just a pass/fail gate.
             parity_hist = self.telemetry.histogram(
-                "serving.rollout_parity", dtype=canary.scorer.table_dtype
+                "serving.rollout_parity",
+                dtype=getattr(canary.scorer, "table_dtype", "f32"),
             )
             try:
                 futs = [canary.submit(req) for req in probes]

@@ -6,7 +6,9 @@ and GLM solvers, the serving scorer and batcher, the online loop and the
 checkpoint staging each read the device at a few points they choose on
 purpose (one read a descent iteration for the statistics and guard flags,
 one a solver decision, one event wait a served batch, one a checkpoint
-stage).  Any other read stalls the host behind the device.
+stage); the serving fleet's transport, replica processes and supervisor
+move frames and host numpy and read the device only to publish a model
+artifact.  Any other read stalls the host behind the device.
 
 This check scans the guarded modules for the torch calls that wait for the
 device or copy from it — ``.item()``, ``.tolist()``, ``.cpu()``,
@@ -38,6 +40,12 @@ DEFAULT_FILES = (
     "core/optimizers",
     "serving/scorer.py",
     "serving/batcher.py",
+    # The fleet's process and wire layers are host IO: frames and numpy.
+    # Their one sanctioned fetch is the artifact publish, once a version.
+    "serving/transport.py",
+    "serving/netfault.py",
+    "serving/replica_proc.py",
+    "serving/supervisor.py",
     "online/feed.py",
     "online/delta.py",
     "online/service.py",

@@ -364,11 +364,35 @@ def test_submit_after_close_sheds_closed_without_phantom_death():
     assert _counter_total(session, "serving.replica_deaths") == 0
 
 
-@pytest.mark.parametrize("what", ["subprocess", "models", "supervise", "observe", "serve"])
+@pytest.mark.parametrize("what", ["subprocess", "supervise", "serve"])
+def test_fleet_surfaces_serve(what):
+    """The subprocess backend, the supervisor and the socket ingest each
+    serve the host oracle's scores."""
+    from photon_tpu_torch.serving import ScoringClient, SupervisorPolicy
+
+    model, data, _, _ = _fixture(79)
+    session = TelemetrySession(what)
+    kwargs = {"backend": "subprocess"} if what == "subprocess" else {}
+    requests = build_requests(data, model, [3, 9])
+    with _fleet(model, data, session, replicas=1, **kwargs) as fleet:
+        if what == "serve":
+            with ScoringClient(fleet.serve().address) as client:
+                got = [client.score(r) for r in requests]
+        else:
+            if what == "supervise":
+                fleet.supervise(SupervisorPolicy(), start=False).check_once()
+            got = [fleet.score(r) for r in requests]
+        assert all(r.alive for r in fleet.replicas)
+    for req, scores in zip(requests, got):
+        np.testing.assert_allclose(scores, host_score_request(model, req),
+                                   rtol=0, atol=SCORE_TOL)
+    assert _counter_total(session, "serving.replica_deaths") == 0
+
+
+@pytest.mark.parametrize("what", ["models", "observe"])
 def test_not_ported_fleet_surfaces_raise(what):
     model, data, _, _ = _fixture(79)
-    kwargs = {"subprocess": {"backend": "subprocess"},
-              "models": {"models": {"m0": model}}}.get(what, {})
+    kwargs = {"models": {"models": {"m0": model}}}.get(what, {})
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         fleet = _fleet(model, data, TelemetrySession("np"), replicas=1, **kwargs)
         try:

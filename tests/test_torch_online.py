@@ -597,10 +597,21 @@ def test_online_game_driver_runs_and_restarts(tmp_path):
     assert second["rounds"] == 1 and second["rows_ingested"] == int((part_of == 3).sum())
     summary = json.load(open(tmp_path / "out2" / "online_summary.json"))
     assert summary["published"] == 1 and os.path.isdir(summary["model_dir"])
-    for flag in (["--transport", "tcp"], ["--replica-backend", "subprocess"]):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            online_game.run(online_game.build_parser().parse_args(
-                [*args, "--output-dir", str(tmp_path / "x"), *flag]))
+
+@pytest.mark.parametrize("flag", [["--transport", "tcp"],
+                                  ["--replica-backend", "subprocess"]])
+def test_online_game_has_no_fleet_transport_flags(flag):
+    """The reference's online_game serves through the in-process thread
+    fleet only: the port's parser has no ``--transport`` and no
+    ``--replica-backend`` either (``serve_game`` carries both)."""
+    from photon_tpu_torch.drivers import online_game
+
+    base = ["--input", "x.avro", "--append-dir", "appends",
+            "--coordinate", "fixed:type=fixed,shard=global",
+            "--output-dir", "out"]
+    assert online_game.build_parser().parse_args(base).input == "x.avro"
+    with pytest.raises(SystemExit):
+        online_game.build_parser().parse_args([*base, *flag])
 
 
 def test_avro_reads_retry_injected_io_faults(tmp_path, monkeypatch):

@@ -517,9 +517,60 @@ def test_serve_game_geometric_matches_host_oracle(model_dir, tmp_path):
     assert "serving.host_syncs per batch | 1 |" in md
 
 
-@pytest.mark.parametrize("flag", [["--transport", "tcp"], ["--replica-backend", "subprocess"],
-                                  ["--supervise"], ["--models", "2"],
-                                  ["--splits", "m0=1"], ["--tenant-queue-rows", "4"]])
+@pytest.mark.parametrize("flags", [
+    ["--transport", "tcp", "--supervise"],
+    ["--replica-backend", "subprocess"],
+    ["--transport", "tcp", "--replica-backend", "subprocess", "--supervise",
+     "--probe-interval-ms", "100"],
+])
+def test_serve_game_fleet_flags_match_host_oracle(model_dir, tmp_path, flags):
+    """serve_game over the socket ingest, on subprocess replicas, under the
+    supervisor (the reference's ``test_fleet.py:793-830``): every request
+    served once, the scores the host oracle's, the summary's fleet fields
+    and each child's record."""
+    from photon_tpu_torch.drivers import serve_game
+    from photon_tpu_torch.drivers.train_game import _load_game_data
+    from photon_tpu_torch.serving import generate_traffic
+    from photon_tpu_torch.telemetry.report import render_markdown
+
+    root, arrays = model_dir
+    out = tmp_path / "served"
+    args = serve_game.build_parser().parse_args([
+        "--model", str(root / "model"), "--input", "synthetic-game:40:4:6:4:1:17",
+        "--requests", "30", "--clients", "3", "--replicas", "2", "--traffic", "powerlaw",
+        "--storm-frac", "0.1", "--max-batch", "32", "--max-delay-ms", "1",
+        "--backend", "cpu", "--output-dir", str(out), *flags])
+    summary = serve_game.run(args)
+    assert summary["requests"] == summary["served"] == 30 and summary["shed"] == 0
+    assert summary["transport"] == args.transport
+    assert summary["replica_backend"] == args.replica_backend
+    assert summary["supervised"] is args.supervise
+    assert summary["replica_deaths"] == summary["resurrections"] == 0
+    assert summary["cold_entities"] > 0  # the storm rode the zero row
+    pm = _port_model(*arrays)
+    data, _ = _load_game_data(args.input, args)
+    items = generate_traffic(data, pm, serve_game.traffic_spec(args)).items
+    want = np.concatenate([host_score_request(pm, item.request) for item in items])
+    np.testing.assert_allclose(np.loadtxt(str(out / "scores.txt")), want, rtol=0, atol=1e-4)
+    children = summary["children"]
+    if args.replica_backend == "thread":
+        assert children == []
+    else:
+        assert [c["replica"] for c in children] == ["r0", "r1"]
+        for c in children:
+            assert c["device"] == "cpu" and c["host_syncs"] == c["batches"] > 0
+            assert c["captures"] == c["captures_at_warmup"]
+    with open(out / "telemetry" / "run_report.json") as f:
+        report = json.load(f)
+    names = {m["name"] for m in report["metrics"]["counters"]}
+    assert "serving.admitted" in names
+    assert ("serving.transport_connections" in names) == (args.transport == "tcp")
+    md = render_markdown(report)
+    assert "## Serving fleet" in md and "## Online serving" in md
+
+
+@pytest.mark.parametrize("flag", [["--models", "2"], ["--splits", "m0=1"],
+                                  ["--tenant-queue-rows", "4"]])
 def test_serve_game_not_ported_flags_raise(model_dir, tmp_path, flag):
     from photon_tpu_torch.drivers import serve_game
 
