@@ -71,7 +71,8 @@ Phases (any failure exits non-zero and prints no result line):
 4. the ``train`` CLI on the a1a fixture, on the card (default route and
    ``xchg``) and with ``--backend cpu``; then with ``--optimizer tron`` on
    the card, with ``--backend cpu`` and on the card under ``benes``; the
-   AUCs must agree;
+   AUCs must agree; the first run also writes a ``--profile-dir`` trace of
+   each lambda's train phase, each of which must name K1's kernel;
 5. the primitive probes: the seven probe kernels (PK1-PK7,
    ``ops/probe_kernels.py``) against their plain versions and a library
    call, bit for bit, at the probe tools' default shapes (E = 2^25, PK1 at
@@ -282,7 +283,32 @@ Phases (any failure exits non-zero and prints no result line):
    past the per-user table's capacity: no request lost, every response
    wholly one model's, the tail the grown model's, two new children; (d)
    a 0.6 s partition of r0's links, shorter than the lease: a lease miss
-   counted, no death declared, the requests sent into it answered.
+   counted, no death declared, the requests sent into it answered; every
+   child of (b)-(d), the two that took (c)'s rollout swap among them,
+   holds its warmup's allocator segments.
+16. the fleet observability plane, every launch count set to 0 just
+   before (b) and read after (a), in this process and, from their stats
+   frames, in the children (each must read 0): (b) on phase 15's fleet
+   after (d), ``fleet.observe`` at sample_rate 1.0 behind ``fleet.serve()``
+   and an ``AsyncScoringClient(observer=)``: untraced and traced TCP turns
+   in turns (requests/s, p50, p99), every traced request's trace over the
+   client, the router and a child in another process, its critical path
+   reconciled (stage sum against total within 1e-6 s, total within the
+   request's wall plus 0.05 s), the served scores within
+   ``PARITY_TOL["f32"]``, the six stages' median and p90; then one child
+   SIGKILLed under traced load, supervised: every request answered once,
+   its flight dump collected into the flight directory holding the child's
+   ring, its unfinished spans adopted as ``lost``, every trace one tree;
+   each child with no capture, no segment and one host sync a batch; (c)
+   before the kill, ``/metrics`` and the JSON snapshot from the plane and
+   ``python -m photon_tpu_torch.telemetry.live --once`` in a subprocess:
+   both children on the plane, each with a p99; (a) a two-replica thread
+   fleet on phase 8's model and phase 8 (c)'s traffic under the sync guard,
+   three turns each of no observer, an observer at 0.01 and one at 1.0
+   (medians of requests/s, p50, p99): at 1.0 one merged trace per admitted
+   request, every path reconciled, every shed request's trace with its
+   shed event, every served root span with the served version; no
+   capture, no segment and one host sync a batch.
 
 The line before the last is a JSON object with one entry per kernel (the
 probe kernels' ``launches`` count the probe tools' run; phases 3 and 6 check
@@ -290,8 +316,8 @@ that the training paths launch none of them; K1's and K2's
 ``game_launches`` count phase 6's runs, ``config2_launches`` phase 7's,
 ``phase9_launches`` phase 9's, ``phase10_launches`` phase 10's, every
 kernel's ``phase11_launches`` phase 11's, ``phase12_launches`` phase
-12's, ``phase14_launches`` phase 14's and ``phase15_launches`` phase
-15's; CS's ``launches`` count phase 11, its main path; the bf16 forms'
+12's, ``phase14_launches`` phase 14's, ``phase15_launches`` phase
+15's and ``phase16_launches`` phase 16's; CS's ``launches`` count phase 11, its main path; the bf16 forms'
 entries, ``*_bf16``, count phase 13 (a), their main path); the last
 line is ``{"ok": true, "device":
 {...}}``.
@@ -2202,6 +2228,20 @@ CLI_RUNS = (
     ("lbfgs", "gpu", None), ("lbfgs", "cpu", None), ("lbfgs", "gpu", "xchg"),
     ("tron", "gpu", None), ("tron", "cpu", None), ("tron", "gpu", "benes"),
 )
+# The first run also writes a torch.profiler trace of each lambda's train
+# phase (--profile-dir), which must name K1's kernel.
+PROFILE_K1_KERNEL = "fused_value_grad_kernel"
+
+
+def profiled_kernels(profile_dir: str) -> dict:
+    """Each ``--profile-dir`` trace file's bytes, and whether it names K1's
+    CUDA kernel."""
+    out = {}
+    for name in sorted(os.listdir(profile_dir)):
+        with open(os.path.join(profile_dir, name)) as f:
+            text = f.read()
+        out[name] = {"bytes": len(text), "names_k1": PROFILE_K1_KERNEL in text}
+    return out
 
 
 def run_cli() -> dict:
@@ -2222,6 +2262,11 @@ def run_cli() -> dict:
                 "--evaluators", "AUC,LOGISTIC_LOSS",
                 "--output-dir", out_dir, "--backend", backend,
             ]
+            profile_dir = None
+            if (optimizer, backend, route) == CLI_RUNS[0]:
+                # The default route on the card is fused: K1 in the trace.
+                profile_dir = os.path.join(out_dir, "profile")
+                cmd += ["--profile-dir", profile_dir]
             env = {k: v for k, v in os.environ.items() if k != "PHOTON_SPARSE_GRAD"}
             if route is not None:
                 env["PHOTON_SPARSE_GRAD"] = route
@@ -2238,6 +2283,12 @@ def run_cli() -> dict:
                 f"{route or 'default'}: "
                 f"best lambda {summary['best_lambda']:g}, AUC {aucs[name]:.6f}, "
                 f"device {summary['device']}")
+            if profile_dir is not None:
+                traces = profiled_kernels(profile_dir)
+                log(f"  --profile-dir: {json.dumps(traces)}")
+                if len(traces) != 3 or not all(t["names_k1"] for t in traces.values()):
+                    raise AssertionError(f"train CLI --profile-dir: a trace per lambda "
+                                         f"naming {PROFILE_K1_KERNEL} expected, got {traces}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for base, other in (("gpu", "cpu"), ("gpu", "gpu/xchg"),
@@ -2828,6 +2879,14 @@ def kernel_wrappers() -> list:
     from photon_tpu_torch import ops
 
     return ops.kernel_wrappers()
+
+
+def reset_launches(wrappers: list) -> None:
+    """Set every kernel wrapper's launch counts (its bf16 form's too) to 0."""
+    for wrapper in wrappers:
+        wrapper.launches = 0
+        if hasattr(wrapper, "bf16_launches"):
+            wrapper.bf16_launches = 0
 
 
 def counter_total(session, name: str) -> float:
@@ -5585,8 +5644,9 @@ def rewire(replica) -> None:
             pass
 
 
-def run_fleet_chaos(game: dict, dev) -> dict:
-    """(b)-(d) on one supervised two-child fleet on the card."""
+def run_fleet_chaos(game: dict, dev, observe=None) -> dict:
+    """(b)-(d) on one supervised two-child fleet on the card, then
+    ``observe`` on it (see :func:`run_subprocess_fleet`)."""
     import argparse
 
     from photon_tpu_torch.drivers.train_game import _load_game_data
@@ -5641,6 +5701,12 @@ def run_fleet_chaos(game: dict, dev) -> dict:
         sup.stop()
         out["netfault"] = fleet_partition(fleet, sup, session, traffic(4)[:20],
                                           new_host, NetFaultPlan, partition, set_net_plan)
+        if observe is not None:
+            # The fleet serves (c)'s grown model now.
+            grown_host = grown_model(new_host, new_user_keys(new_host))
+            out["observe"] = observe(fleet, sup, session,
+                                     [item.request for seed in (5, 6)
+                                      for item in traffic(seed)], grown_host)
     finally:
         set_net_plan(None)
         fleet.close()
@@ -5649,6 +5715,15 @@ def run_fleet_chaos(game: dict, dev) -> dict:
     out["children"] = [c for r in fleet.replicas
                        for c in (*r.retired_children, r.child_report())]
     log_children("(b)-(d)", out["children"])
+    # Every child of (b)-(d) holds its warmup's allocator segments to its
+    # last stats pull: the two that took (c)'s rollout swap among them
+    # (the swap's allocations are staged at warmup).
+    grown = [c for c in out["children"] if c["segments"] != c["segments_at_warmup"]]
+    if grown:
+        raise AssertionError("fleet: a child allocated a segment after warmup: "
+                             + ", ".join(f"{c['replica']} (pid {c['pid']}) "
+                                         f"{c['segments_at_warmup']} -> {c['segments']}"
+                                         for c in grown))
     return out
 
 
@@ -5833,16 +5908,15 @@ def fleet_partition(fleet, sup, session, requests, host_model, NetFaultPlan, par
     return out
 
 
-def fleet_kernel_launches(fleet15: dict) -> dict:
+def fleet_kernel_launches(fleet15: dict, parent: dict) -> dict:
     """Phase 15's launches of every kernel, gated at 0: this process's
-    (its counts set to 0 just before the phase) plus every child's.  The
-    scoring runs in the children; each starts its counts at 0 and reports
-    them in its stats frame, read here at its last pull (a retired child's
-    after its drain, the killed child's just before the kill, the others'
-    at the fleet's close)."""
-    from photon_tpu_torch.ops import launch_counts
-
-    counts = launch_counts()
+    (``parent``: its counts set to 0 just before the phase and read before
+    phase 16 (b) sets them to 0 again) plus every child's.  The scoring
+    runs in the children; each starts its counts at 0 and reports them in
+    its stats frame, read here at its last pull (a retired child's after
+    its drain, the killed child's just before the kill, the others' at the
+    fleet's close, after phase 16 (b)-(c))."""
+    counts = dict(parent)
     children = fleet15["serve_game"]["children"] + fleet15["children"]
     for c in children:
         if c["kernel_launches"] is None:
@@ -5859,12 +5933,573 @@ def fleet_kernel_launches(fleet15: dict) -> dict:
     return counts
 
 
-def run_subprocess_fleet(game: dict, serving: dict, dev) -> dict:
+def observe_kernel_launches(observe16: dict) -> dict:
+    """Phase 16's launches of every kernel, gated at 0: this process's
+    (its counts set to 0 just before (b)) plus each child's over (b)-(c),
+    its stats frame before (b) subtracted from its frame before the kill
+    (the killed child's last frame)."""
+    from photon_tpu_torch.ops import launch_counts
+
+    counts = launch_counts()
+    for rid, child in observe16["tcp"]["children"].items():
+        for name, n in child["kernel_launches"].items():
+            counts[name] = counts.get(name, 0) + n
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"  phase 16 launched {launched or 'no hand-written kernel'} in this process and "
+        f"its children {sorted(observe16['tcp']['children'])}")
+    if launched:
+        raise AssertionError(f"phase 16: the observed fleet launched kernels: {launched}")
+    return counts
+
+
+def run_subprocess_fleet(game: dict, serving: dict, dev, observe=None) -> dict:
     """Phase 15: (a) serve_game over TCP with subprocess replicas, (b)-(d)
-    a crash, a rollout and rebuild, and a partition on one fleet."""
+    a crash, a rollout and rebuild, and a partition on one fleet; then
+    ``observe(fleet, sup, session, requests, oracle)`` on that fleet before
+    it closes (phase 16 (b)-(c))."""
     out = {"serve_game": run_fleet_serve_game(game, serving["serve_game"])}
-    out.update(run_fleet_chaos(game, dev))
+    out.update(run_fleet_chaos(game, dev, observe))
     return out
+
+
+# Phase 16: the fleet observability plane (serving/observe.py) on the card.
+# (a) a two-replica thread fleet on phase 6's ``fused`` model (the model
+# phase 8 serves) under phase 8 (c)'s traffic, storm and deadline, in
+# OBSERVE_TURNS turns of each variant of OBSERVE_RATES: no observer, an
+# observer sampling 1% of requests, one tracing every request; (b) phase
+# 15's supervised two-child fleet after (d), behind ``fleet.serve()``,
+# observed at sample_rate 1.0 through an ``AsyncScoringClient(observer=)``:
+# untraced and traced TCP turns in turns, every traced request's critical
+# path split into the six stages, then one child SIGKILLed under traced
+# load; (c) that fleet's HTTP plane and the console, before the kill.
+OBSERVE_TURNS = 3
+OBSERVE_RATES = (None, 0.01, 1.0)
+OBSERVE_TCP_TURNS = 3  # of each variant, untraced and traced
+OBSERVE_TCP_REQUESTS = 100  # a TCP turn's requests
+OBSERVE_KILL_REQUESTS = 300
+OBSERVE_IN_FLIGHT = SERVING_CLIENTS  # requests the TCP client keeps outstanding
+OBSERVE_TRACE_CAPACITY = 4096
+# A critical path's stage sum against its total, and its total against the
+# caller's wall time (tests/test_observe.py:305-306).
+RECONCILE_S = 1e-6
+WALL_SLACK_S = 0.05
+
+
+def fresh_requests(requests: list) -> list:
+    """New request objects for a turn: a traced request carries its span
+    and trace context as attributes (the batcher stamps the context onto a
+    batch of one), so a request object sent again would continue its old
+    trace rather than be sampled anew."""
+    import dataclasses
+
+    return [dataclasses.replace(r) for r in requests]
+
+
+def stage_stats(paths: list) -> dict:
+    """Median and p90 seconds of each critical-path stage over ``paths``."""
+    from photon_tpu_torch.telemetry.distributed import STAGES
+
+    out = {}
+    for stage in STAGES:
+        values = np.array([next(s["duration_s"] for s in cp["stages"]
+                                if s["stage"] == stage) for cp in paths])
+        out[stage] = {"p50_s": float(np.median(values)),
+                      "p90_s": float(np.quantile(values, 0.9))}
+    return out
+
+
+def reconciled(tag: str, cp: dict, wall_s: float) -> None:
+    """Gate one critical path: its stages sum to its total, and the total
+    fits the caller's wall time."""
+    if cp is None or abs(cp["stage_sum_s"] - cp["total_s"]) > RECONCILE_S:
+        raise AssertionError(f"{tag}: a critical path does not reconcile ({cp})")
+    if cp["total_s"] > wall_s + WALL_SLACK_S:
+        raise AssertionError(f"{tag}: a critical path of {cp['total_s']:.6f} s outlasts "
+                             f"its request's {wall_s:.6f} s")
+
+
+def no_orphans(tag: str, collector) -> None:
+    """Every kept trace is one tree: one root, every parent present."""
+    for tid in collector.trace_ids():
+        spans = collector.trace(tid)
+        ids = {d["span_id"] for d in spans}
+        roots = [d for d in spans if d.get("parent_id") is None]
+        orphans = [d["name"] for d in spans
+                   if d.get("parent_id") is not None and d["parent_id"] not in ids]
+        if len(roots) != 1 or orphans:
+            raise AssertionError(f"{tag}: trace {tid} has {len(roots)} roots and "
+                                 f"orphans {orphans}")
+
+
+def thread_turn(fleet, observer, requests: list) -> dict:
+    """One closed loop of SERVING_CLIENTS clients over ``requests`` with
+    ``observer`` on the router's hook (None: the unobserved path)."""
+    from photon_tpu_torch.serving import run_closed_loop_outcomes
+
+    fleet.router.observer = observer
+    try:
+        outcomes, wall = run_closed_loop_outcomes(
+            lambda tid: (lambda req: fleet.score(req, deadline_s=FLEET_DEADLINE_MS / 1e3)),
+            requests, clients=SERVING_CLIENTS)
+    finally:
+        fleet.router.observer = None
+    latencies = np.array([o.latency_s for o in outcomes if o.status == "ok"])
+    bad = [o for o in outcomes if o.status not in ("ok", "shed")]
+    if bad:
+        raise AssertionError(f"phase 16 (a): a request failed ({bad[0].reason})")
+    return {"outcomes": outcomes, "wall_s": wall, "ok": int(len(latencies)),
+            "shed": len(outcomes) - int(len(latencies)),
+            "qps": len(latencies) / wall,
+            "p50_ms": float(np.percentile(latencies, 50)) * 1e3,
+            "p99_ms": float(np.percentile(latencies, 99)) * 1e3}
+
+
+def gate_thread_traces(fleet, observer, requests: list, turn: dict) -> dict:
+    """(a)'s gates on a turn traced at 1.0: one merged trace per admitted
+    request and no other, each critical path reconciled, each shed
+    request's trace carrying its shed event, each served root span the
+    served model version; plus one request shed at arrival (a deadline of
+    0) whose trace must carry it."""
+    from photon_tpu_torch.serving import RequestShedError
+    from photon_tpu_torch.telemetry.distributed import span_of
+
+    collector = observer.collector
+    version = fleet.current_model()[1]
+    tids = set()
+    paths = []
+    for req, o in zip(requests, turn["outcomes"]):
+        span = span_of(req)
+        if span is None:
+            raise AssertionError("phase 16 (a): a request at sample rate 1.0 was not traced")
+        tids.add(span.trace_id)
+        (root,) = [d for d in collector.trace(span.trace_id) if d.get("parent_id") is None]
+        events = {e["name"]: e for e in root["events"]}
+        if o.status == "shed":
+            if root["status"] != "shed" or events.get("shed", {}).get("reason") != o.reason:
+                raise AssertionError(f"phase 16 (a): a shed request's trace lacks its shed "
+                                     f"event ({root['status']}, {o.reason})")
+            continue
+        if root["status"] != "ok" or root["attrs"].get("version") != version:
+            raise AssertionError(f"phase 16 (a): a served root span without the served "
+                                 f"version {version}: {root['status']}, {root['attrs']}")
+        cp = collector.critical_path(span.trace_id)
+        reconciled("phase 16 (a)", cp, o.latency_s)
+        paths.append(cp)
+    forced = fresh_requests(requests[:1])[0]
+    fleet.router.observer = observer
+    try:
+        fleet.submit(forced, deadline_s=0.0)
+    except RequestShedError:
+        pass
+    else:
+        raise AssertionError("phase 16 (a): a request past its deadline was admitted")
+    finally:
+        fleet.router.observer = None
+    shed = span_of(forced)
+    shed_events = [e for e in shed.events if e["name"] == "shed"]
+    if shed.status != "shed" or [e["reason"] for e in shed_events] != ["deadline"]:
+        raise AssertionError("phase 16 (a): the deadline shed's trace lacks its event")
+    kept = set(collector.trace_ids())
+    if len(tids) != len(requests) or kept != tids | {shed.trace_id}:
+        raise AssertionError(f"phase 16 (a): {len(tids)} traces for {len(requests)} "
+                             f"requests, {len(kept)} kept")
+    no_orphans("phase 16 (a)", collector)
+    return {"traces": len(kept), "paths": len(paths), "stages": stage_stats(paths)}
+
+
+def run_observe_threads(game: dict, dev) -> dict:
+    """(a): the observer's cost on the thread fleet, in turns, and its
+    gates at sample_rate 1.0; the whole loop under the sync guard, with no
+    capture and no allocator segment after warmup."""
+    from photon_tpu_torch.data.game_io import read_game_avro
+    from photon_tpu_torch.game.model_io import load_game_model
+    from photon_tpu_torch.serving import (
+        FleetObserver,
+        ObservePolicy,
+        ServingFleet,
+        TrafficSpec,
+        generate_traffic,
+        request_spec_for_dataset,
+    )
+    from photon_tpu_torch.telemetry import TelemetrySession
+
+    model, maps = load_game_model(os.path.join(game["run_dirs"]["fused"], "best_model"),
+                                  device=dev)
+    data, _ = read_game_avro(game["avro"], {"global": "global", "per_user": "per_user"},
+                             ["userId", "itemId"], index_maps=maps)
+    items = generate_traffic(data, model, TrafficSpec(
+        requests=ROLLOUT_REQUESTS, mean_rows=SERVING_MEAN_ROWS,
+        max_rows=SERVING_MAX_BATCH, storm_frac=0.1, seed=1)).items
+    requests = [item.request for item in items]
+    session = TelemetrySession("observe16")
+    fleet = ServingFleet(model, replicas=2, device=dev,
+                         request_spec=request_spec_for_dataset(model, data),
+                         max_batch=SERVING_MAX_BATCH, max_delay_s=0.001,
+                         telemetry=session).warmup()
+    captures, segments = fleet.compilations, allocator_segments(dev)
+    turns = {rate: [] for rate in OBSERVE_RATES}
+    gates = []
+    try:
+        with no_stray_syncs():
+            for _ in range(OBSERVE_TURNS):
+                for rate in OBSERVE_RATES:
+                    observer = None if rate is None else FleetObserver(
+                        fleet=fleet, policy=ObservePolicy(
+                            sample_rate=rate, trace_capacity=OBSERVE_TRACE_CAPACITY))
+                    turn_requests = fresh_requests(requests)
+                    turn = thread_turn(fleet, observer, turn_requests)
+                    turn["traces"] = 0 if observer is None else len(
+                        observer.collector.trace_ids())
+                    if rate == 1.0:
+                        gates.append(gate_thread_traces(fleet, observer, turn_requests, turn))
+                    del turn["outcomes"]
+                    turns[rate].append(turn)
+    finally:
+        fleet.close()
+    out = {"turns": {str(rate): rows for rate, rows in turns.items()},
+           "captures": [captures, fleet.compilations],
+           "segments": [segments, allocator_segments(dev)],
+           "host_syncs": counter_total(session, "serving.host_syncs"),
+           "batches": counter_total(session, "serving.batches"),
+           "traced_stages": gates[-1]["stages"]}
+    medians = {}
+    for rate, rows in turns.items():
+        medians[str(rate)] = {key: float(np.median([r[key] for r in rows]))
+                              for key in ("qps", "p50_ms", "p99_ms")}
+        medians[str(rate)]["traces"] = [r["traces"] for r in rows]
+        medians[str(rate)]["shed"] = [r["shed"] for r in rows]
+        m = medians[str(rate)]
+        label = "no observer" if rate is None else f"observer at sample_rate {rate:g}"
+        log(f"  (a) thread fleet, {label}: median of {OBSERVE_TURNS} turns "
+            f"{m['qps']:.2f} requests/s, p50 {m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms; "
+            f"shed {m['shed']}, traces kept {m['traces']}")
+    out["medians"] = medians
+    base = medians["None"]["qps"]
+    log(f"  (a) requests/s against no observer: 0.01 {medians['0.01']['qps'] / base:.3f}x, "
+        f"1.0 {medians['1.0']['qps'] / base:.3f}x; captures {captures} -> "
+        f"{fleet.compilations}, allocator segments {segments} -> {out['segments'][1]}, host "
+        f"syncs {out['host_syncs']:.0f} for {out['batches']:.0f} batches, no other sync")
+    log(f"  (a) at 1.0, every turn: one trace per request ({[g['traces'] for g in gates]} "
+        f"kept with the deadline shed), every path reconciled; stages (p50 / p90 ms) "
+        + ", ".join(f"{k} {v['p50_s'] * 1e3:.3f} / {v['p90_s'] * 1e3:.3f}"
+                    for k, v in out["traced_stages"].items()))
+    if fleet.compilations != captures or out["segments"][0] != out["segments"][1]:
+        raise AssertionError("phase 16 (a): captured or allocated a segment after warmup")
+    if out["host_syncs"] != out["batches"] or not out["batches"]:
+        raise AssertionError("phase 16 (a): host syncs != batches")
+    if any(t != 0 for t in medians["None"]["traces"]):
+        raise AssertionError("phase 16 (a): the unobserved path traced")
+    return out
+
+
+def child_snapshots(fleet) -> dict:
+    """Each live child's stats pulled now (``child_report``), after a ping
+    (which redials a control connection (d)'s rewiring closed)."""
+    out = {}
+    for r in fleet.replicas:
+        if r.alive:
+            r.ping(5.0)
+            r.pull_stats()
+            out[r.replica_id] = r.child_report()
+    return out
+
+
+def tcp_load(client, requests: list) -> dict:
+    """Send ``requests`` through the async client, OBSERVE_IN_FLIGHT of them
+    outstanding at a time; each request's scores (or error) and its
+    send-to-answer seconds."""
+    slots = threading.Semaphore(OBSERVE_IN_FLIGHT)
+    sent = [0.0] * len(requests)
+    done = [0.0] * len(requests)
+    futures = []
+    t0 = time.monotonic()
+    for i, req in enumerate(requests):
+        slots.acquire()
+        sent[i] = time.monotonic()
+        fut = client.submit(req)
+
+        def settle(f, i=i):
+            done[i] = time.monotonic()
+            slots.release()
+
+        fut.add_done_callback(settle)
+        futures.append(fut)
+    results = []
+    for fut in futures:
+        try:
+            results.append(fut.result(timeout=120))
+        except Exception as e:  # noqa: BLE001 — gated by the caller
+            results.append(e)
+    wall = time.monotonic() - t0
+    latencies = np.array([d - s for d, s in zip(done, sent)])
+    return {"results": results, "latencies": latencies, "wall_s": wall,
+            "qps": len(requests) / wall,
+            "p50_ms": float(np.percentile(latencies, 50)) * 1e3,
+            "p99_ms": float(np.percentile(latencies, 99)) * 1e3}
+
+
+def answered(tag: str, requests: list, load: dict, oracle) -> float:
+    """Every request answered once within the f32 gate of ``oracle``."""
+    from photon_tpu_torch.game.lowp import PARITY_TOL
+    from photon_tpu_torch.serving import host_score_request
+
+    worst = 0.0
+    for req, got in zip(requests, load["results"]):
+        if isinstance(got, BaseException):
+            raise AssertionError(f"{tag}: a request failed ({type(got).__name__}: {got})")
+        worst = max(worst, float(np.abs(got - host_score_request(oracle, req)).max()))
+    if worst > PARITY_TOL["f32"]:
+        raise AssertionError(f"{tag}: served scores {worst:.3e} from the host oracle")
+    return worst
+
+
+def gate_tcp_traces(observer, requests: list, load: dict, parent_pid: int) -> list:
+    """(b)'s gates on a traced TCP turn: each request's trace spans the
+    client, the router and a child in another process, and its critical
+    path reconciles; returns the paths, each with the client span's
+    seconds beside it."""
+    from photon_tpu_torch.telemetry.distributed import span_of
+
+    collector = observer.collector
+    paths = []
+    for req, wall in zip(requests, load["latencies"]):
+        span = span_of(req)
+        if span is None:
+            raise AssertionError("phase 16 (b): a request at sample rate 1.0 was not traced")
+        processes = collector.processes(span.trace_id)
+        kinds = {p.split(":", 1)[0].split("-", 1)[0] for p in processes}
+        child_pids = {p.rsplit(":", 1)[-1] for p in processes if p.startswith("replica-")}
+        if len(processes) < 3 or not {"client", "router", "replica"} <= kinds \
+                or not child_pids or str(parent_pid) in child_pids:
+            raise AssertionError(f"phase 16 (b): a trace spans {processes}")
+        cp = collector.critical_path(span.trace_id)
+        reconciled("phase 16 (b)", cp, float(wall))
+        (client_span,) = [d for d in collector.trace(span.trace_id)
+                          if d["name"] == "client.request"]
+        cp["client_s"] = float(client_span["duration_s"])
+        paths.append(cp)
+    return paths
+
+
+def run_observe_tcp(fleet, sup, session, requests: list, oracle, flight_dir: str) -> dict:
+    """(b) and (c) on phase 15's fleet after (d): see the phase's comment."""
+    import dataclasses
+    import signal
+    import urllib.request
+
+    from photon_tpu_torch.serving import AsyncScoringClient, ObservePolicy
+    from photon_tpu_torch.telemetry.distributed import MergeableHistogram
+
+    t_start = time.monotonic()
+    observer = fleet.observe(policy=ObservePolicy(
+        sample_rate=1.0, trace_capacity=OBSERVE_TRACE_CAPACITY, http_port=0,
+        poll_interval_s=0.1), flight_dir=flight_dir)
+    server = fleet.serve()
+    clients = {False: AsyncScoringClient(server.address, connections=2, telemetry=session),
+               True: AsyncScoringClient(server.address, connections=2, telemetry=session,
+                                        observer=observer)}
+    out = {"turns": {"untraced": [], "traced": []}}
+    try:
+        before = child_snapshots(fleet)
+        paths = []
+        turn = 0
+        for _ in range(OBSERVE_TCP_TURNS):
+            for traced in (False, True):
+                turn_requests = fresh_requests(requests[turn * OBSERVE_TCP_REQUESTS:
+                                                        (turn + 1) * OBSERVE_TCP_REQUESTS])
+                turn += 1
+                fleet.router.observer = observer if traced else None
+                load = tcp_load(clients[traced], turn_requests)
+                worst = answered("phase 16 (b)", turn_requests, load, oracle)
+                if traced:
+                    paths.extend(gate_tcp_traces(observer, turn_requests, load, os.getpid()))
+                out["turns"]["traced" if traced else "untraced"].append(
+                    {k: load[k] for k in ("qps", "p50_ms", "p99_ms")} | {"worst_parity": worst})
+        fleet.router.observer = observer
+        out["stages"] = stage_stats(paths)
+        outside = np.array([cp["client_s"] - cp["total_s"] for cp in paths])
+        out["client_outside_router"] = {"p50_s": float(np.median(outside)),
+                                        "p90_s": float(np.quantile(outside, 0.9))}
+        total = np.array([cp["total_s"] for cp in paths])
+        out["router_total"] = {"p50_s": float(np.median(total)),
+                               "p90_s": float(np.quantile(total, 0.9))}
+        out["traced_requests"] = len(paths)
+        out["medians"] = {}
+        for variant, rows in out["turns"].items():
+            m = {key: float(np.median([r[key] for r in rows]))
+                 for key in ("qps", "p50_ms", "p99_ms")}
+            out["medians"][variant] = m
+            log(f"  (b) over TCP, {variant}, median of {len(rows)} turns of "
+                f"{OBSERVE_TCP_REQUESTS}: {m['qps']:.2f} requests/s, p50 {m['p50_ms']:.3f} ms, "
+                f"p99 {m['p99_ms']:.3f} ms (turns: "
+                + "; ".join(f"{r['qps']:.2f}, {r['p50_ms']:.3f}, {r['p99_ms']:.3f}"
+                            for r in rows) + ")")
+        log(f"  (b) {len(paths)} traced requests over TCP, each over >= 3 processes, every "
+            "path reconciled; stages p50 / p90 ms: "
+            + ", ".join(f"{k} {v['p50_s'] * 1e3:.3f} / {v['p90_s'] * 1e3:.3f}"
+                        for k, v in out["stages"].items())
+            + f"; the router span {out['router_total']['p50_s'] * 1e3:.3f} / "
+            f"{out['router_total']['p90_s'] * 1e3:.3f}, the client span beyond it "
+            f"{out['client_outside_router']['p50_s'] * 1e3:.3f} / "
+            f"{out['client_outside_router']['p90_s'] * 1e3:.3f}")
+
+        # (c) The HTTP plane and the console, both children live.
+        child_snapshots(fleet)  # fresh shipped histograms and counters
+        observer.poll_once()
+        host, port = observer.http_address
+        base = f"http://{host}:{port}"
+        with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+            prom = r.read().decode()
+        with urllib.request.urlopen(f"{base}/fleet.json", timeout=10) as r:
+            snap = json.loads(r.read().decode())
+        console = subprocess.run(
+            [sys.executable, "-m", "photon_tpu_torch.telemetry.live", "--url", base, "--once"],
+            capture_output=True, text=True, timeout=120)
+        rids = [r.replica_id for r in fleet.replicas]
+        served = snap["versions"].get(str(fleet.replicas[0].scorer.version), {})
+        # Each child's shipped compute histogram, the one the plane merges
+        # into the snapshot's ``child_compute``.
+        child_p99 = {r.replica_id: MergeableHistogram.merged(
+            [h for h in [r.scorer.last_hist_snapshot] if h]).quantile(0.99) for r in fleet.replicas}
+        out["http"] = {"metrics_bytes": len(prom), "snapshot": snap,
+                       "console_rc": console.returncode, "child_p99_s": child_p99,
+                       "children_in_metrics": [rid for rid in rids
+                                               if f'replica="{rid}"' in prom]}
+        log(f"  (c) /metrics {len(prom):,} bytes naming {out['http']['children_in_metrics']}; "
+            f"/fleet.json versions {list(snap['versions'])} (served p99 "
+            f"{served.get('p99_s')} s), child compute p99 {snap['child_compute']['p99_s']} s "
+            f"over {snap['child_compute']['count']} batches, per child {child_p99}; the "
+            f"console (rc {console.returncode}):")
+        for line in console.stdout.splitlines():
+            log(f"    {line}")
+        if console.returncode != 0 or "qps" not in console.stdout:
+            raise AssertionError(f"phase 16 (c): the console failed: {console.stderr[-2000:]}")
+        if out["http"]["children_in_metrics"] != rids or served.get("p99_s") is None \
+                or snap["child_compute"]["p99_s"] is None \
+                or any(p is None for p in child_p99.values()):
+            raise AssertionError("phase 16 (c): a child is missing from the plane, or no p99")
+        after = child_snapshots(fleet)
+
+        # (b) continued: one child SIGKILLed under traced load, supervised.
+        victim = fleet.replicas[-1]
+        sup.policy = dataclasses.replace(sup.policy, resurrect=False)
+        kill_requests = fresh_requests(requests[turn * OBSERVE_TCP_REQUESTS:][
+            :OBSERVE_KILL_REQUESTS])
+        result: dict = {}
+        thread = threading.Thread(target=lambda: result.update(
+            tcp_load(clients[True], kill_requests)))
+        admitted = session.registry.counter("serving.admitted")
+        start = admitted.value
+        thread.start()
+        while admitted.value < start + len(kill_requests) // 3 and thread.is_alive():
+            time.sleep(0.001)
+        pid = victim.child_pid
+        t_kill = time.monotonic()
+        os.kill(pid, signal.SIGKILL)
+        while victim.alive and time.monotonic() - t_kill < 30.0:
+            sup.check_once()
+            time.sleep(0.01)
+        declared = time.monotonic() - t_kill
+        thread.join(timeout=300)
+        if thread.is_alive() or victim.alive:
+            raise AssertionError("phase 16 (b): the kill was not declared or the load hung")
+        worst = answered("phase 16 (b) kill", kill_requests, result, oracle)
+        gate_tcp_traces(observer, kill_requests, result, os.getpid())
+        no_orphans("phase 16 (b)", observer.collector)
+        dumps = [d for d in observer.flight_dumps if d["replica"] == victim.replica_id]
+        if len(dumps) != 1 or not dumps[0]["path"] or not os.path.exists(dumps[0]["path"]):
+            raise AssertionError(f"phase 16 (b): no flight dump collected: {dumps}")
+        with open(dumps[0]["path"]) as f:
+            dump = json.load(f)
+        kinds = sorted({r["kind"] for r in (dump.get("child") or {}).get("records", ())})
+        lost = [d for tid in observer.collector.trace_ids()
+                for d in observer.collector.trace(tid) if d.get("status") == "lost"]
+        if not {"frame", "span"} <= set(kinds) or dump["parent"] is None \
+                or len(lost) != dumps[0]["lost_spans_recovered"]:
+            raise AssertionError(f"phase 16 (b): the dump holds {kinds}; lost stubs "
+                                 f"{len(lost)} of {dumps[0]['lost_spans_recovered']}")
+        out["kill"] = {"requests": len(kill_requests), "qps": result["qps"],
+                       "p50_ms": result["p50_ms"], "p99_ms": result["p99_ms"],
+                       "worst_parity": worst, "declared_after_s": declared,
+                       "killed_pid": pid, "dump": os.path.basename(dumps[0]["path"]),
+                       "dump_bytes": os.path.getsize(dumps[0]["path"]),
+                       "child_records": dumps[0]["child_records"], "record_kinds": kinds,
+                       "lost_spans": len(lost),
+                       "rerouted": counter_total_labeled(session, "serving.rerouted",
+                                                         replica=victim.replica_id)}
+        k = out["kill"]
+        log(f"  (b) SIGKILL of child {victim.replica_id} (pid {pid}) a third into "
+            f"{len(kill_requests)} traced requests: declared after {declared:.3f} s, "
+            f"{k['rerouted']:.0f} rerouted, every request answered once (worst |delta| "
+            f"{worst:.3e}), every trace one tree over >= 3 processes; flight dump "
+            f"{k['dump']} ({k['dump_bytes']:,} bytes, {k['child_records']} child records "
+            f"of kinds {kinds}), {len(lost)} lost span(s) adopted")
+    finally:
+        fleet.router.observer = observer
+        for client in clients.values():
+            client.close()
+    out["children"] = {rid: {"captures": [before[rid]["captures"], after[rid]["captures"]],
+                             "segments": [before[rid]["segments"], after[rid]["segments"]],
+                             "host_syncs": after[rid]["host_syncs"] - before[rid]["host_syncs"],
+                             "batches": after[rid]["batches"] - before[rid]["batches"],
+                             "kernel_launches": {
+                                 name: n - (before[rid]["kernel_launches"] or {}).get(name, 0)
+                                 for name, n in (after[rid]["kernel_launches"] or {}).items()}}
+                       for rid in before}
+    for rid, c in out["children"].items():
+        log(f"  (b) child {rid} over (b)-(c) before the kill: captures {c['captures']}, "
+            f"segments {c['segments']}, host syncs {c['host_syncs']:.0f} for "
+            f"{c['batches']:.0f} batches")
+        if c["captures"][0] != c["captures"][1] or c["segments"][0] != c["segments"][1]:
+            raise AssertionError(f"phase 16 (b): child {rid} captured or allocated")
+        if c["host_syncs"] != c["batches"] or not c["batches"]:
+            raise AssertionError(f"phase 16 (b): child {rid} host syncs != batches")
+    out["seconds"] = time.monotonic() - t_start
+    log(f"  phase 16 (b)-(c) took {out['seconds']:.1f} s")
+    return out
+
+
+def run_fleet_phases(game: dict, serving: dict, dev, tmp: str, t_start: float) -> tuple:
+    """Phases 15 and 16 (phase 16 (b)-(c) on phase 15's fleet before it
+    closes), each with every launch count set to 0 just before it; returns
+    their records."""
+    from photon_tpu_torch.ops import launch_counts
+
+    kernel_counters = kernel_wrappers()
+    t15 = time.monotonic()
+    log("phase 15: the self-healing subprocess fleet over TCP (serve_game --transport "
+        "tcp --replica-backend subprocess --supervise, a child killed under load, a "
+        "rollout and a rebuild past the capacity, a partition)")
+    reset_launches(kernel_counters)
+    phase15_parent: dict = {}
+
+    def observe(fleet, sup, session, requests, oracle):
+        phase15_parent.update(launch_counts())
+        log(f"  phase 15 before phase 16 took {time.monotonic() - t15:.1f} s")
+        log("phase 16 (b)-(c): the observability plane on phase 15's fleet (TCP turns "
+            "traced at sample_rate 1.0 and untraced, a child killed under traced load, "
+            "the HTTP plane and the console)")
+        reset_launches(kernel_counters)
+        return run_observe_tcp(fleet, sup, session, requests, oracle,
+                               os.path.join(tmp, "phase16_flight"))
+
+    fleet15 = run_subprocess_fleet(game, serving, dev, observe)
+    fleet15["kernel_launches"] = fleet_kernel_launches(fleet15, phase15_parent)
+    observe16 = {"tcp": fleet15.pop("observe")}
+    fleet15["seconds"] = time.monotonic() - t15 - observe16["tcp"]["seconds"]
+    log(f"  phase 15 took {fleet15['seconds']:.1f} s without phase 16 (b)-(c) "
+        f"({observe16['tcp']['seconds']:.1f} s); the script so far "
+        f"{time.monotonic() - t_start:.1f} s")
+
+    t16 = time.monotonic()
+    log("phase 16 (a): the observer's cost on the thread fleet (phase 8 (c)'s traffic; "
+        "no observer, sample_rate 0.01 and 1.0 in turns)")
+    observe16["threads"] = run_observe_threads(game, dev)
+    observe16["kernel_launches"] = observe_kernel_launches(observe16)
+    observe16["seconds"] = observe16["tcp"]["seconds"] + time.monotonic() - t16
+    log(f"  phase 16 took {observe16['seconds']:.1f} s; the script so far "
+        f"{time.monotonic() - t_start:.1f} s")
+    return fleet15, observe16
 
 
 # Phase 13: bf16 feature storage and the half-width exchange payload.  (a)
@@ -6605,19 +7240,7 @@ def main() -> int:
         log(f"  phase 14 took {spill['seconds']:.1f} s; the script so far "
             f"{time.monotonic() - t_start:.1f} s")
 
-        t15 = time.monotonic()
-        log("phase 15: the self-healing subprocess fleet over TCP (serve_game --transport "
-            "tcp --replica-backend subprocess --supervise, a child killed under load, a "
-            "rollout and a rebuild past the capacity, a partition)")
-        for c in kernel_counters:
-            c.launches = 0
-            if hasattr(c, "bf16_launches"):
-                c.bf16_launches = 0
-        fleet15 = run_subprocess_fleet(game, serving, dev)
-        fleet15["kernel_launches"] = fleet_kernel_launches(fleet15)
-        fleet15["seconds"] = time.monotonic() - t15
-        log(f"  phase 15 took {fleet15['seconds']:.1f} s; the script so far "
-            f"{time.monotonic() - t_start:.1f} s")
+        fleet15, observe16 = run_fleet_phases(game, serving, dev, game_tmp, t_start)
     finally:
         shutil.rmtree(game_tmp, ignore_errors=True)
 
@@ -6760,6 +7383,7 @@ def main() -> int:
     log(f"phase 13: {json.dumps({k: v for k, v in bf16.items()}, default=str)}")
     log(f"phase 14: {json.dumps(spill, default=str)}")
     log(f"phase 15: {json.dumps(fleet15, default=str)}")
+    log(f"phase 16: {json.dumps(observe16, default=str)}")
     log(f"bf16 edge shapes: {json.dumps(kb16['edges'])}")
     wrapper_names = {"fused_sparse": "fused_value_and_grad", "row_scatter": "row_scatter",
                      "position_reduce": "position_partial_sums",
@@ -6782,6 +7406,9 @@ def main() -> int:
         # counts its wrapper's bf16 launches.
         base = entry["name"].removesuffix("_bf16")
         entry["phase15_launches"] = fleet15["kernel_launches"].get(
+            wrapper_names.get(base, base) + entry["name"][len(base):], 0)
+        # Nor does the observed fleet (phase 16 gates 0).
+        entry["phase16_launches"] = observe16["kernel_launches"].get(
             wrapper_names.get(base, base) + entry["name"][len(base):], 0)
     if "forced_colored" in main_path:
         log(f"forced colored route: {json.dumps(main_path['forced_colored'])}")

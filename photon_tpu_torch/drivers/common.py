@@ -25,19 +25,36 @@ from photon_tpu_torch.core.losses import BINARY_TASKS
 from photon_tpu_torch.device import resolve_device
 
 
+_LOG_FORMAT = "%(asctime)s %(levelname)s %(message)s"
+
+
 class RunLogger:
     """Console logger with timed phases (``phase_times`` goes into the
-    training summary)."""
+    training summary), and a copy of every line in ``log_file`` when one
+    is given (``--log-file``)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, log_file: Optional[str] = None):
         self._logger = logging.getLogger(name)
         self._logger.setLevel(logging.INFO)
         self._logger.propagate = False
-        if not self._logger.handlers:
+        if not any(type(h) is logging.StreamHandler for h in self._logger.handlers):
             handler = logging.StreamHandler(sys.stderr)
-            handler.setFormatter(
-                logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-            )
+            handler.setFormatter(logging.Formatter(_LOG_FORMAT))
+            self._logger.addHandler(handler)
+        # The logger is a process-wide singleton and each construction is a
+        # new run: file handlers are reset to exactly the requested file, so
+        # a later run neither appends to an earlier run's log nor writes
+        # each line twice.
+        target = os.path.abspath(log_file) if log_file else None
+        for h in list(self._logger.handlers):
+            if isinstance(h, logging.FileHandler) and h.baseFilename != target:
+                self._logger.removeHandler(h)
+                h.close()
+        if target and not any(isinstance(h, logging.FileHandler)
+                              for h in self._logger.handlers):
+            os.makedirs(os.path.dirname(target), exist_ok=True)
+            handler = logging.FileHandler(target)
+            handler.setFormatter(logging.Formatter(_LOG_FORMAT))
             self._logger.addHandler(handler)
         self.phase_times: dict[str, float] = {}
         # Set by TelemetrySession.attach: each timed phase becomes a span.
@@ -68,6 +85,32 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="gpu (default) runs on the CUDA card and fails "
                         "without one; cpu runs on the host")
     parser.add_argument("--output-dir", required=True)
+    parser.add_argument("--log-file", default=None,
+                        help="also write the run's log lines to this file")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of the train "
+                        "phase here (train, train_game)")
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: Optional[str], name: str) -> Iterator[None]:
+    """Wrap a phase in a ``torch.profiler`` trace when a directory is
+    given: host operators, and on a card its kernels too, exported as
+    ``<trace_dir>/<name>.pt.trace.json`` (Chrome trace format)."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    slug = "".join(c if c.isalnum() or c in "-_." else "-" for c in name)
+    prof.export_chrome_trace(os.path.join(trace_dir, f"{slug}.pt.trace.json"))
 
 
 def add_telemetry_arg(parser: argparse.ArgumentParser) -> None:

@@ -84,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(args: argparse.Namespace) -> dict:
-    logger = common.RunLogger("photon_tpu_torch.online_game")
+    logger = common.RunLogger("photon_tpu_torch.online_game", args.log_file)
     os.makedirs(args.output_dir, exist_ok=True)
     with common.telemetry_run(args, "online_game", logger) as session:
         return _run(args, logger, session)

@@ -56,7 +56,7 @@ def run(args: argparse.Namespace) -> dict:
     from photon_tpu_torch.data.model_io import load_glm_model
 
     device = common.device_for_backend(args.backend)
-    logger = common.RunLogger("photon_tpu_torch.score")
+    logger = common.RunLogger("photon_tpu_torch.score", args.log_file)
     os.makedirs(args.output_dir, exist_ok=True)
     imap_path = args.index_map or os.path.join(
         os.path.dirname(args.model), "feature_index.json"

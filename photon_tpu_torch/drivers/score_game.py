@@ -117,7 +117,7 @@ def score_dataset(model, data, device, logger, session,
 
 def run(args: argparse.Namespace) -> dict:
     device = common.device_for_backend(args.backend)
-    logger = common.RunLogger("photon_tpu_torch.score_game")
+    logger = common.RunLogger("photon_tpu_torch.score_game", args.log_file)
     os.makedirs(args.output_dir, exist_ok=True)
     with common.telemetry_run(args, "score_game", logger) as session:
         return _run(args, device, logger, session)

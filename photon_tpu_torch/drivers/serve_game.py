@@ -165,7 +165,7 @@ def _reject_not_ported(args) -> None:
 def run(args: argparse.Namespace) -> dict:
     _reject_not_ported(args)
     device = common.device_for_backend(args.backend)
-    logger = common.RunLogger("photon_tpu_torch.serve_game")
+    logger = common.RunLogger("photon_tpu_torch.serve_game", args.log_file)
     os.makedirs(args.output_dir, exist_ok=True)
     with common.telemetry_run(args, "serve_game", logger) as session:
         return _run(args, device, logger, session)

@@ -127,9 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "snapshots each finished weight and ignores this)")
     p.add_argument("--data-validation", default="error",
                    choices=("error", "warn", "off"),
-                   help="with --stream: label and feature checks over the "
-                   "part files before training (the reference's "
-                   "DataValidators strictness)")
+                   help="label and feature checks before training, over the "
+                   "loaded batch or, with --stream, the part files (the "
+                   "reference's DataValidators strictness)")
     common.add_fault_args(p)
     common.add_telemetry_arg(p)
     return p
@@ -137,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace) -> dict:
     device = common.device_for_backend(args.backend)
-    logger = common.RunLogger("photon_tpu_torch.train")
+    logger = common.RunLogger("photon_tpu_torch.train", args.log_file)
     os.makedirs(args.output_dir, exist_ok=True)
     with common.telemetry_run(args, "train", logger, preemptible=True) as session:
         if args.resume and not args.checkpoint_dir:
@@ -243,7 +243,8 @@ def _train_streaming(args, device, logger, session) -> dict:
             if args.resume:
                 resume_state = require_fingerprint(
                     checkpointer.load("auto"), fingerprint, f"lambda={lam:g}")
-        with logger.timed(f"train-lambda-{lam}"):
+        with logger.timed(f"train-lambda-{lam}"), \
+                common.maybe_profile(args.profile_dir, f"train-lambda-{lam:g}"):
             t0 = time.monotonic()
             result = streaming_lbfgs(
                 objective, w_start, opt_config, checkpointer=checkpointer,
@@ -368,6 +369,12 @@ def _train(args, device, logger, session) -> dict:
         )
         logger.info("train: %d examples, %d features on %s (%s reader)",
                     batch.num_examples, dim, device, reader)
+    if args.data_validation != "off":
+        from photon_tpu_torch.data.validation import apply_validation, validate_batch
+
+        with logger.timed("validate-data"):
+            apply_validation(validate_batch(batch, args.task),
+                             args.data_validation, logger)
     norm = None
     if args.normalization != "none":
         with logger.timed("summarize"):
@@ -474,7 +481,9 @@ def _train(args, device, logger, session) -> dict:
                                   optimizer_config=opt_config,
                                   variance_computation=args.variance_computation),
                 )
-                with logger.timed(f"train-lambda-{lam}"):
+                with logger.timed(f"train-lambda-{lam}"), \
+                        common.maybe_profile(args.profile_dir,
+                                             f"train-lambda-{lam:g}"):
                     t0 = time.monotonic()
                     coefficients, result = problem.run(batch, w_start)
                     wall = time.monotonic() - t0

@@ -483,7 +483,7 @@ def _model_checkpoint_fn(args, index_maps, logger):
 
 def run(args: argparse.Namespace) -> dict:
     _reject_not_ported(args)
-    logger = common.RunLogger("photon_tpu_torch.train_game")
+    logger = common.RunLogger("photon_tpu_torch.train_game", args.log_file)
     os.makedirs(args.output_dir, exist_ok=True)
     with common.telemetry_run(args, "train_game", logger, preemptible=True) as session:
         return _train(args, logger, session)
@@ -575,7 +575,8 @@ def _train(args: argparse.Namespace, logger, session) -> dict:
             slug = "".join(c if c.isalnum() else "-" for c in label)[:80]
             ckpt_dir = os.path.join(args.checkpoint_dir, f"{seq:03d}-{slug}")
             resume = args.resume if args.resume != "latest" else "auto"
-        with logger.timed(f"fit-{label}"):
+        with logger.timed(f"fit-{label}"), \
+                common.maybe_profile(args.profile_dir, f"fit-{seq:03d}"):
             result = estimator.fit(
                 [config], initial_model=initial_model, locked_coordinates=locked,
                 checkpoint_fn=checkpoint_fn, checkpoint_dir=ckpt_dir,

@@ -416,13 +416,50 @@ class OnlineLearningService:
             if spec is None:
                 raise RuntimeError("no replica exposes a request spec to probe with")
             probes = [probe_request_for(model, spec)]
+
+        def rollout_or_rebuild() -> None:
+            try:
+                self.fleet.rollout(model, probe_requests=probes,
+                                   parity_tol=parity_tol)
+            except ValueError as e:
+                if CAPACITY_REFUSAL not in str(e):
+                    raise
+                self.telemetry.counter("online.fleet_rebuilds").inc()
+                self.fleet.rebuild(model=model, parity_tol=parity_tol,
+                                   probe_requests=probes)
+
+        # getattr: _publish is duck-typed (tests drive it with a bare
+        # namespace standing in for the service).
+        observer = getattr(self.fleet, "observer", None)
+        if observer is None:
+            rollout_or_rebuild()
+            return
+        # Traced publish: refresh -> canary -> swap becomes ONE linked
+        # trace.  The publish span's context is activated as the ambient
+        # trace, so the router parents its serving.rollout span under it
+        # and the canary probes carry the same trace id down to the
+        # subprocess children.
+        from photon_tpu_torch.telemetry.distributed import (
+            SpanRecord, activate_trace, current_trace, new_trace_id,
+        )
+
+        ambient = current_trace()
+        span = SpanRecord(
+            trace_id=ambient.trace_id if ambient else new_trace_id(),
+            name="online.publish",
+            process=observer.process,
+            parent_id=ambient.span_id if ambient else None,
+        )
+        span.attrs["version"] = getattr(model, "version", None)
         try:
-            self.fleet.rollout(model, probe_requests=probes, parity_tol=parity_tol)
-        except ValueError as e:
-            if CAPACITY_REFUSAL not in str(e):
-                raise
-            self.telemetry.counter("online.fleet_rebuilds").inc()
-            self.fleet.rebuild(model=model, parity_tol=parity_tol, probe_requests=probes)
+            with activate_trace(span.context()):
+                rollout_or_rebuild()
+            span.finish()
+        except BaseException:
+            span.finish("error")
+            raise
+        finally:
+            observer.collector.add(span)
 
     # -- background loop -----------------------------------------------------
     def start(self) -> "OnlineLearningService":

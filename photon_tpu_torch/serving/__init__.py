@@ -23,9 +23,14 @@ Counterpart of ``photon_tpu/serving``, in-process on one card:
   probes, lease membership, canary-gated resurrection, flap quarantine);
   :mod:`~photon_tpu_torch.serving.netfault` injects seeded network faults
   into the children's sockets.
+- ``fleet.observe()`` attaches the observability plane
+  (:class:`~photon_tpu_torch.serving.observe.FleetObserver`): request
+  traces merged across the client, the router and the children, a live
+  metrics plane over stdlib HTTP (Prometheus text and the JSON snapshot
+  ``python -m photon_tpu_torch.telemetry.live`` renders), SLO burn-rate
+  alerts, and the crash flight dumps the supervisor collects.
 
-The observability plane waits in ROADMAP.md queue 1, item 7.4, and the
-multi-model arena in item 7.5.
+The multi-model arena waits in ROADMAP.md queue 1, item 7.5.
 """
 
 from photon_tpu_torch.serving.batcher import (  # noqa: F401
@@ -38,6 +43,14 @@ from photon_tpu_torch.serving.fleet import (  # noqa: F401
     ServingFleet,
     is_capacity_refusal,
     probe_request_for,
+)
+from photon_tpu_torch.serving.observe import (  # noqa: F401
+    DEFAULT_SLOS,
+    FleetObserver,
+    MetricsPlane,
+    ObservePolicy,
+    Slo,
+    SloMonitor,
 )
 from photon_tpu_torch.serving.replica_proc import (  # noqa: F401
     ModelStore,

@@ -31,7 +31,11 @@ from photon_tpu_torch.serving.scorer import (
     concat_requests,
     padded_cost,
 )
-from photon_tpu_torch.telemetry.distributed import attach_trace, span_of
+from photon_tpu_torch.telemetry.distributed import (
+    attach_riders,
+    attach_trace,
+    span_of,
+)
 
 DEFAULT_MAX_DELAY_S = 0.002
 
@@ -227,8 +231,9 @@ class RequestBatcher:
             # Traced requests: stamp the coalesce window onto each root
             # span, and let the merged micro-batch carry the first traced
             # request's context so a subprocess scorer links its child hop
-            # (the batch IS one device dispatch — one representative trace
-            # is the honest granularity).
+            # (the batch IS one device dispatch).  The other traced
+            # requests ride along: a subprocess scorer copies that one hop
+            # into each of their traces.
             spans = [sp for sp in (span_of(p.request) for p in batch) if sp]
             batch_rows = sum(p.rows for p in batch)
             for sp in spans:
@@ -238,6 +243,8 @@ class RequestBatcher:
                 merged = concat_requests([p.request for p in batch])
                 if spans:
                     attach_trace(merged, spans[0].context())
+                    if len(spans) > 1:
+                        attach_riders(merged, [sp.context() for sp in spans[1:]])
                     for sp in spans:
                         sp.event("score_begin")
                 scores = self.scorer.score_batch(merged)

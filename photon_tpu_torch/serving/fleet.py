@@ -17,9 +17,11 @@ each replica as a child process
 loads the shared model artifact under ``workdir``.  On one card
 ``devices="split"`` puts every replica on the same device; each replica's
 scorer has its own CUDA stream, graphs and graph memory pool (and a child
-its own CUDA context).  The multi-GPU split waits for ROADMAP.md queue 1,
-item 10; the observability plane for item 7.4; the multi-model arena for
-item 7.5.
+its own CUDA context).  :meth:`ServingFleet.observe` attaches the
+observability plane
+(:class:`~photon_tpu_torch.serving.observe.FleetObserver`).  The
+multi-GPU split waits for ROADMAP.md queue 1, item 10; the multi-model
+arena for item 7.5.
 
 Residency contract: the fleet layer moves requests and models between
 components — it never fetches device data itself.
@@ -202,9 +204,15 @@ class ServingFleet:
                     max_batch=max_batch, max_delay_s=max_delay_s,
                     telemetry=self.telemetry,
                 ))
+            # Thread replicas have no child artifact version; the fleet
+            # stamps its own monotonic version on them so response spans
+            # carry the served model version on either backend.
+            for replica in self.replicas:
+                replica.served_version = 0
         self.router = FleetRouter(
             self.replicas, telemetry=self.telemetry, admission=admission
         )
+        self.observer = None
         self.telemetry.gauge("serving.replicas").set(int(replicas))
 
     def _spawn_replicas(self, model, n: int, workdir, child_env,
@@ -343,6 +351,7 @@ class ServingFleet:
                 # Promoted fleet-wide: the predecessor is the supervisor's
                 # fleet-rollback target.
                 self._previous_model = previous_model
+                self._stamp_served_version()
 
     def rollout_with_rebuild(self, model, **kwargs) -> bool:
         """Rollout that survives the capacity boundary: try the in-place
@@ -420,9 +429,10 @@ class ServingFleet:
                 with self._model_lock:
                     self._rolling -= 1
             self._table_capacity_factor = factor
-            if published:
-                with self._model_lock:
+            with self._model_lock:
+                if published:
                     self._previous_model = previous
+                self._stamp_served_version()
         self.telemetry.counter("serving.fleet_rebuilds").inc()
 
     def _rebuild_replicas(self, model, factor: int, parity_tol: float,
@@ -516,6 +526,14 @@ class ServingFleet:
             probes = [probe_request_for(model, spec)]
         return probes
 
+    def _stamp_served_version(self) -> None:
+        """Thread replicas: mirror the fleet's monotonic model version onto
+        each live replica (subprocess replicas carry their child artifact
+        version instead).  Caller holds ``_model_lock``."""
+        for replica in self.replicas:
+            if hasattr(replica, "served_version") and replica.alive:
+                replica.served_version = self._model_version
+
     def rollback_to_previous(self, expected_version=None) -> bool:
         """Fleet-wide rollback to the predecessor model (one that already
         served and passed its canary) — the supervisor's answer to EVERY
@@ -536,6 +554,7 @@ class ServingFleet:
                 self._previous_model = None
                 self.model = target
                 self._model_version += 1
+                self._stamp_served_version()
             for replica in self.replicas:
                 if not replica.alive:
                     continue
@@ -585,8 +604,36 @@ class ServingFleet:
             self._supervisor.start()
         return self._supervisor
 
-    def observe(self, *args, **kwargs):
-        raise not_ported("the fleet observability plane (observe)", "7.4")
+    def observe(self, policy=None, slos=None, flight_dir=None,
+                start: bool = True):
+        """Attach the fleet observability plane (cross-process tracing,
+        live metrics, SLO burn rates, flight-recorder collection); returns
+        the :class:`~photon_tpu_torch.serving.observe.FleetObserver`.
+        Wires the router's request hook and each subprocess replica's span
+        sink; the supervisor and online refresh pick the observer up via
+        ``fleet.observer``.  ``flight_dir`` is where collected crash dumps
+        persist (pass the run's output dir to land them next to the run
+        report).  ``start=False`` builds it unthreaded — tests drive
+        ``poll_once()`` deterministically."""
+        from photon_tpu_torch.serving.observe import FleetObserver
+
+        if self.observer is not None:
+            raise RuntimeError("fleet already observed")
+        kwargs = {} if slos is None else {"slos": slos}
+        observer = FleetObserver(
+            fleet=self, telemetry=self.telemetry, policy=policy,
+            flight_dir=flight_dir, **kwargs,
+        )
+        self.router.observer = observer
+        for replica in self.replicas:
+            if hasattr(replica, "span_sink"):
+                replica.span_sink = observer.collector.merge_remote
+        if observer.policy.admission_guard:
+            observer.attach_admission_guard(self.router)
+        self.observer = observer
+        if start:
+            observer.start()
+        return observer
 
     def serve(self, host: str = "127.0.0.1", port: int = 0):
         """Attach the socket ingest; returns the
@@ -608,6 +655,11 @@ class ServingFleet:
         if self._supervisor is not None:
             self._supervisor.stop()
             self._supervisor = None
+        # The observer closes while the children are still alive so its
+        # final poll can drain pending span streams over the open control
+        # connections; after router.close() those sockets are gone.
+        if self.observer is not None:
+            self.observer.close()
         if self._server is not None:
             self._server.close()
             self._server = None

@@ -95,6 +95,7 @@ from photon_tpu_torch.telemetry.distributed import (
     FlightRecorder,
     MergeableHistogram,
     SpanRecord,
+    rider_hops,
     shift_span_times,
     trace_of,
 )
@@ -774,7 +775,7 @@ class _RemoteScorer:
         spans = header.get("spans")
         if spans and self.span_sink is not None:
             try:
-                self.span_sink(spans)
+                self.span_sink(spans + rider_hops(request, spans))
             except Exception:  # noqa: BLE001 — span delivery is advisory
                 pass
         return scores

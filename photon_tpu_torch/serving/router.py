@@ -49,6 +49,13 @@ from photon_tpu_torch.fault.watchdog import complete as retire_heartbeat
 from photon_tpu_torch.fault.watchdog import heartbeat
 from photon_tpu_torch.serving.batcher import DEFAULT_MAX_DELAY_S, RequestBatcher
 from photon_tpu_torch.serving.scorer import GameScorer, ScoringRequest
+from photon_tpu_torch.telemetry.distributed import (
+    SpanRecord,
+    attach_span,
+    attach_trace,
+    current_trace,
+    new_trace_id,
+)
 
 
 _heartbeat_nonce = itertools.count(1)
@@ -56,8 +63,7 @@ _heartbeat_nonce = itertools.count(1)
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The one refusal of a fleet feature that is not ported yet: ``item``
-    is its ROADMAP.md queue 1 item (7.4 the observability plane, 7.5 the
-    multi-model arena)."""
+    is its ROADMAP.md queue 1 item (7.5 the multi-model arena)."""
     return NotImplementedError(
         f"{what} is not ported yet; it waits in ROADMAP.md queue 1, "
         f"item {item}"
@@ -432,7 +438,7 @@ class AdmissionPolicy:
 class _Entry:
     __slots__ = ("request", "future", "rows", "deadline_at", "attempts",
                  "dispatched_at", "pending_before", "padded",
-                 "padded_before", "projected_wait")
+                 "padded_before", "projected_wait", "span", "admitted_at")
 
     def __init__(self, request: ScoringRequest, deadline_at: Optional[float]):
         self.request = request
@@ -445,6 +451,10 @@ class _Entry:
         self.padded = 0
         self.padded_before = 0
         self.projected_wait: Optional[float] = None
+        # Distributed-trace root span (sampled requests only) + the
+        # admission timestamp its end-to-end latency is measured from.
+        self.span = None
+        self.admitted_at = 0.0
 
 
 class FleetRouter:
@@ -479,6 +489,19 @@ class FleetRouter:
         # Recent admitted requests, mirrored to the canary as the rollout
         # parity probe's traffic sample.
         self._mirror: deque = deque(maxlen=8)
+        # Optional FleetObserver (set by ServingFleet.observe or directly):
+        # when present, sampled requests get a root span that admit/shed/
+        # dispatch/reroute events land on, and every outcome feeds the
+        # live-metrics window + SLO monitor.  None costs one attribute read
+        # per request — the untraced hot path stays untraced.
+        self.observer = None
+        # SLO-driven admission tightening: the observer's burn-rate guard
+        # raises this above 1.0 while an SLO budget is burning — the
+        # overload projection pads out, sheds start earlier, queues drain
+        # — and relaxes it back to 1.0 when the alert clears.  Mutable
+        # attribute (AdmissionPolicy is frozen) so the control loop can
+        # actuate without republishing policy.
+        self.burn_safety = 1.0
         self._rollout_seq = itertools.count(1)
         # Death accounting is per (replica, generation): a rebuilt
         # replica's NEXT death is a new event, not a latched repeat.
@@ -489,8 +512,11 @@ class FleetRouter:
     def healthy_replicas(self) -> List[ScorerReplica]:
         return [r for r in self.replicas if r.alive]
 
-    def _shed(self, reason: str, detail: str = "") -> None:
+    def _shed(self, reason: str, detail: str = "", span=None,
+              rows: int = 0) -> None:
         self.telemetry.counter("serving.shed", reason=reason).inc()
+        if self.observer is not None:
+            self.observer.on_shed(reason, rows, span=span)
         raise RequestShedError(reason, detail)
 
     def submit(self, request: ScoringRequest,
@@ -498,7 +524,11 @@ class FleetRouter:
         now = self.clock()
         if self._closed:
             self._shed("closed", "router is closed")
+        span = (self.observer.maybe_start_span(request)
+                if self.observer is not None else None)
         rows = request.num_rows
+        if span is not None:
+            span.event("enqueue", rows=rows)
         budget = (
             deadline_s if deadline_s is not None
             else self.admission.default_deadline_s
@@ -506,7 +536,8 @@ class FleetRouter:
         deadline_at = None if budget is None else now + float(budget)
         healthy = self.healthy_replicas()
         if not healthy:
-            self._shed("no_replica", "every replica is dead")
+            self._shed("no_replica", "every replica is dead",
+                       span=span, rows=rows)
         replica = min(
             healthy, key=lambda r: (r.projected_wait_s(rows), r.pending_rows())
         )
@@ -516,18 +547,26 @@ class FleetRouter:
                 "queue_full",
                 f"least-loaded replica {replica.replica_id} is at "
                 f"{replica.pending_rows()} of {cap} queued rows",
+                span=span, rows=rows,
             )
         if deadline_at is not None:
             if now >= deadline_at:
-                self._shed("deadline", "deadline already expired at arrival")
-            wait = replica.projected_wait_s(rows) * self.admission.safety
+                self._shed("deadline", "deadline already expired at arrival",
+                           span=span, rows=rows)
+            wait = (replica.projected_wait_s(rows)
+                    * self.admission.safety * self.burn_safety)
             if now + wait > deadline_at:
                 self._shed(
                     "overload",
                     f"projected queue wait {wait * 1e3:.1f} ms blows the "
                     f"{(deadline_at - now) * 1e3:.1f} ms deadline budget",
+                    span=span, rows=rows,
                 )
         entry = _Entry(request, deadline_at)
+        entry.span = span
+        entry.admitted_at = now
+        if span is not None:
+            span.event("admit", replica=replica.replica_id)
         self.telemetry.counter("serving.admitted").inc()
         self._mirror.append(request)
         self._dispatch(entry, replica)
@@ -554,6 +593,9 @@ class FleetRouter:
             t.gauge(
                 "serving.replica_depth", replica=replica.replica_id
             ).set(depth)
+        if entry.span is not None:
+            entry.span.event("dispatch", replica=replica.replica_id,
+                             attempt=entry.attempts)
         try:
             fut = replica.submit(entry.request)
         except BaseException as e:  # batcher closed / replica torn down
@@ -563,6 +605,10 @@ class FleetRouter:
                 # fleet is shutting down, not losing replicas — shed the
                 # request instead of recording phantom deaths/reroutes.
                 self.telemetry.counter("serving.shed", reason="closed").inc()
+                if self.observer is not None:
+                    self.observer.on_shed("closed", entry.rows,
+                                          span=entry.span)
+                    entry.span = None
                 entry.future.set_exception(
                     RequestShedError("closed", "router closed mid-dispatch")
                 )
@@ -572,6 +618,12 @@ class FleetRouter:
         fut.add_done_callback(
             lambda f, e=entry, r=replica: self._on_done(e, r, f)
         )
+
+    def _served_version(self, replica: ScorerReplica):
+        version = getattr(replica.scorer, "version", None)
+        if version is None:
+            version = getattr(replica, "served_version", None)
+        return version
 
     def _on_done(self, entry: _Entry, replica: ScorerReplica,
                  fut: Future) -> None:
@@ -614,12 +666,39 @@ class FleetRouter:
                 self.telemetry.histogram("serving.deadline_overrun_s").observe(
                     now - entry.deadline_at
                 )
+            version = self._served_version(replica)
+            if entry.span is not None:
+                entry.span.attrs["rows"] = entry.rows
+                entry.span.attrs["replica"] = replica.replica_id
+                if version is not None:
+                    entry.span.attrs["version"] = version
+                entry.span.finish()
+                if self.observer is not None:
+                    self.observer.collector.add(entry.span)
+            if self.observer is not None:
+                self.observer.on_done(
+                    "ok", now - entry.admitted_at, entry.rows,
+                    replica.replica_id, version=version,
+                )
             entry.future.set_result(fut.result())
             return
         if isinstance(exc, ReplicaDeadError):
             self._replica_failed(entry, replica, exc)
             return
+        self._finish_entry_span(entry, replica, status="error")
         entry.future.set_exception(exc)
+
+    def _finish_entry_span(self, entry: _Entry, replica: ScorerReplica,
+                           status: str) -> None:
+        if entry.span is not None:
+            entry.span.finish(status=status)
+            if self.observer is not None:
+                self.observer.collector.add(entry.span)
+        if self.observer is not None:
+            self.observer.on_done(
+                status, self.clock() - entry.admitted_at, entry.rows,
+                replica.replica_id, version=self._served_version(replica),
+            )
 
     def _replica_failed(self, entry: _Entry, replica: ScorerReplica,
                         exc: BaseException) -> None:
@@ -631,6 +710,9 @@ class FleetRouter:
         self.telemetry.counter(
             "serving.rerouted", replica=replica.replica_id
         ).inc()
+        if entry.span is not None:
+            entry.span.event("reroute", from_replica=replica.replica_id,
+                             cause=str(exc)[:200])
         healthy = self.healthy_replicas()
         if healthy and entry.attempts < len(self.replicas) + 1:
             target = min(
@@ -640,6 +722,7 @@ class FleetRouter:
             )
             self._dispatch(entry, target)
             return
+        self._finish_entry_span(entry, replica, status="error")
         entry.future.set_exception(
             NoHealthyReplicaError(
                 f"request could not be rerouted after replica "
@@ -732,6 +815,9 @@ class FleetRouter:
         self.telemetry.gauge(
             "serving.rollout_step", replica=replica_id, phase=phase
         ).set(next(self._rollout_seq))
+        span = getattr(self, "_rollout_span", None)
+        if span is not None:
+            span.event(phase, replica=replica_id)
 
     def rollout(
         self,
@@ -773,7 +859,51 @@ class FleetRouter:
                 "rollout has no traffic to probe the canary with: pass "
                 "probe_requests or roll out under live traffic"
             )
-        self._run_rollout(model, oracle, probes, parity_tol, probe_timeout_s)
+        # One rollout = one span: the canary/probe/promote timeline becomes
+        # a trace, parented under the thread's ambient context when there
+        # is one (the online refresh's publish span) so refresh→canary→swap
+        # reads as one linked trace.  Probe requests carry its context, so
+        # subprocess canaries link their scoring hops under it too.
+        rspan = None
+        probe_spans = []
+        if self.observer is not None:
+            ctx = current_trace()
+            if ctx is not None:
+                rspan = SpanRecord(ctx.trace_id, "serving.rollout",
+                                   self.observer.process,
+                                   parent_id=ctx.span_id)
+            else:
+                rspan = SpanRecord(new_trace_id(), "serving.rollout",
+                                   self.observer.process)
+            # Probe submissions bypass admission (canary.submit goes
+            # straight to the replica), so the request path never opens a
+            # span for them — open one per probe here so the canary's
+            # parity replay shows up as serving.request hops under the
+            # rollout span instead of vanishing from the trace.
+            for req in probes:
+                pspan = SpanRecord(rspan.trace_id, "serving.request",
+                                   self.observer.process,
+                                   parent_id=rspan.span_id)
+                pspan.attrs["probe"] = True
+                attach_trace(req, pspan.context())
+                attach_span(req, pspan)
+                probe_spans.append(pspan)
+        self._rollout_span = rspan
+        try:
+            self._run_rollout(model, oracle, probes, parity_tol,
+                              probe_timeout_s)
+            if rspan is not None:
+                rspan.finish()
+        except BaseException:
+            if rspan is not None:
+                rspan.finish(status="error")
+            raise
+        finally:
+            self._rollout_span = None
+            if rspan is not None:
+                for pspan in probe_spans:
+                    self.observer.collector.add(pspan.finish())
+                self.observer.collector.add(rspan)
 
     def _run_rollout(self, model, oracle, probes, parity_tol,
                      probe_timeout_s) -> None:

@@ -599,12 +599,7 @@ class GameScorer:
                 f"{self.table_dtype!r}; the storage tier is baked into the "
                 "captured bucket ladder — rebuild the scorer to change it"
             )
-        capacities = {
-            c.name: c.capacity for c in self._plan if c.kind == "random"
-        }
-        plan, tables, zero_rows, vocab = self._build_tables(
-            model, capacities=capacities
-        )
+        plan, tables, zero_rows, vocab = self._side_build(model)
         if tuple(plan) != self._plan:
             raise ValueError(
                 "swap_model: the new model's serving plan does not match "
@@ -641,6 +636,27 @@ class GameScorer:
         self._record_model_gauges(model)
         self.telemetry.counter("serving.swaps").inc()
 
+    def _side_build(self, model: GameModel):
+        """A swap's off-to-the-side build of ``model``'s serving state at
+        the served capacities (:meth:`_build_tables`)."""
+        capacities = {
+            c.name: c.capacity for c in self._plan if c.kind == "random"
+        }
+        return self._build_tables(model, capacities=capacities)
+
+    def _stage_swap(self) -> None:
+        """Make a swap's device allocations once, at warmup, and free them:
+        a model of the served one's shapes (as a child's artifact load
+        allocates it) and the side build of its tables.  The caching
+        allocator keeps those blocks for the caller's stream, so a later
+        swap of a model that fits the served capacities reuses them and
+        allocates no segment after warmup."""
+        if self._stream is None:
+            return
+        incoming = [torch.empty_like(t) for t in _model_tensors(self.model)]
+        staged = self._side_build(self.model)
+        del incoming, staged
+
     # -- bucket policy -------------------------------------------------------
     def bucket_for(self, n: int) -> int:
         """Smallest ladder bucket holding ``n`` rows (n <= max_bucket)."""
@@ -663,6 +679,7 @@ class GameScorer:
             with self._lock:
                 for b in self.buckets:
                     self._program(b)
+            self._stage_swap()
         self._warm = True
         return self
 
@@ -807,6 +824,18 @@ class GameScorer:
                     int(count)
                 )
         return scores
+
+
+def _model_tensors(model: GameModel) -> List[torch.Tensor]:
+    """The tensors a served model holds and a model artifact carries: each
+    fixed coordinate's means and each random coordinate's table."""
+    out = []
+    for coord in model.coordinates.values():
+        if isinstance(coord, FixedEffectModel):
+            out.append(coord.coefficients.means)
+        elif isinstance(coord, RandomEffectModel):
+            out.append(coord.table)
+    return out
 
 
 def _fill(dst: np.ndarray, src: np.ndarray, n: int, pad=0) -> None:

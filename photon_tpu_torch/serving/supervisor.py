@@ -377,6 +377,14 @@ class ReplicaSupervisor:
             "serving.probe_parity",
             dtype=getattr(replica.scorer, "table_dtype", "f32"),
         ).observe(worst)
+        observer = getattr(self.fleet, "observer", None)
+        if observer is not None:
+            # Feed BOTH verdicts to the SLO monitor: the canary-parity
+            # burn rate needs good probes in its denominator.
+            try:
+                observer.on_parity(replica.replica_id, worst)
+            except Exception:  # noqa: BLE001 — observation is advisory
+                pass
         if worst > self.policy.parity_tol:
             if self.fleet.rollout_in_progress():
                 # Mid-rollout, different replicas LEGITIMATELY serve
@@ -426,6 +434,12 @@ class ReplicaSupervisor:
         kill = getattr(replica, "kill_backend", None)
         if kill is not None:
             kill()
+        # Postmortem collection AFTER the kill (the child's on-disk flight
+        # ring is final by then): persist the victim's last seconds next
+        # to the run report and adopt its mid-flight spans as lost stubs.
+        observer = getattr(self.fleet, "observer", None)
+        if observer is not None:
+            observer.collect_flight(replica, cause)
         window = [
             t for t in self._deaths[rid]
             if now - t <= self.policy.flap_window_s
@@ -497,6 +511,9 @@ class ReplicaSupervisor:
             delay = self._backoff.delay(attempt, self._rng)
             self._attempts[rid] = (attempt + 1, self.clock() + delay)
             self._mark(rid, "respawn-failed")
+            observer = getattr(self.fleet, "observer", None)
+            if observer is not None:
+                observer.collect_flight(replica, "respawn-failed")
             if self.logger is not None:
                 self.logger.warning(
                     "supervisor: resurrecting %s failed (%s: %s); retrying "

@@ -544,11 +544,15 @@ class AsyncScoringClient:
         resolve_once(fut, value, exc)
 
     def __init__(self, address, connections: int = 2, telemetry=None,
-                 timeout_s: float = 60.0):
+                 timeout_s: float = 60.0, observer=None):
         from photon_tpu_torch.telemetry import NULL_SESSION
 
         self.address = tuple(address)
         self.telemetry = telemetry or NULL_SESSION
+        # Optional FleetObserver: when set, sampled requests originate a
+        # client-side span whose context rides the request frame, so the
+        # server-side trace links under the caller's clock.
+        self.observer = observer
         self._seq = 0
         self._lock = threading.Lock()
         self._closed = False
@@ -560,6 +564,7 @@ class AsyncScoringClient:
                 "sock": sock,
                 "wlock": threading.Lock(),
                 "pending": {},  # seq -> Future (this connection's)
+                "spans": {},  # seq -> client-side SpanRecord (traced only)
             }
             conn["reader"] = threading.Thread(
                 target=self._read_loop, args=(conn,),
@@ -582,13 +587,19 @@ class AsyncScoringClient:
             seq = self._seq
         conn = self._conns[seq % len(self._conns)]
         fut = Future()
+        span = (self.observer.client_span(request)
+                if self.observer is not None else None)
         payload = pack_request(request, deadline_s, seq=seq)
+        if span is not None:
+            span.event("send", seq=seq, nbytes=len(payload))
+            conn["spans"][seq] = span
         conn["pending"][seq] = fut
         try:
             with conn["wlock"]:
                 write_frame(conn["sock"], payload)
         except OSError as e:
             conn["pending"].pop(seq, None)
+            self._finish_span(conn, seq, status="error")
             self._settle(fut, exc=TransportError(f"send failed: {e}"))
             return fut
         dead = conn.get("dead")
@@ -597,10 +608,24 @@ class AsyncScoringClient:
             # peer FIN can still succeed into the socket buffer): nothing
             # will ever match this seq — fail it now, not at timeout.
             conn["pending"].pop(seq, None)
+            self._finish_span(conn, seq, status="error")
             self._settle(fut, exc=TransportError(
                 f"connection lost with request in flight: {dead}"
             ))
         return fut
+
+    def _finish_span(self, conn, seq, status: str = "ok",
+                     header: Optional[dict] = None) -> None:
+        span = conn["spans"].pop(seq, None)
+        if span is None:
+            return
+        version = None if header is None else header.get("version")
+        span.event("response", seq=seq, version=version)
+        if version is not None:
+            span.attrs["version"] = version
+        span.finish(status=status)
+        if self.observer is not None:
+            self.observer.collector.add(span)
 
     def _read_loop(self, conn) -> None:
         while True:
@@ -614,8 +639,15 @@ class AsyncScoringClient:
                 conn["dead"] = e
                 self._fail_pending(conn, e)
                 return
-            seq, scores, exc, _ = _decode_response(payload)
+            seq, scores, exc, header = _decode_response(payload)
             fut = conn["pending"].pop(seq, None)
+            if isinstance(exc, RequestShedError):
+                status = "shed"
+            elif exc is not None:
+                status = "error"
+            else:
+                status = "ok"
+            self._finish_span(conn, seq, status=status, header=header)
             if fut is None:
                 continue  # unknown tag: a late frame after a local failure
             self._settle(fut, scores, exc)
@@ -624,6 +656,8 @@ class AsyncScoringClient:
         pending, conn["pending"] = conn["pending"], {}
         if not self._closed and pending:
             self.telemetry.counter("serving.transport_drops").inc()
+        for seq in list(conn["spans"]):
+            self._finish_span(conn, seq, status="error")
         for fut in pending.values():
             self._settle(fut, exc=TransportError(
                 f"connection lost with request in flight: {error}"
@@ -633,6 +667,12 @@ class AsyncScoringClient:
         with self._lock:
             self._closed = True
         for conn in self._conns:
+            try:
+                # A shutdown wakes the reader blocked in recv; a close
+                # alone leaves it there until the join times out.
+                conn["sock"].shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 conn["sock"].close()
             except OSError:

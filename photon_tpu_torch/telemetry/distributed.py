@@ -1,6 +1,7 @@
 """Cross-process request tracing, mergeable snapshots, flight recorder.
 
-A copy of ``photon_tpu/telemetry/distributed.py``.
+A copy of ``photon_tpu/telemetry/distributed.py``, with the batch riders
+(:func:`attach_riders`, :func:`rider_hops`) added.
 
 The fleet (router → replica subprocess → scorer batch) is a distributed
 system whose existing telemetry is per-process and end-of-run: a request
@@ -568,6 +569,35 @@ def attach_span(request, span: SpanRecord) -> None:
 
 def span_of(request) -> Optional[SpanRecord]:
     return getattr(request, _SPAN_ATTR, None)
+
+
+# The other traced requests of a coalesced batch (parent-process only, like
+# the span): the merged request carries the first one's context over the
+# wire, and the replica scorer shares the batch's child hop into each of
+# these traces (:func:`rider_hops`), so every traced request of the batch
+# keeps its own cross-process hop.
+_RIDERS_ATTR = "_photon_trace_riders"
+
+
+def attach_riders(request, contexts: List[TraceContext]) -> None:
+    object.__setattr__(request, _RIDERS_ATTR, list(contexts))
+
+
+def rider_hops(request, spans: List[dict]) -> List[dict]:
+    """The coalesced ``request``'s child hop (the span in ``spans`` under
+    the context that rode the wire), copied under each rider's span with
+    an id of its own and the original's in ``attrs["shared_from"]``."""
+    ctx = trace_of(request)
+    riders = getattr(request, _RIDERS_ATTR, ())
+    hop = None if ctx is None else next(
+        (d for d in spans if d.get("parent_id") == ctx.span_id), None)
+    if hop is None:
+        return []
+    return [dict(hop, trace_id=rider.trace_id, parent_id=rider.span_id,
+                 span_id=new_trace_id(),
+                 events=[dict(e) for e in hop.get("events", ())],
+                 attrs=dict(hop.get("attrs") or {}, shared_from=hop.get("span_id")))
+            for rider in riders]
 
 
 # -- thread-local active trace (the refresh→canary→swap linkage) -------------

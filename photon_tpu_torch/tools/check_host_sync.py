@@ -8,7 +8,7 @@ purpose (one read a descent iteration for the statistics and guard flags,
 one a solver decision, one event wait a served batch, one a checkpoint
 stage); the serving fleet's transport, replica processes and supervisor
 move frames and host numpy and read the device only to publish a model
-artifact.  Any other read stalls the host behind the device.
+artifact; the observability plane never reads it.  Any other read stalls the host behind the device.
 
 This check scans the guarded modules for the torch calls that wait for the
 device or copy from it — ``.item()``, ``.tolist()``, ``.cpu()``,
@@ -46,6 +46,11 @@ DEFAULT_FILES = (
     "serving/netfault.py",
     "serving/replica_proc.py",
     "serving/supervisor.py",
+    # The observability plane is host bookkeeping over plain dicts: an
+    # observer that read the device would be the latency it measures.
+    "telemetry/distributed.py",
+    "telemetry/live.py",
+    "serving/observe.py",
     "online/feed.py",
     "online/delta.py",
     "online/service.py",

@@ -559,7 +559,8 @@ def test_host_sync_guard_passes_and_catches(tmp_path):
     guarded = {str(p.relative_to(check_host_sync.PACKAGE))
                for p in check_host_sync.guarded_files()}
     for rel in ("game/descent.py", "game/batched_solve.py", "core/optimizers/lbfgs.py",
-                "serving/scorer.py", "serving/batcher.py", "online/service.py"):
+                "serving/scorer.py", "serving/batcher.py", "online/service.py",
+                "serving/observe.py", "telemetry/live.py"):
         assert rel in guarded
     bad = tmp_path / "bad.py"
     bad.write_text("def hot(x):\n    return x.item()\n")

@@ -389,7 +389,7 @@ def test_fleet_surfaces_serve(what):
     assert _counter_total(session, "serving.replica_deaths") == 0
 
 
-@pytest.mark.parametrize("what", ["models", "observe"])
+@pytest.mark.parametrize("what", ["models"])
 def test_not_ported_fleet_surfaces_raise(what):
     model, data, _, _ = _fixture(79)
     kwargs = {"models": {"models": {"m0": model}}}.get(what, {})

@@ -278,6 +278,36 @@ def test_grow_in_place_keeps_dtype(dtype):
     assert np.abs(got - want).max() <= lowp.parity_tol_for(dtype)
 
 
+@pytest.mark.parametrize("dtype", lowp.TABLE_DTYPES)
+def test_swapped_tables_equal_the_build_path_bit_for_bit(dtype):
+    """A swap (its allocations staged at warmup) leaves in the captured
+    leaves exactly what the build path makes of the new model: the fixed
+    weights and the random table at the served capacity, in f32, bf16 bits
+    and int8 ``q``/``scale``, and the reference's tables too."""
+    arrays, rdata = _arrays(16)
+    pdata = _as_port(rdata)
+    pm = _port_model(*arrays)
+    scorer = GameScorer(pm, device="cpu", request_spec=request_spec_for_dataset(pm, pdata),
+                        max_batch=16, table_dtype=dtype, table_capacity_factor=2).warmup()
+    new = _perturbed(arrays, 17, extra_entities=5)
+    new_model = _port_model(*new)
+    scorer.swap_model(new_model)
+    (capacity,) = [c.capacity for c in scorer._plan if c.kind == "random"]
+    table = new_model.coordinate("per_entity").serving_table(capacity=capacity, dtype=dtype)
+    want = [new_model.coordinate("fixed").serving_weights("cpu"),
+            *(table if isinstance(table, tuple) else (table,))]
+    got = scorer._table_leaves()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    ref_table = ref_model.RandomEffectModel(
+        table=new[2], keys=new[1], entity_column="re0", shard_name="re0",
+        task_type="logistic_regression").serving_table(capacity=capacity, dtype=dtype)
+    ref_leaves = ref_table if isinstance(ref_table, tuple) else (ref_table,)
+    for g, r in zip(got[1:], ref_leaves):
+        assert g.view(torch.uint8).numpy().tobytes() == np.asarray(r).tobytes()
+
+
 def test_swap_model_dtype_mismatch_refuses():
     arrays, rdata = _arrays(14)
     pdata = _as_port(rdata)

@@ -66,7 +66,8 @@ def test_every_module_imports_without_jax():
         "        'photon_tpu_torch.utils.io_pool', 'photon_tpu_torch.game.tiles',\n"
         "        'photon_tpu_torch.game.stream_descent', 'photon_tpu_torch.serving.transport',\n"
         "        'photon_tpu_torch.serving.netfault', 'photon_tpu_torch.serving.replica_proc',\n"
-        "        'photon_tpu_torch.serving.supervisor'}\n"
+        "        'photon_tpu_torch.serving.supervisor', 'photon_tpu_torch.serving.observe',\n"
+        "        'photon_tpu_torch.telemetry.live'}\n"
         "assert want <= set(mods), sorted(want - set(mods))\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'photon_tpu', 'ml_dtypes')\n"

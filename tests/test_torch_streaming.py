@@ -457,3 +457,37 @@ def test_streaming_path_validates_data(tmp_path):
         with pytest.raises(ValueError, match="--stream"):
             train.run(train.build_parser().parse_args(
                 args + ["--data-validation", "off", *flag]))
+
+
+@pytest.mark.parametrize("mode", ["error", "warn", "off"])
+def test_resident_path_validates_data_as_the_reference(tmp_path, monkeypatch, mode):
+    """The resident (no --stream) train validates the loaded batch where
+    the reference does: ``error`` raises naming the NaN label in both
+    packages, ``warn`` trains in both, ``off`` never runs the check."""
+    from photon_tpu.data import validation as jax_validation
+    from photon_tpu.data.validation import DataValidationError as JaxValidationError
+    from photon_tpu.drivers import train as jax_train
+    from photon_tpu_torch.data import validation
+    from photon_tpu_torch.data.validation import DataValidationError
+
+    bad = tmp_path / "bad.libsvm"
+    bad.write_text("nan 1:1.0\n1 2:1.0\n-1 1:0.5\n")
+    drivers = {"port": (train, DataValidationError, validation, ["--backend", "cpu"]),
+               "jax": (jax_train, JaxValidationError, jax_validation, [])}
+    for name, (driver, error, module, extra) in drivers.items():
+        args = ["--input", str(bad), "--task", "logistic_regression",
+                "--max-iterations", "3", "--output-dir", str(tmp_path / name),
+                "--data-validation", mode, *extra]
+        if mode == "off":
+            def refuse(*a, **k):
+                raise AssertionError("validation ran under --data-validation off")
+
+            monkeypatch.setattr(module, "validate_batch", refuse)
+        run = lambda: driver.run(driver.build_parser().parse_args(args))  # noqa: E731
+        if mode == "error":
+            with pytest.raises(error, match="non_finite_label: 1 rows"):
+                run()
+            assert not (tmp_path / name / "best_model.avro").exists()
+        else:
+            assert run() is not None
+            assert (tmp_path / name / "best_model.avro").exists()
